@@ -1,0 +1,154 @@
+"""Table-batched embedding storage and pooled lookup (EmbeddingBag sum).
+
+The port of the forward half of ``dlrm_yx_tpu/ops/embedding.py``. Tables
+are grouped by (dim, size class); each group is one flat store with static
+row offsets, so a multi-table lookup is one gather.
+
+Stores: the JAX package keeps sub-128 dims in a packed physical layout
+``[total_rows/pack, 128]``, which is a pure row-major reshape of the logical
+``[total_rows, dim]`` rows (``pack_store`` / ``unpack_store``). The port
+keeps the logical layout, with the same group row offsets, ``ROW_ALIGN``
+and ``SENTINEL_ROWS``, so indices and stores compare element by element
+with the JAX package's; ``pack`` stays as metadata for that alignment.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+
+LANES = 128
+ROW_ALIGN = 8  # each table's row block starts 8-aligned (in PHYSICAL rows;
+               # packed groups align to 8*pack logical rows)
+SENTINEL_ROWS = 8  # dead PHYSICAL rows at the end of every group store,
+                   # never looked up (the JAX update kernels' scratch rows)
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+@dataclasses.dataclass(frozen=True)
+class TableGroup:
+    """Static metadata for one group of tables.
+
+    table_ids: canonical table indices in this group (order within group).
+    rows: true row counts per table.
+    dim: embedding dim shared by the group.
+    row_offsets: start row of each table inside the flat store.
+    total_rows: padded total (logical) rows of the store.
+    size_class: 0 = small-table group, 1 = big/unsplit.
+    pack: logical rows per 128-lane physical row of the JAX package's
+      store (128/dim for sub-128 dims dividing 128, else 1).
+    """
+
+    table_ids: Tuple[int, ...]
+    rows: Tuple[int, ...]
+    dim: int
+    row_offsets: Tuple[int, ...]
+    total_rows: int
+    size_class: int = 1
+    pack: int = 1
+
+    @property
+    def num_tables(self) -> int:
+        return len(self.table_ids)
+
+    @property
+    def store_shape(self) -> Tuple[int, int]:
+        """Physical shape of the JAX package's store of this group."""
+        return (self.total_rows // self.pack, self.dim * self.pack)
+
+
+def dim_pack(d: int) -> int:
+    """Logical rows per 128-lane physical row for dim d."""
+    return LANES // d if d < LANES and LANES % d == 0 else 1
+
+
+def pack_store(arr, group: TableGroup):
+    """[total_rows, dim] (logical) -> the JAX package's physical store
+    shape; a pure row-major reshape (numpy or torch)."""
+    return arr.reshape(group.store_shape)
+
+
+def unpack_store(arr, group: TableGroup):
+    """Physical store -> [total_rows, dim] logical rows."""
+    return arr.reshape(group.total_rows, group.dim)
+
+
+def build_table_groups(
+    emb_rows: Sequence[int],
+    emb_dims: Sequence[int],
+    table_ids: Optional[Sequence[int]] = None,
+    small_threshold: Optional[int] = None,
+) -> List[TableGroup]:
+    """Group tables by dim (and, with small_threshold, by rows <= threshold
+    vs above); compute aligned flat-store row offsets. Every group store
+    carries SENTINEL_ROWS * pack dead rows at the end."""
+    if table_ids is None:
+        table_ids = range(len(emb_rows))
+    by_key = {}
+    for t in table_ids:
+        n, d = emb_rows[t], emb_dims[t]
+        size_class = 0 if small_threshold is None or n <= small_threshold else 1
+        by_key.setdefault((int(d), size_class), []).append((int(t), int(n)))
+    groups = []
+    for key in sorted(by_key):
+        d, size_class = key
+        entries = by_key[key]
+        pack = dim_pack(d)
+        align = ROW_ALIGN * pack
+        offsets, cur = [], 0
+        for _, n in entries:
+            offsets.append(cur)
+            cur += _round_up(n, align)
+        groups.append(
+            TableGroup(
+                table_ids=tuple(t for t, _ in entries),
+                rows=tuple(n for _, n in entries),
+                dim=d,
+                row_offsets=tuple(offsets),
+                total_rows=cur + SENTINEL_ROWS * pack,
+                size_class=1 if small_threshold is None else size_class,
+                pack=pack,
+            )
+        )
+    return groups
+
+
+@functools.lru_cache(maxsize=256)
+def device_ints(values: Tuple[int, ...], device: torch.device) -> torch.Tensor:
+    """A static int32 vector on ``device``, copied there once: a fresh
+    host-to-device copy in every step would stall the host on the card."""
+    return torch.tensor(values, dtype=torch.int32, device=device)
+
+
+def global_row_ids(group: TableGroup, indices: torch.Tensor) -> torch.Tensor:
+    """Map per-table indices [T, B, L] to rows of the flat store."""
+    offs = device_ints(group.row_offsets, indices.device)
+    return indices + offs[:, None, None]
+
+
+def gather_rows(store: torch.Tensor, flat_gidx: torch.Tensor) -> torch.Tensor:
+    """Store rows at logical global ids -> [N, dim]."""
+    return store.index_select(0, flat_gidx)
+
+
+def lookup_group(
+    store: torch.Tensor,
+    group: TableGroup,
+    indices: torch.Tensor,
+    weights: torch.Tensor,
+) -> torch.Tensor:
+    """Pooled-sum lookup: store [total_rows, dim]; indices / weights
+    [T, B, L] (weight 0 = padding). Returns pooled [T, B, dim] f32 =
+    sum_l w * store[idx], pooled in f32 as the reference does."""
+    t, b, l = indices.shape
+    gidx = global_row_ids(group, indices).reshape(-1)
+    rows = gather_rows(store, gidx).float().reshape(t, b, l, group.dim)
+    if l == 1:
+        return rows[:, :, 0, :] * weights[:, :, 0, None]
+    return (weights[..., None] * rows).sum(dim=2)
