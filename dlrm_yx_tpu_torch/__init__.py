@@ -8,8 +8,12 @@ Plain tensor work is PyTorch; each TPU kernel of the JAX package becomes a
 hand-written CUDA kernel under ``csrc/``, built at first use by
 ``ops/_build.py``, with its plain PyTorch version beside it for CPU tensors.
 
-Ported so far: the serving path (``cli --inference-only`` ->
-``Trainer.evaluate`` -> ``make_eval_step``) with the fused dot-interaction
-kernel. Entry points run on ``cuda`` unless the caller passes
-``device="cpu"``. The package imports nothing of JAX or ``dlrm_yx_tpu``.
+Ported so far: the single-device training path (``cli`` ->
+``Trainer.fit`` -> ``make_train_step``, with the optimizers and their
+sparse-update routing in ``optim/``) and the serving path (``cli
+--inference-only`` -> ``Trainer.evaluate`` -> ``make_eval_step``), with
+three kernels: the fused dot interaction, the write-only sparse row update
+and the fused RWSAdagrad finish. Entry points run on ``cuda`` unless the
+caller passes ``device="cpu"``. The package imports nothing of JAX or
+``dlrm_yx_tpu``.
 """

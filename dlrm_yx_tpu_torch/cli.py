@@ -1,27 +1,33 @@
-"""Command-line entry point: serve a DLRM over random data.
+"""Command-line entry point: train or serve a DLRM over random data.
 
-The port of the ``--inference-only`` path of ``dlrm_yx_tpu/cli.py``. The
-flags keep the JAX package's names, defaults and meaning; one flag is new,
-``--device`` (``cuda`` by default; ``cpu`` for the tests). Flags of parts not
-yet ported are still recognised, and giving any of them raises
-``NotImplementedError`` instead of being ignored; so does a run without
-``--inference-only`` (training is not ported yet).
+The port of the single-device training and ``--inference-only`` paths of
+``dlrm_yx_tpu/cli.py``. The flags keep the JAX package's names, defaults
+and meaning; one flag is new, ``--device`` (``cuda`` by default; ``cpu``
+for the tests). Flags of parts not yet ported are still recognised, and
+giving any of them raises ``NotImplementedError`` instead of being
+ignored; so do ``--sparse-update-impl stream`` and
+``--no-write-only-update``, whose kernels (K5/K6, K4) are not ported yet.
 
-    python -m dlrm_yx_tpu_torch.cli --inference-only \
+    python -m dlrm_yx_tpu_torch.cli \
         --arch-embedding-size 1000-1000 --arch-sparse-feature-size 128 \
         --arch-mlp-bot 13-256-128 --arch-mlp-top 64-1 \
         --mini-batch-size 2048 --num-batches 4 --num-indices-per-lookup 1 \
-        --interaction-impl pallas --compute-dtype bfloat16
+        --optimizer rwsadagrad --learning-rate 0.01 \
+        --sparse-update-impl pallas --interaction-impl pallas \
+        --compute-dtype bfloat16 --loss-function bce
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 
 import numpy as np
 
 from dlrm_yx_tpu_torch.config import DLRMConfig, parse_int_list
 from dlrm_yx_tpu_torch.data.synthetic import RandomDataConfig, make_random_batches
+from dlrm_yx_tpu_torch.optim.lr_policy import LRPolicy
+from dlrm_yx_tpu_torch.optim.optimizer import OptConfig
 from dlrm_yx_tpu_torch.train.trainer import Trainer, TrainerConfig
 from dlrm_yx_tpu_torch.utils.logging import rank0_print
 
@@ -31,29 +37,26 @@ UNPORTED_FLAGS = (
     "md-round-dims", "qr-flag", "qr-threshold", "qr-operation",
     "qr-collisions", "activation-function", "data-trace-file", "data-set",
     "raw-data-file", "processed-data-file", "load-processed",
-    "data-randomize", "data-trace-enable-padding", "max-ind-range",
+    "data-randomize", "data-trace-enable-padding",
     "data-sub-sample-rate", "num-workers", "memory-map", "mlperf-bin-loader",
-    "mlperf-bin-shuffle", "nepochs", "learning-rate", "print-precision",
-    "optimizer", "dataset-multiprocessing", "use-tpu", "force-cpu-devices",
+    "mlperf-bin-shuffle", "print-precision",
+    "dataset-multiprocessing", "use-tpu", "force-cpu-devices",
     "use-gpu", "distributed", "mesh-data", "mesh-model", "shard-mode",
-    "sharder", "allocation", "sparse-update-impl", "exact-row-momentum",
-    "no-write-only-update", "stochastic-rounding", "debug-mode",
+    "sharder", "allocation", "stochastic-rounding", "debug-mode",
     "enable-profiling", "profile-out-dir", "plot-compute-graph",
     "tensor-board-filename", "save-model", "load-model", "ckpt-backend",
-    "save-onnx", "mlperf-acc-threshold", "mlperf-auc-threshold",
-    "mlperf-grad-accum-iter", "quantize-mlp-with-bit", "quantize-emb-with-bit",
-    "lr-num-warmup-steps", "lr-decay-start-step", "lr-num-decay-steps",
-    "batched-emb", "fbgemm-emb", "sync-dense-params", "bucket-size-mb",
-    "dist-backend", "local-rank", "pin-memory", "early-barrier",
-    "aggregated-allreduce", "test-num-workers", "collect-execution-graph",
-    "print-freq", "test-freq", "steps-per-dispatch", "prefetch-depth",
+    "save-onnx", "mlperf-grad-accum-iter", "quantize-mlp-with-bit",
+    "quantize-emb-with-bit", "batched-emb", "fbgemm-emb", "sync-dense-params",
+    "bucket-size-mb", "dist-backend", "local-rank", "pin-memory",
+    "early-barrier", "aggregated-allreduce", "test-num-workers",
+    "collect-execution-graph", "steps-per-dispatch", "prefetch-depth",
     "test-mini-batch-size", "print-time", "print-wall-time",
 )
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        description="Serve a Deep Learning Recommendation Model (DLRM) on a GPU"
+        description="Train or serve a Deep Learning Recommendation Model (DLRM) on a GPU"
     )
     # model arch
     p.add_argument("--arch-sparse-feature-size", type=int, default=2)
@@ -98,9 +101,35 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["float32", "bfloat16"])
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default; raises when absent) or cpu")
+    p.add_argument("--max-ind-range", type=int, default=-1,
+                   help="caps table rows in dataset mode, as in the JAX CLI; "
+                        "random data takes --arch-embedding-size as it is")
+    # training
+    p.add_argument("--nepochs", type=int, default=1)
+    p.add_argument("--learning-rate", type=float, default=0.01)
+    p.add_argument("--optimizer", type=str, default="sgd",
+                   choices=["sgd", "adagrad", "rwsadagrad"])
+    p.add_argument("--sparse-update-impl", type=str, default="xla",
+                   choices=["xla", "pallas", "stream"],
+                   help="pallas = the row-touching update kernels for big "
+                        "tables (write-only update, CUDA) and the fused "
+                        "RWSAdagrad finish for small ones; stream is not "
+                        "ported yet")
+    p.add_argument("--exact-row-momentum", action="store_true", default=False,
+                   help="coalesce duplicate rows before the kernel route's "
+                        "adagrad-family momentum")
+    p.add_argument("--no-write-only-update", action="store_true", default=False,
+                   help="not ported yet: it needs the sparse_rows_add kernel")
+    p.add_argument("--lr-num-warmup-steps", type=int, default=0)
+    p.add_argument("--lr-decay-start-step", type=int, default=0)
+    p.add_argument("--lr-num-decay-steps", type=int, default=0)
+    p.add_argument("--print-freq", type=int, default=1)
+    p.add_argument("--test-freq", type=int, default=-1)
     # mlperf
     p.add_argument("--inference-only", action="store_true", default=False)
     p.add_argument("--mlperf-logging", action="store_true", default=False)
+    p.add_argument("--mlperf-acc-threshold", type=float, default=0.0)
+    p.add_argument("--mlperf-auc-threshold", type=float, default=0.0)
     for flag in UNPORTED_FLAGS:
         p.add_argument(f"--{flag}", nargs="?", const=True, default=None,
                        help=argparse.SUPPRESS)
@@ -114,14 +143,20 @@ def check_ported(args) -> None:
             raise NotImplementedError(
                 f"--{flag} is not yet ported to dlrm_yx_tpu_torch"
             )
-    if not args.inference_only:
-        raise NotImplementedError(
-            "training is not yet ported to dlrm_yx_tpu_torch: pass --inference-only"
-        )
     if args.data_generation != "random":
         raise NotImplementedError(
             f"--data-generation={args.data_generation} is not yet ported "
             "(random only)"
+        )
+    if args.sparse_update_impl == "stream":
+        raise NotImplementedError(
+            "--sparse-update-impl stream is not yet ported to dlrm_yx_tpu_torch: "
+            "it needs sorted_stream_apply / sorted_stream_add (K5/K6)"
+        )
+    if args.no_write_only_update:
+        raise NotImplementedError(
+            "--no-write-only-update is not yet ported to dlrm_yx_tpu_torch: "
+            "it needs the sparse_rows_add kernel (K4)"
         )
 
 
@@ -139,12 +174,16 @@ def config_from_args(args) -> DLRMConfig:
         emb_dtype=args.emb_dtype,
         lookup_impl=args.lookup_impl,
         interaction_impl=args.interaction_impl,
+        sparse_update_impl=args.sparse_update_impl,
+        exact_row_momentum=args.exact_row_momentum,
         emb_split_threshold=args.emb_split_threshold,
     )
 
 
-def make_data(args, cfg: DLRMConfig):
-    """The eval batches: the JAX CLI's random test set (seed + 1)."""
+def make_data(args, cfg: DLRMConfig, train: bool = True):
+    """The JAX CLI's random batches: (train, test), test drawn with
+    seed + 1; without ``train`` only the test batches are drawn (train is
+    None)."""
     nb = args.num_batches or int(np.ceil(args.data_size / args.mini_batch_size))
     dc = RandomDataConfig(
         emb_rows=cfg.emb_rows, m_den=cfg.ln_bot[0],
@@ -156,18 +195,69 @@ def make_data(args, cfg: DLRMConfig):
         rand_data_mu=args.rand_data_mu, rand_data_sigma=args.rand_data_sigma,
         round_targets=bool(args.round_targets), seed=args.numpy_rand_seed,
     )
-    return make_random_batches(dc, seed=args.numpy_rand_seed + 1)
+    test = make_random_batches(dc, seed=args.numpy_rand_seed + 1)
+    return (make_random_batches(dc) if train else None), test
+
+
+def _measure_dup_density(cfg: DLRMConfig, train):
+    """Unique rows per occurrence of the big (kernel-eligible) tables on
+    the first batch: the measured statistic behind the dense-vs-kernel
+    routing (``config.dup_density_hint``). None when there is no big table
+    or no batch."""
+    if not train:
+        return None
+    idx = np.asarray(train[0].indices)  # [T, B, L]
+    thr = cfg.emb_split_threshold or 0
+    big = [t for t, n in enumerate(cfg.emb_rows) if not thr or n > thr]
+    if not big:
+        return None
+    uniq = sum(len(np.unique(idx[t])) for t in big)
+    total = len(big) * idx.shape[1] * idx.shape[2]
+    return max(1e-3, min(1.0, uniq / max(total, 1)))
 
 
 def main(argv=None):
+    """Trains (and evaluates at the end of each epoch, or every
+    --test-freq iterations) and returns the last eval's metrics; with
+    --inference-only evaluates the initial model and returns its metrics."""
     args = build_parser().parse_args(argv)
     check_ported(args)
+    np.random.seed(args.numpy_rand_seed)
     cfg = config_from_args(args)
-    tcfg = TrainerConfig(mlperf_logging=args.mlperf_logging, seed=args.numpy_rand_seed)
-    trainer = Trainer(cfg, tcfg, device=args.device)
-    metrics = trainer.evaluate(make_data(args, cfg))
-    rank0_print("inference metrics:", metrics)
-    return metrics
+    opt = OptConfig(name=args.optimizer, lr=args.learning_rate)
+    lr_policy = None
+    if args.lr_num_warmup_steps or args.lr_num_decay_steps:
+        lr_policy = LRPolicy(
+            base_lr=args.learning_rate,
+            num_warmup_steps=args.lr_num_warmup_steps,
+            decay_start_step=args.lr_decay_start_step,
+            num_decay_steps=args.lr_num_decay_steps,
+        )
+    tcfg = TrainerConfig(
+        nepochs=args.nepochs,
+        print_freq=args.print_freq,
+        test_freq=max(args.test_freq, 0),
+        mlperf_logging=args.mlperf_logging,
+        mlperf_acc_threshold=args.mlperf_acc_threshold,
+        mlperf_auc_threshold=args.mlperf_auc_threshold,
+        seed=args.numpy_rand_seed,
+    )
+    train, test = make_data(args, cfg, train=not args.inference_only)
+    if cfg.sparse_update_impl == "pallas" and cfg.dup_density_hint <= 0:
+        hint = _measure_dup_density(cfg, train)
+        if hint is not None:
+            cfg = dataclasses.replace(cfg, dup_density_hint=hint)
+            rank0_print(
+                f"duplicate-density hint from first batch: {hint:.3f} "
+                "unique rows per occurrence (drives the dense-vs-kernel "
+                "update crossover)"
+            )
+    trainer = Trainer(cfg, opt, tcfg, lr_policy, device=args.device)
+    if args.inference_only:
+        metrics = trainer.evaluate(test)
+        rank0_print("inference metrics:", metrics)
+        return metrics
+    return trainer.fit(train, lambda: test)
 
 
 if __name__ == "__main__":

@@ -3,11 +3,11 @@
 The port's own copy of ``dlrm_yx_tpu/config.py`` (standard library only), so
 that one ``DLRMConfig`` describes the same model in both packages. The
 arch-consistency checks mirror the reference's ``dlrm_s_pytorch.py:1443-1507``
-(``ln_top[0] = F*(F-1)/2 [+F] + D``). Fields that only steer the JAX
-package's TPU kernels or its training path (``lookup_impl``,
-``sparse_update_impl``, ``exact_row_momentum``, ``write_only_update``,
-``dup_density_hint``, ``stochastic_rounding``) are kept so a config compares
-field for field; the serving path does not read them.
+(``ln_top[0] = F*(F-1)/2 [+F] + D``). The training path reads the update
+fields (``sparse_update_impl``, ``exact_row_momentum``,
+``write_only_update``, ``dup_density_hint``, ``stochastic_rounding``) as
+the JAX package does; ``lookup_impl`` is kept so a config compares field
+for field, and both of its values take the same gather.
 """
 
 from __future__ import annotations

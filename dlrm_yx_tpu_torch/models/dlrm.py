@@ -170,14 +170,22 @@ def lookup_all_groups(
     groups: Sequence[TableGroup],
     indices: torch.Tensor,
     weights: torch.Tensor,
-) -> List[torch.Tensor]:
-    """Pooled lookups for every group: [pooled_g [T_g, B, dim_g]]."""
+    want_rows: bool = False,
+):
+    """Pooled lookups for every group: [pooled_g [T_g, B, dim_g]]. With
+    ``want_rows`` also the gathered rows per group ([T_g, B, dim_g] f32
+    for an L=1 group, else None), which the write-only sparse update
+    reuses."""
+    pooled, rows = [], []
     with phase_scope("embedding_lookup"):
-        return [
-            lookup_group(params["emb"][gi], g, group_indices(g, indices),
-                         group_indices(g, weights))
-            for gi, g in enumerate(groups)
-        ]
+        for gi, g in enumerate(groups):
+            idx_g = group_indices(g, indices)
+            rows_ok = want_rows and idx_g.shape[2] == 1
+            res = lookup_group(params["emb"][gi], g, idx_g,
+                               group_indices(g, weights), return_rows=rows_ok)
+            pooled.append(res[0] if rows_ok else res)
+            rows.append(res[1] if rows_ok else None)
+    return (pooled, rows) if want_rows else pooled
 
 
 def assemble_slots(
@@ -187,15 +195,19 @@ def assemble_slots(
 ) -> torch.Tensor:
     """Reassemble group pooled outputs into [B, S, D] canonical slot order,
     applying the split trick (dim k*D -> k slots of D;
-    dlrm_s_pytorch.py:579-585). With one group of every table it returns a
-    transposed view, which the fused interaction reads without a copy."""
+    dlrm_s_pytorch.py:579-585). When every table is one slot of dim D (the
+    Criteo configs) it is one concat and one row gather (none for a single
+    group), returned as a transposed view that the fused interaction reads
+    without a copy; the backward is then one scatter, not one per table."""
     d = config.base_dim
-    if (
-        len(groups) == 1
-        and groups[0].dim == d
-        and groups[0].num_tables == config.num_tables
-    ):
-        return pooled_list[0].transpose(0, 1)  # [B, T, D]
+    if all(g.dim == d for g in groups) and all(k == 1 for k in config.slots_per_table):
+        order = [t for g in groups for t in g.table_ids]
+        t = pooled_list[0] if len(groups) == 1 else torch.cat(list(pooled_list), 0)
+        if order != sorted(order):
+            where = {tid: i for i, tid in enumerate(order)}
+            perm = tuple(where[tid] for tid in range(config.num_tables))
+            t = t.index_select(0, device_ints(perm, t.device))
+        return t.transpose(0, 1)  # [B, T, D]
     per_table = {}
     for g, pooled in zip(groups, pooled_list):
         for i, tid in enumerate(g.table_ids):
@@ -217,7 +229,9 @@ def forward_from_pooled(
     dense_x: torch.Tensor,
     pooled_list: Sequence[torch.Tensor],
 ) -> torch.Tensor:
-    """bottom MLP + interaction + top MLP from pooled embeddings -> logits."""
+    """bottom MLP + interaction + top MLP from pooled embeddings -> logits.
+    Differentiable with respect to the dense params and the pooled
+    tensors; the stores are reached only through the sparse update."""
     cdt = DTYPES[config.compute_dtype]
     with phase_scope("bottom_mlp"):
         x = apply_mlp(dense_x, params["bot"], config.sigmoid_bot, cdt)

@@ -1,0 +1,104 @@
+"""Row-wise Adagrad finish over an exactly coalesced dense gradient.
+
+The port of ``rwsadagrad_dense_finish`` in
+``dlrm_yx_tpu/ops/pallas_dense_finish.py``: the last step of the
+dense-accumulate RWSAdagrad update (``optim/optimizer.py``'s dense
+branch). In place, for every row r of ``store [R, dim]`` with
+``g = dense_g[r]``:
+
+    mom      = sum(g * g) / dim
+    acc[r]  += mom
+    store[r] = store[r] - (lr * g) / (sqrt(acc[r]) + eps)
+
+in f32; a bf16 store is rounded to nearest even at write-back. ``acc`` is
+the 1-D per-row momentum and may be longer than R (``acc_len`` padding);
+its tail is kept. A row with a zero gradient comes back bit-identical.
+
+The port keeps logical ``[R, dim]`` stores, so the JAX package's packed
+layout (pack logical rows per 128-lane physical row) needs nothing here:
+each logical row is a row.
+
+On a CUDA tensor the wrapper launches ``csrc/rwsadagrad_dense_finish.cu``;
+on a CPU tensor it runs ``rwsadagrad_dense_finish_reference``, the plain
+PyTorch version. There is no fallback from one to the other.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from dlrm_yx_tpu_torch.ops import _build
+
+
+def _check(store, acc, dense_g, dim):
+    if store.dim() != 2 or store.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"want a 2-D f32 or bf16 store, got {store.dtype} "
+                        f"{tuple(store.shape)}")
+    r, w = store.shape
+    if w != dim:
+        raise ValueError(f"dim {dim} != store width {w} (the port's stores are logical rows)")
+    if dense_g.shape != (r, w) or dense_g.dtype != torch.float32:
+        raise ValueError(f"want dense_g [{r}, {w}] f32, got {dense_g.dtype} "
+                         f"{tuple(dense_g.shape)}")
+    if acc.dim() != 1 or acc.dtype != torch.float32 or acc.shape[0] < r:
+        raise ValueError(f"want acc 1-D f32 of at least {r} rows, got {acc.dtype} "
+                         f"{tuple(acc.shape)}")
+    if len({t.device for t in (store, acc, dense_g)}) != 1:
+        raise ValueError("store, acc and dense_g must share a device")
+
+
+def rwsadagrad_dense_finish_reference(
+    store: torch.Tensor, acc: torch.Tensor, dense_g: torch.Tensor,
+    lr: float, dim: int, eps: float,
+):
+    """Plain PyTorch version, in place; returns (store, acc)."""
+    r = store.shape[0]
+    head = acc[:r]
+    head.add_((dense_g * dense_g).sum(dim=1) / dim)
+    denom = head.sqrt() + eps
+    store.copy_(store.float() - lr * dense_g / denom[:, None])
+    return store, acc
+
+
+def rwsadagrad_dense_finish(
+    store: torch.Tensor, acc: torch.Tensor, dense_g: torch.Tensor,
+    lr: float, dim: int, eps: float,
+):
+    """store [R, dim] f32 or bf16, acc [>= R] f32, dense_g [R, dim] f32;
+    updates store and acc in place and returns them.
+
+    A CUDA call launches the kernel on the current stream and adds one to
+    ``rwsadagrad_dense_finish.launches``; a CPU call runs the plain
+    version."""
+    _check(store, acc, dense_g, dim)
+    if store.device.type == "cpu":
+        return rwsadagrad_dense_finish_reference(store, acc, dense_g, lr, dim, eps)
+    if store.device.type != "cuda":
+        raise ValueError(f"unsupported device {store.device}")
+    if not (store.is_contiguous() and dense_g.is_contiguous() and acc.is_contiguous()):
+        raise ValueError("store, acc and dense_g must be contiguous")
+    if dim % 4 == 0 and (store.data_ptr() % 16 or dense_g.data_ptr() % 16):
+        raise ValueError("the kernel's 16-byte loads need 16-byte aligned store and dense_g")
+    err = _kernel()(
+        store.data_ptr(), int(store.dtype == torch.bfloat16), acc.data_ptr(),
+        dense_g.data_ptr(), store.shape[0], dim, float(lr), float(eps),
+        store.device.index, torch.cuda.current_stream(store.device).cuda_stream,
+    )
+    if err:
+        raise RuntimeError(f"rwsadagrad_dense_finish kernel launch failed: CUDA error {err}")
+    rwsadagrad_dense_finish.launches += 1
+    return store, acc
+
+
+rwsadagrad_dense_finish.launches = 0
+
+
+def _kernel():
+    fn = _build.load("rwsadagrad_dense_finish").rwsadagrad_dense_finish
+    if fn.argtypes is None:
+        i, p, f = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
+        fn.argtypes = [p, i, p, p, ctypes.c_longlong, i, f, f, i, p]
+        fn.restype = i
+    return fn

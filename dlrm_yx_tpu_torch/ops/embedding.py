@@ -1,8 +1,12 @@
-"""Table-batched embedding storage and pooled lookup (EmbeddingBag sum).
+"""Table-batched embedding storage, pooled lookup (EmbeddingBag sum) and
+its row gradients.
 
-The port of the forward half of ``dlrm_yx_tpu/ops/embedding.py``. Tables
-are grouped by (dim, size class); each group is one flat store with static
-row offsets, so a multi-table lookup is one gather.
+The port of ``dlrm_yx_tpu/ops/embedding.py`` (weighted pooling's
+``vw_row_grads`` is not ported yet). Tables are grouped by (dim, size
+class); each group is one flat store with static row offsets, so a
+multi-table lookup is one gather. The stores take no autograd gradient:
+``flat_row_grads`` expands the pooled cotangent into per-row updates that
+the optimizer applies sparsely.
 
 Stores: the JAX package keeps sub-128 dims in a packed physical layout
 ``[total_rows/pack, 128]``, which is a pure row-major reshape of the logical
@@ -122,8 +126,11 @@ def build_table_groups(
 @functools.lru_cache(maxsize=256)
 def device_ints(values: Tuple[int, ...], device: torch.device) -> torch.Tensor:
     """A static int32 vector on ``device``, copied there once: a fresh
-    host-to-device copy in every step would stall the host on the card."""
-    return torch.tensor(values, dtype=torch.int32, device=device)
+    host-to-device copy in every step would stall the host on the card.
+    Made outside inference mode, so that a vector first asked for by an
+    eval step can serve a train step's autograd later."""
+    with torch.inference_mode(False):
+        return torch.tensor(values, dtype=torch.int32, device=device)
 
 
 def global_row_ids(group: TableGroup, indices: torch.Tensor) -> torch.Tensor:
@@ -142,13 +149,57 @@ def lookup_group(
     group: TableGroup,
     indices: torch.Tensor,
     weights: torch.Tensor,
-) -> torch.Tensor:
+    return_rows: bool = False,
+):
     """Pooled-sum lookup: store [total_rows, dim]; indices / weights
     [T, B, L] (weight 0 = padding). Returns pooled [T, B, dim] f32 =
-    sum_l w * store[idx], pooled in f32 as the reference does."""
+    sum_l w * store[idx], pooled in f32 as the reference does.
+
+    With ``return_rows`` at L=1 it also returns the gathered rows
+    [T, B, dim] f32: the rows the optimizer will update, which lets the
+    write-only update skip reading them again."""
     t, b, l = indices.shape
     gidx = global_row_ids(group, indices).reshape(-1)
     rows = gather_rows(store, gidx).float().reshape(t, b, l, group.dim)
     if l == 1:
-        return rows[:, :, 0, :] * weights[:, :, 0, None]
+        r1 = rows[:, :, 0, :]
+        pooled = r1 * weights[:, :, 0, None]
+        return (pooled, r1) if return_rows else pooled
     return (weights[..., None] * rows).sum(dim=2)
+
+
+def _pad_l_sublane(gidx: torch.Tensor, w: torch.Tensor, fill_idx: int):
+    """Pad the L axis of [T, B, L] ids / weights to a multiple of 8 with
+    ``fill_idx`` ids and zero weights, as the JAX package does for packed
+    groups (its TPU layout needs it). The port keeps the padding so that a
+    packed group's update sees the same K items, the same routing and the
+    same inactive tail."""
+    l = gidx.shape[2]
+    pad = (-l) % 8
+    if pad == 0 or l == 1:
+        return gidx, w
+    return (torch.nn.functional.pad(gidx, (0, pad), value=fill_idx),
+            torch.nn.functional.pad(w, (0, pad)))
+
+
+def flat_row_grads(
+    group: TableGroup,
+    indices: torch.Tensor,
+    weights: torch.Tensor,
+    g_pooled: torch.Tensor,
+):
+    """Expand the pooled-output cotangent into per-row gradient
+    contributions: d loss / d store[idx[t,b,l]] += w[t,b,l] * g_pooled[t,b]
+    (duplicates not yet coalesced).
+
+    Returns (flat_idx [K] global row ids, flat_g [K, dim] f32 logical
+    rows). Padded entries (weight 0) keep their row id and contribute zero;
+    a packed group pads L to a multiple of 8 with the sentinel id
+    ``total_rows`` (see ``_pad_l_sublane``)."""
+    gidx = global_row_ids(group, indices)
+    w = weights
+    if group.pack > 1:
+        gidx, w = _pad_l_sublane(gidx, w, group.total_rows)
+    t, b, l = gidx.shape
+    flat_g = (w[..., None] * g_pooled[:, :, None, :]).reshape(t * b * l, group.dim)
+    return gidx.reshape(-1), flat_g

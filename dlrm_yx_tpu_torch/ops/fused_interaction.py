@@ -8,11 +8,18 @@ feature ``x[b]`` in lanes ``[0, D)`` followed by the ``P`` pair products
 (row-major), where ``Tc`` is T rounded to ``compute_dtype`` and every dot
 accumulates in f32. offset is -1, or 0 with ``interact_itself``.
 
-On a CUDA tensor the wrapper launches the hand-written kernel
+On a CUDA tensor the forward launches the hand-written kernel
 ``csrc/fused_interaction.cu`` (its source note gives the design and the
 bound); on a CPU tensor it runs ``fused_interaction_reference``, the plain
 PyTorch version of the same function. There is no fallback from one to the
-other. The backward is not needed for serving and is not here yet.
+other.
+
+``fused_interaction`` is an autograd Function on both devices, so the
+kernel's output carries a gradient. Its backward is a torch expression of
+the JAX package's ``_vjp_bwd`` (``pallas_interaction.py:176-203``, XLA
+there too, not Pallas): the pair gradients scattered into a symmetric
+``[B, F, F]`` dz (a diagonal pair counts twice), ``dt = dz @ T`` in f32
+with T rounded to the compute dtype, split into the x and ly gradients.
 """
 
 from __future__ import annotations
@@ -63,17 +70,8 @@ def _check(x: torch.Tensor, ly: torch.Tensor, compute_dtype: torch.dtype):
         raise TypeError(f"compute_dtype must be f32 or bf16, got {compute_dtype}")
 
 
-def fused_interaction(
-    x: torch.Tensor,
-    ly: torch.Tensor,
-    interact_itself: bool = False,
-    compute_dtype: torch.dtype = torch.bfloat16,
-) -> torch.Tensor:
-    """x [B, D] f32, ly [B, S, D] f32 -> [B, D + P] f32.
-
-    A CUDA call launches the kernel on the current stream and adds one to
-    ``fused_interaction.launches``; a CPU call runs the plain version."""
-    _check(x, ly, compute_dtype)
+def _forward(x, ly, interact_itself, compute_dtype):
+    """The forward on either device; a CUDA call launches the kernel."""
     if x.device.type == "cpu":
         return fused_interaction_reference(x, ly, interact_itself, compute_dtype)
     if x.device.type != "cuda":
@@ -100,6 +98,45 @@ def fused_interaction(
         raise RuntimeError(f"fused_interaction kernel launch failed: CUDA error {err}")
     fused_interaction.launches += 1
     return out
+
+
+class _FusedInteraction(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ly, interact_itself, compute_dtype):
+        ctx.save_for_backward(x, ly)
+        ctx.interact_itself = interact_itself
+        ctx.compute_dtype = compute_dtype
+        return _forward(x, ly, interact_itself, compute_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, ly = ctx.saved_tensors
+        b, d = x.shape
+        f = ly.shape[1] + 1
+        li, lj = torch.tril_indices(f, f, 0 if ctx.interact_itself else -1,
+                                    device=x.device)
+        gz = g[:, d:]
+        dz = g.new_zeros(b, f * f)
+        dz.index_add_(1, li * f + lj, gz)
+        dz.index_add_(1, lj * f + li, gz)
+        t = torch.cat([x[:, None, :], ly], dim=1).to(ctx.compute_dtype).float()
+        dt = torch.bmm(dz.view(b, f, f), t)
+        return g[:, :d] + dt[:, 0], dt[:, 1:], None, None
+
+
+def fused_interaction(
+    x: torch.Tensor,
+    ly: torch.Tensor,
+    interact_itself: bool = False,
+    compute_dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """x [B, D] f32, ly [B, S, D] f32 -> [B, D + P] f32, differentiable
+    with respect to x and ly.
+
+    A CUDA call launches the kernel on the current stream and adds one to
+    ``fused_interaction.launches``; a CPU call runs the plain version."""
+    _check(x, ly, compute_dtype)
+    return _FusedInteraction.apply(x, ly, interact_itself, compute_dtype)
 
 
 fused_interaction.launches = 0

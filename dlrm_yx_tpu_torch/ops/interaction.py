@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from dlrm_yx_tpu_torch.ops.fused_interaction import fused_interaction
+from dlrm_yx_tpu_torch.ops.mlp import product_f32_out
 
 
 def tril_flat_indices(f: int, offset: int) -> np.ndarray:
@@ -50,11 +51,7 @@ def interact_features(
     if op == "dot":
         f = t.shape[1]
         tc = t.to(compute_dtype)
-        if compute_dtype == torch.float32 or t.device.type == "cpu":
-            tc = tc.float()
-            z = torch.bmm(tc, tc.transpose(1, 2))
-        else:
-            z = torch.bmm(tc, tc.transpose(1, 2), out_dtype=torch.float32)
+        z = product_f32_out(tc, tc.transpose(1, 2))
         li, lj = torch.tril_indices(f, f, 0 if interact_itself else -1,
                                     device=x.device)
         return torch.cat([x, z[:, li, lj]], dim=1)

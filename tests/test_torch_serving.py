@@ -184,9 +184,13 @@ def test_cli_rejects_unported_flags(extra):
 
 
 def test_cli_without_inference_only_is_not_ported():
-    flags = [f for f in CLI_FLAGS if f != "--inference-only"]
-    with pytest.raises(NotImplementedError, match="training is not yet ported"):
-        port_cli.main(flags + ["--device", "cpu"])
+    """Training is ported (tests/test_torch_training.py); its options whose
+    kernels or parts are not raise."""
+    flags = [f for f in CLI_FLAGS if f != "--inference-only"] + ["--device", "cpu"]
+    for extra in (["--sparse-update-impl", "stream"], ["--no-write-only-update"],
+                  ["--steps-per-dispatch", "4"]):
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            port_cli.main(flags + extra)
 
 
 def test_cuda_asked_for_and_absent_raises(monkeypatch):
