@@ -12,6 +12,11 @@ no result):
   a. kernel: K2 (sparse_rows_overwrite) and K3 (rwsadagrad_dense_finish)
      against their plain versions at the training path's shapes, with the
      same numbers and, for K2, one PyTorch call's (``index_add_``);
+  f. kernel: K5 (sorted_stream_apply) and K6 (sorted_stream_add) against
+     their plain versions on the reference benchmark's store (8 x 1M rows
+     x 64 f32) with one device batch's sorted occurrences (K5 at batch 2048,
+     K6 at batch 4096, the shapes their paths give them), with the same
+     numbers and, for K6, ``index_add_``'s;
   4. serve: ``dlrm_yx_tpu_torch.cli.main --inference-only`` on the full-width
      Terabyte-MLPerf DLRM (26 tables capped at 1M rows, dim 128, batch 2048,
      bf16, --interaction-impl pallas), with the launch counts set to 0 just
@@ -21,24 +26,41 @@ no result):
      batches, then an eval), with the launch counts set to 0 just before
      and read just after: K2 and K3 once per step, K1 once per step and eval
      batch; finite losses; the touched rows of the big store changed;
+  g. train-l100: the reference benchmark's command line
+     (bench/dlrm_tpu_benchmark.sh: 8 tables of 1M rows x 64, L=100, batch
+     2048, SGD, --sparse-update-impl pallas, random-device data) through
+     ``cli.main``, a few steps and an eval: K5 once per step, nothing else;
+     finite losses; the big store changed where live lookups touched it;
+  h. train-l100: the same model with RWSAdagrad, --sparse-update-impl stream
+     and batch 4096, whose grad table is over the K5 budget: K6 once per
+     step, nothing else;
   5. reference: the eval step on the card against the same step on the CPU
      (the kernels' plain versions) on a small model;
   c. reference: three train steps on the card against the CPU on a small
      two-group model, routed through K2 and K3;
+  i. reference: the same on a small L=100 model through K5, and through K6
+     with the grad-table budget at 1 byte;
   6. throughput: the eval step at full width, CUDA-event timed, with the
      fused kernel and with the plain interaction, in turns;
   d. throughput: the train step at full width, CUDA-event timed over 20
      steps after warm-up, with either interaction, in turns;
+  j. throughput: the L=100 train step at batch 2048, SGD pallas (the
+     benchmark) and RWSAdagrad stream, in turns;
   7. profile: a torch.profiler window over the serving step: device busy
      share and the kernels that take the time;
-  e. profile: a torch.profiler window over the train step.
-Then a JSON line of the kernels, nvidia-smi's line, and the result line.
+  e. profile: a torch.profiler window over the train step;
+  k. profile: the same over both L=100 steps, with the device time by kind
+     of kernel (K5, sort, gather, scatter, GEMM).
+Then a JSON line of the kernels (launches from the path each kernel serves:
+K1-K3 phase b, K5 phase g, K6 phase h), nvidia-smi's line, and the result
+line.
 
 Bound: bytes each input read once and each output written once over
 3.35 TB/s, or operations over the card's peak for their type (67 TFLOP/s
 f32 outside the tensor cores), whichever is larger (H100 SXM data sheet).
 Where the work depends on the data (K2's duplicates and inactive items,
-K3's untouched rows), the bytes are those this run's inputs need.
+K3's untouched rows, the distinct rows K6 updates and those K5 updates with
+a nonzero weight), the bytes are those this run's inputs need.
 """
 
 import json
@@ -47,6 +69,7 @@ import subprocess
 import sys
 import time
 
+T_START = time.perf_counter()
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 N_SERVE_BATCHES = 4
@@ -161,8 +184,7 @@ def serve_main_path(rows):
     for key in ("accuracy", "roc_auc", "streaming_auc"):
         if not math.isfinite(metrics[key]):
             fail(f"serving metric {key} = {metrics[key]} is not finite")
-    want = {"fused_interaction": N_SERVE_BATCHES, "sparse_rows_overwrite": 0,
-            "rwsadagrad_dense_finish": 0}
+    want = only(fused_interaction=N_SERVE_BATCHES)
     if launches != want:
         fail(f"serving run launched {launches}, want {want}")
     say("serve", f"cli --inference-only, 26 tables <=1M rows x 128, B={BATCH}, bf16, "
@@ -234,23 +256,13 @@ def serving_throughput(rows):
     steps = {impl: make_eval_step(dataclasses.replace(cfg, interaction_impl=impl))
              for impl in ("pallas", "xla")}
 
-    def run(impl, n):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        for _ in range(n):
-            preds, loss = steps[impl](params, batch)
-        e1.record()
-        e1.synchronize()
+    def check(impl, out):
+        preds, loss = out
         if not math.isfinite(loss.item()) or not torch.isfinite(preds).all():
             fail(f"serving step ({impl}) gave non-finite output")
-        return e0.elapsed_time(e1) / n
 
-    for impl in steps:
-        run(impl, 5)  # warm-up
-    times = {"pallas": [], "xla": []}
-    for impl in ("pallas", "xla", "xla", "pallas"):
-        times[impl].append(run(impl, 20))
+    times = time_in_turns({impl: (lambda s=s: s(params, batch)) for impl, s in steps.items()},
+                          check)
     for impl, ts in times.items():
         ms = statistics.mean(ts)
         say("throughput", f"eval step, interaction {impl}: {ms:.4f} ms/step "
@@ -432,20 +444,34 @@ def launch_counters():
     from dlrm_yx_tpu_torch.ops.dense_finish import rwsadagrad_dense_finish
     from dlrm_yx_tpu_torch.ops.fused_interaction import fused_interaction
     from dlrm_yx_tpu_torch.ops.sparse_rows_overwrite import sparse_rows_overwrite
+    from dlrm_yx_tpu_torch.ops.stream_update import sorted_stream_add, sorted_stream_apply
 
     return {"fused_interaction": fused_interaction,
             "sparse_rows_overwrite": sparse_rows_overwrite,
-            "rwsadagrad_dense_finish": rwsadagrad_dense_finish}
+            "rwsadagrad_dense_finish": rwsadagrad_dense_finish,
+            "sorted_stream_apply": sorted_stream_apply,
+            "sorted_stream_add": sorted_stream_add}
 
 
-def train_main_path(rows, big_index):
-    """Phase b: the CLI training run; returns each kernel's launch count."""
+def only(**launched):
+    """A launch-count dict: the named kernels' counts, every other kernel 0."""
+    return {name: launched.get(name, 0) for name in launch_counters()}
+
+
+def cli_training_run(phase, what, argv, n_steps, want, big_index):
+    """A CLI training run (``cli.main`` without --inference-only: n_steps
+    steps, then an eval of as many batches), with the launch counts set to
+    0 just before and read just after. Fails unless the kernels launched as
+    ``want`` says, the losses and eval metrics are finite, and the big
+    store changed where it should: every row that a live (nonzero-weight)
+    lookup of the first batch touched changed, and no row that no live
+    lookup touched (once the loss saturates, a later step's samples may
+    have an exactly zero gradient). Returns the launch counts."""
     import contextlib
     import io
     import math
     import re
 
-    import numpy as np
     import torch
 
     from dlrm_yx_tpu_torch import cli
@@ -465,11 +491,6 @@ def train_main_path(rows, big_index):
             self.trained_on = train
             return super().fit(train, test)
 
-    argv = terabyte_argv(rows) + [
-        "--num-batches", str(N_TRAIN_BATCHES), "--optimizer", "rwsadagrad",
-        "--learning-rate", str(LR), "--sparse-update-impl", "pallas",
-        "--print-freq", "1",
-    ]
     counters = launch_counters()
     out = io.StringIO()
     cli.Trainer = Recorded
@@ -487,39 +508,56 @@ def train_main_path(rows, big_index):
     losses = [float(x) for x in re.findall(r"loss ([-+.\deE]+|nan|inf)", text)]
     for line in text.splitlines():
         if not line.startswith(":::MLLOG"):
-            say("train", f"  cli: {line}")
-    want = {"fused_interaction": 2 * N_TRAIN_BATCHES,
-            "sparse_rows_overwrite": N_TRAIN_BATCHES,
-            "rwsadagrad_dense_finish": N_TRAIN_BATCHES}
+            say(phase, f"  cli: {line}")
     if launches != want:
-        fail(f"training run launched {launches}, want {want}")
-    if len(losses) != N_TRAIN_BATCHES or not all(map(math.isfinite, losses)):
-        fail(f"training losses {losses}: want {N_TRAIN_BATCHES} finite values")
-    for key in ("accuracy", "roc_auc", "streaming_auc"):
-        if not math.isfinite(metrics[key]):
-            fail(f"post-training metric {key} = {metrics[key]} is not finite")
+        fail(f"{what}: launched {launches}, want {want}")
+    if len(losses) != n_steps or not all(map(math.isfinite, losses)):
+        fail(f"{what}: losses {losses}, want {n_steps} finite values")
+    # the eval always gives accuracy and streaming_auc; roc_auc with --mlperf-logging
+    keys = ("accuracy", "streaming_auc") + ("roc_auc",) * ("--mlperf-logging" in argv)
+    for key in keys:
+        if not math.isfinite(metrics.get(key, math.nan)):
+            fail(f"{what}: post-training metric {key} = {metrics.get(key)} is missing or "
+                 f"not finite")
     trainer = made[0]
     group = trainer.groups[big_index]
-    ids = np.concatenate([
-        (b.indices[list(group.table_ids), :, 0]
-         + np.array(group.row_offsets)[:, None]).ravel() for b in trainer.trained_on])
-    ids = torch.from_numpy(np.unique(ids)).cuda()
-    after = trainer.params["emb"][big_index]
-    moved = (after[ids] != trainer.big_before[ids]).any(dim=1)
-    untouched = torch.ones(after.shape[0], dtype=torch.bool, device="cuda")
-    untouched[ids] = False
-    still = torch.equal(after[untouched], trainer.big_before[untouched])
-    if not moved.all().item() or not still:
-        fail(f"big store: {int(moved.sum())} of {ids.numel()} touched rows changed, "
-             f"untouched rows unchanged: {still}")
-    say("train", f"cli training, 26 tables <=1M rows x 128, B={BATCH}, bf16, rwsadagrad, "
-                 f"sparse-update pallas, pallas interaction: {N_TRAIN_BATCHES} steps + "
-                 f"{N_TRAIN_BATCHES} eval batches in {seconds:.1f} s (host init and "
-                 f"data included); losses {losses}; eval accuracy "
-                 f"{metrics['accuracy']:.6f}, roc_auc {metrics['roc_auc']:.6f}; all "
-                 f"{ids.numel()} touched big-store rows changed, the rest did not; "
-                 f"launches {launches}")
+    tables = torch.tensor(group.table_ids, device="cuda")
+    offs = torch.tensor(group.row_offsets, device="cuda")[:, None, None]
+    live = [torch.zeros(group.total_rows, dtype=torch.bool, device="cuda") for _ in range(2)]
+    for i, b in enumerate(trainer.trained_on):  # device batches are drawn again, the same
+        idx = torch.as_tensor(b.indices, device="cuda")[tables].long() + offs
+        ids = idx[torch.as_tensor(b.weights, device="cuda")[tables] != 0]
+        for m in live[: 1 + (i == 0)]:
+            m[ids] = True
+    any_live, first_live = live
+    changed = (trainer.params["emb"][big_index] != trainer.big_before).any(dim=1)
+    if (changed & ~any_live).any() or (first_live & ~changed).any():
+        fail(f"{what}: {int(changed.sum())} big-store rows changed, "
+             f"{int((changed & ~any_live).sum())} of them untouched by a live lookup; "
+             f"{int((first_live & ~changed).sum())} of the first batch's "
+             f"{int(first_live.sum())} live rows did not change")
+    shown = {k: round(v, 6) for k, v in metrics.items() if isinstance(v, float)}
+    say(phase, f"{what}: {n_steps} steps + {n_steps} eval batches in {seconds:.1f} s "
+               f"(host init and data included); losses {losses}; eval {shown}; "
+               f"{int(changed.sum())} big-store rows changed, all {int(first_live.sum())} "
+               f"live rows of the first batch among them, and none of the rows that no "
+               f"live lookup touched ({int(any_live.sum())} rows were); launches {launches}")
     return launches
+
+
+def train_main_path(rows, big_index):
+    """Phase b: the CLI training run at L=1; returns the launch counts."""
+    argv = terabyte_argv(rows) + [
+        "--num-batches", str(N_TRAIN_BATCHES), "--optimizer", "rwsadagrad",
+        "--learning-rate", str(LR), "--sparse-update-impl", "pallas",
+        "--print-freq", "1",
+    ]
+    want = only(fused_interaction=2 * N_TRAIN_BATCHES, sparse_rows_overwrite=N_TRAIN_BATCHES,
+                rwsadagrad_dense_finish=N_TRAIN_BATCHES)
+    return cli_training_run(
+        "train", f"cli training, 26 tables <=1M rows x 128, B={BATCH}, L=1, bf16, "
+                 "rwsadagrad, sparse-update pallas, pallas interaction",
+        argv, N_TRAIN_BATCHES, want, big_index)
 
 
 def check_train_against_cpu():
@@ -565,8 +603,8 @@ def check_train_against_cpu():
             out[dev] = (np.array(losses), params, state, ran)
     finally:
         optimizer.PALLAS_MIN_STORE_BYTES = saved
-    if out["cuda"][3] != {"fused_interaction": 3, "sparse_rows_overwrite": 3,
-                          "rwsadagrad_dense_finish": 3}:
+    if out["cuda"][3] != only(fused_interaction=3, sparse_rows_overwrite=3,
+                              rwsadagrad_dense_finish=3):
         fail(f"train step on the card launched {out['cuda'][3]}: want each kernel 3 times")
     # the card's GEMMs, reductions and index_add_ atomics sum in other
     # orders than the CPU
@@ -628,37 +666,353 @@ def full_train_step(rows):
     return steps, params, state, batch, cfg.dup_density_hint
 
 
-def train_throughput(steps, params, state, batch, hint):
-    """Phase d: train steps at full width, CUDA-event timed, in turns."""
-    import math
+def time_in_turns(fns, check, n=20):
+    """Each fn of ``fns`` (name -> fn()) warmed up 5 times, then timed over
+    ``n`` calls with CUDA events in turns (first, second, second, first);
+    ``check(name, out)`` sees each window's last output. Returns name ->
+    [ms per call of each window]."""
+    def window(name, calls):
+        ms, out = events_ms(fns[name], calls)
+        check(name, out)
+        return ms
 
+    for name in fns:
+        window(name, 5)  # warm-up
+    first, second = fns
+    times = {first: [], second: []}
+    for name in (first, second, second, first):
+        times[name].append(window(name, n))
+    return times
+
+
+def events_ms(fn, calls):
+    """(ms per call of ``calls`` calls of fn between two CUDA events, the
+    last call's output)."""
     import torch
 
-    it = [0]
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(calls):
+        out = fn()
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1) / calls, out
 
-    def run(impl, n):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        for _ in range(n):
-            _, _, loss = steps[impl](params, state, batch, it[0])
-            it[0] += 1
-        e1.record()
-        e1.synchronize()
-        if not math.isfinite(loss.item()):
-            fail(f"train step ({impl}) gave a non-finite loss")
-        return e0.elapsed_time(e1) / n
 
-    for impl in steps:
-        run(impl, 5)  # warm-up
-    times = {"pallas": [], "xla": []}
-    for impl in ("pallas", "xla", "xla", "pallas"):
-        times[impl].append(run(impl, 20))
+def train_step_fn(step, params, state, batch):
+    """A train step as a function of nothing: the iteration counts up."""
+    it = iter(range(10**9))
+    return lambda: step(params, state, batch, next(it))
+
+
+def check_loss(name, out):
+    import math
+
+    if not math.isfinite(out[2].item()):
+        fail(f"train step ({name}) gave a non-finite loss")
+
+
+def train_throughput(steps, params, state, batch, hint):
+    """Phase d: train steps at full width, CUDA-event timed, in turns."""
+    times = time_in_turns({impl: train_step_fn(s, params, state, batch)
+                           for impl, s in steps.items()}, check_loss)
     for impl, ts in times.items():
         ms = statistics.mean(ts)
         say("throughput", f"train step (rwsadagrad, bf16, sparse-update pallas, density "
                           f"hint {hint:.4f}), interaction {impl}: {ms:.4f} ms/step "
                           f"({BATCH / ms * 1e3:.0f} examples/s; runs {ts})")
+
+
+# ------------------------------------------- the high-L sorted-stream path
+
+L100 = 100         # the reference benchmark's lookups per bag
+BIG_BATCH = 4096   # past batch 2304 its grad table is over GTAB_MAX_BYTES: K6
+N_L100_STEPS = 4   # the benchmark CLI run's steps; its eval takes as many batches
+N_BIG_STEPS = 3    # the batch-4096 RWSAdagrad run's steps
+
+
+def benchmark_argv():
+    """bench/dlrm_tpu_benchmark.sh (the reference's dlrm_s_benchmark.sh:20-59)
+    for the port's CLI: 8 tables of 1M rows x 64, bot 512-512-64, top
+    1024-1024-1024-1, dot, L=100, batch 2048, SGD lr 0.1, bf16,
+    --sparse-update-impl pallas, batches drawn on the device."""
+    return [
+        "--arch-sparse-feature-size=64",
+        "--arch-embedding-size=" + "-".join(["1000000"] * 8),
+        "--arch-mlp-bot=512-512-64", "--arch-mlp-top=1024-1024-1024-1",
+        "--arch-interaction-op=dot", "--data-generation=random-device",
+        f"--num-indices-per-lookup={L100}", f"--mini-batch-size={BATCH}",
+        "--num-batches=100", "--loss-function=bce", "--round-targets=True",
+        "--learning-rate=0.1", "--compute-dtype=bfloat16",
+        "--sparse-update-impl=pallas", "--print-freq=10", "--print-time",
+    ]
+
+
+def benchmark_config():
+    from dlrm_yx_tpu_torch import cli
+
+    return cli.config_from_args(cli.build_parser().parse_args(benchmark_argv()))
+
+
+def benchmark_batch(cfg, batch, seed):
+    from dlrm_yx_tpu_torch.data.synthetic import make_device_random_batches
+
+    return make_device_random_batches(cfg.emb_rows, cfg.ln_bot[0], batch, 1, L100,
+                                      seed=seed, device="cuda")[0]
+
+
+def sorted_occurrences(gidx, weights):
+    """Occurrences [T, B, L] sorted by row as sparse_update_stream sorts
+    them: (pos, seg, w, distinct rows)."""
+    import torch
+
+    pos, perm = torch.sort(gidx.reshape(-1), stable=True)
+    seg = torch.div(perm, L100, rounding_mode="floor").to(torch.int32)
+    return pos, seg, weights.reshape(-1)[perm], int(torch.unique_consecutive(pos).numel())
+
+
+def check_stream_kernels(cfg):
+    """Phase f: K5 and K6 against their plain versions on the benchmark's
+    store (8 x 1M rows x 64 f32) with the occurrences of one device batch
+    each, sorted: K5 at batch 2048 with SGD's weights (-lr * w) and a grad
+    table of the pooled shape, K6 at batch 4096 (its path's shape) with
+    expanded update rows. Returns their rows of the kernels line."""
+    import torch
+
+    from dlrm_yx_tpu_torch.models.dlrm import model_groups
+    from dlrm_yx_tpu_torch.ops.embedding import global_row_ids
+    from dlrm_yx_tpu_torch.ops.stream_update import (
+        sorted_stream_add,
+        sorted_stream_add_reference,
+        sorted_stream_apply,
+        sorted_stream_apply_reference,
+    )
+    from dlrm_yx_tpu_torch.optim.optimizer import OptConfig, sparse_update_stream
+
+    (group,) = model_groups(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    r, d = group.total_rows, group.dim
+    store = torch.rand(r, d, device="cuda", generator=gen) - 0.5
+    # a row's duplicates add in k order in the kernel, in atomic order in the
+    # plain version's index_add_: held relative to the largest value
+    tol = 1e-6
+
+    def compare(name, got, want, live_rows):
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        rel = err / want.abs().max().item()
+        changed = int((got != store).any(dim=1).sum())
+        if not rel <= tol or changed != live_rows:
+            fail(f"{name}: max abs err {err}, relative {rel} > {tol}, or {changed} rows "
+                 f"changed for {live_rows} rows with a nonzero update")
+        return err, rel
+
+    b = benchmark_batch(cfg, BATCH, seed=21)
+    gidx = global_row_ids(group, b.indices)
+    pos, seg, w, n_rows = sorted_occurrences(gidx, b.weights)
+    k = pos.numel()
+    gtab = torch.randn(group.num_tables * BATCH, d, device="cuda", generator=gen) * 1e-2
+    w_eff = -0.1 * w
+    live_rows = int(torch.unique_consecutive(pos[w != 0]).numel())
+    err, rel = compare("sorted_stream_apply", sorted_stream_apply(store.clone(), pos, seg, w_eff, gtab),
+                       sorted_stream_apply_reference(store.clone(), pos, seg, w_eff, gtab),
+                       live_rows)
+    ms = device_time_ms(lambda: sorted_stream_apply(store, pos, seg, w_eff, gtab))
+    plain_ms = device_time_ms(lambda: sorted_stream_apply_reference(store, pos, seg, w_eff, gtab))
+    vals, pos64 = w_eff[:, None] * gtab[seg.long()], pos.long()
+    expanded_ms = device_time_ms(lambda: store.index_add_(0, pos64, vals))
+    del vals
+    g_pooled = gtab.reshape(group.num_tables, BATCH, d)
+
+    def update():
+        sparse_update_stream(OptConfig("sgd", 0.1), store, None, group, gidx, b.weights,
+                             g_pooled, 0.1)
+
+    events_ms(update, 5)  # warm-up
+    update_ms = [events_ms(update, 20)[0] for _ in range(2)]
+    # each row with a nonzero weight read and written once (a weight-0 row
+    # keeps its value on this finite table); pos, seg and w read; the table read
+    nbytes = 2 * 4 * d * live_rows + 12 * k + 4 * gtab.numel()
+    bound, by = bound_ms(nbytes, 2 * d * int((w != 0).sum()))
+    say("kernel", f"sorted_stream_apply store [{r}, {d}] f32, K={k} sorted occurrences on "
+                  f"{n_rows} distinct rows ({live_rows} with a nonzero weight), grad table "
+                  f"{tuple(gtab.shape)}: max_abs_err {err:.3e} (relative {rel:.3e} <= {tol}), "
+                  f"kernel {ms:.5f} ms (the wrapper launches only the kernel), plain "
+                  f"{plain_ms:.5f} ms, index_add_ of the pre-expanded rows {expanded_ms:.5f} ms "
+                  f"(reference only), bound {bound:.5f} ms ({by}, {nbytes} B); the whole SGD "
+                  f"update (sort, segment ids, weights, K5; CUDA events, host launches "
+                  f"included) {statistics.mean(update_ms):.5f} ms (runs {update_ms})")
+    k5 = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+          "bound_by": by, "library_ms": None}
+    del pos, seg, w, w_eff, gtab, g_pooled, gidx, pos64, b
+
+    store = torch.rand(r, d, device="cuda", generator=gen) - 0.5  # K5's timing moved it
+    b = benchmark_batch(cfg, BIG_BATCH, seed=22)
+    pos, _, _, n_rows = sorted_occurrences(global_row_ids(group, b.indices), b.weights)
+    k = pos.numel()
+    upd = torch.randn(k, d, device="cuda", generator=gen) * 1e-2
+    err, rel = compare("sorted_stream_add", sorted_stream_add(store.clone(), pos, upd),
+                       sorted_stream_add_reference(store.clone(), pos, upd), n_rows)
+    ms = device_time_ms(lambda: sorted_stream_add(store, pos, upd))
+    plain_ms = device_time_ms(lambda: sorted_stream_add_reference(store, pos, upd))
+    pos64 = pos.long()
+    library_ms = device_time_ms(lambda: store.index_add_(0, pos64, upd))
+    nbytes = 2 * 4 * d * n_rows + 4 * k + 4 * d * k
+    bound, by = bound_ms(nbytes, d * k)
+    say("kernel", f"sorted_stream_add store [{r}, {d}] f32, K={k} sorted update rows on "
+                  f"{n_rows} distinct rows: max_abs_err {err:.3e} (relative {rel:.3e} <= "
+                  f"{tol}), kernel {ms:.5f} ms (the wrapper launches only the kernel), plain "
+                  f"{plain_ms:.5f} ms, index_add_ {library_ms:.5f} ms, bound {bound:.5f} ms "
+                  f"({by}, {nbytes} B)")
+    k6 = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+          "bound_by": by, "library_ms": library_ms}
+    return k5, k6
+
+
+def benchmark_main_path():
+    """Phase g: the reference benchmark's command line through the port's
+    CLI, a few steps and an eval: K5 once per step, nothing else."""
+    argv = benchmark_argv() + ["--num-batches", str(N_L100_STEPS), "--print-freq", "1"]
+    return cli_training_run(
+        "train-l100", f"cli bench/dlrm_tpu_benchmark.sh flags, 8 tables x 1M rows x 64, "
+                      f"B={BATCH}, L={L100}, bf16, sgd, sparse-update pallas, random-device",
+        argv, N_L100_STEPS, only(sorted_stream_apply=N_L100_STEPS), big_index=0)
+
+
+def big_batch_main_path():
+    """Phase h: the same model with RWSAdagrad and --sparse-update-impl
+    stream at batch 4096, whose grad table is over GTAB_MAX_BYTES: K6 once
+    per step, nothing else."""
+    argv = benchmark_argv() + [
+        "--num-batches", str(N_BIG_STEPS), "--print-freq", "1",
+        "--mini-batch-size", str(BIG_BATCH), "--optimizer", "rwsadagrad",
+        "--learning-rate", str(LR), "--sparse-update-impl", "stream"]
+    return cli_training_run(
+        "train-l100", f"cli, the same model, B={BIG_BATCH}, L={L100}, bf16, rwsadagrad, "
+                      "sparse-update stream, random-device",
+        argv, N_BIG_STEPS, only(sorted_stream_add=N_BIG_STEPS), big_index=0)
+
+
+def check_stream_train_against_cpu():
+    """Phase i: three train steps on the card vs the CPU (the kernels' plain
+    versions) from the same state, on a small L=100 model in the dense
+    regime (RWSAdagrad, --sparse-update-impl stream): through K5, then
+    through K6 with the grad-table budget at 1 byte."""
+    import numpy as np
+    import torch
+
+    import dlrm_yx_tpu_torch.ops.stream_update as stream_update
+    import dlrm_yx_tpu_torch.optim.optimizer as optimizer
+    from dlrm_yx_tpu_torch.config import DLRMConfig
+    from dlrm_yx_tpu_torch.data.synthetic import RandomDataConfig, make_random_batches
+    from dlrm_yx_tpu_torch.models.dlrm import init_dlrm, model_groups
+    from dlrm_yx_tpu_torch.train.train_step import make_train_step
+
+    cfg = DLRMConfig.build(
+        emb_rows=(3000, 4000), ln_bot=(16, 64, 64), ln_top=(64, 1), emb_split_threshold=0,
+        loss="bce", sparse_update_impl="stream",
+    )
+    batches = make_random_batches(RandomDataConfig(
+        emb_rows=cfg.emb_rows, m_den=16, mini_batch_size=64, num_batches=3,
+        num_indices_per_lookup=L100, num_indices_per_lookup_fixed=False, seed=6))
+    opt = optimizer.OptConfig("rwsadagrad", 0.05)
+    counters = launch_counters()
+    saved = stream_update.GTAB_MAX_BYTES
+    for budget, kernel in ((saved, "sorted_stream_apply"), (1, "sorted_stream_add")):
+        out = {}
+        stream_update.GTAB_MAX_BYTES = budget
+        try:
+            for dev in ("cpu", "cuda"):
+                params = init_dlrm(cfg, seed=7, device=dev)
+                state = optimizer.init_opt_state(opt, params, model_groups(cfg))
+                for t in [state["emb"][0]] + [
+                        a for k in ("bot", "top") for pair in state["dense"][k] for a in pair]:
+                    t.fill_(0.01)
+                before = {n: c.launches for n, c in counters.items()}
+                step = make_train_step(cfg, opt, device=dev)
+                losses = []
+                for i, b in enumerate(batches):
+                    params, state, loss = step(params, state, b, i)
+                    losses.append(float(loss))
+                ran = {n: c.launches - before[n] for n, c in counters.items()}
+                out[dev] = (np.array(losses), params, state, ran)
+        finally:
+            stream_update.GTAB_MAX_BYTES = saved
+        if out["cuda"][3] != only(**{kernel: 3}):
+            fail(f"L={L100} train step on the card launched {out['cuda'][3]}: want {kernel} 3 times")
+        # the card's GEMMs, reductions and index_add_ atomics sum in other
+        # orders than the CPU
+        rtol, atol = 1e-4, 1e-6
+        (lc, pc, sc, _), (lg, pg, sg, _) = out["cpu"], out["cuda"]
+        pairs = [("losses", torch.from_numpy(lc), torch.from_numpy(lg)),
+                 ("store", pc["emb"][0], pg["emb"][0].cpu()),
+                 ("acc", sc["emb"][0], sg["emb"][0].cpu())]
+        pairs += [(f"{k} W{i}", a[0], b[0].detach().cpu())
+                  for k in ("bot", "top") for i, (a, b) in enumerate(zip(pc[k], pg[k]))]
+        for name, a, b in pairs:
+            if not torch.allclose(b, a.detach(), rtol=rtol, atol=atol):
+                fail(f"L={L100} train step card vs CPU ({kernel}): {name} differs beyond rtol "
+                     f"{rtol} atol {atol}: max {(a.detach() - b).abs().max().item()}")
+        worst = max((a.detach() - b).abs().max().item() for _, a, b in pairs)
+        say("reference", f"3 train steps card vs CPU, L={L100} (rwsadagrad, stream, {kernel}, "
+                         f"f32): losses {lg.tolist()}, max |diff| over losses, store, "
+                         f"accumulator and MLP weights {worst:.3e} (rtol {rtol}, atol {atol})")
+
+
+def l100_train_steps():
+    """The benchmark's train step at batch 2048 on device-drawn params and
+    batch: SGD with --sparse-update-impl pallas (K5), and RWSAdagrad lr 0.01
+    with --sparse-update-impl stream (K5, per-occurrence momentum); each as a
+    function of nothing."""
+    import dataclasses
+
+    from dlrm_yx_tpu_torch.models.dlrm import init_dlrm_on_device, model_groups
+    from dlrm_yx_tpu_torch.optim.optimizer import OptConfig, init_opt_state
+    from dlrm_yx_tpu_torch.train.train_step import make_train_step
+
+    cfg = benchmark_config()
+    params = init_dlrm_on_device(cfg, seed=0)
+    batch = benchmark_batch(cfg, BATCH, seed=3)
+    sgd, rws = OptConfig("sgd", 0.1), OptConfig("rwsadagrad", LR)
+    return {
+        "sgd pallas": train_step_fn(make_train_step(cfg, sgd), params, {}, batch),
+        "rwsadagrad stream": train_step_fn(
+            make_train_step(dataclasses.replace(cfg, sparse_update_impl="stream"), rws),
+            params, init_opt_state(rws, params, model_groups(cfg)), batch),
+    }
+
+
+def l100_throughput(steps):
+    """Phase j: both L=100 steps, CUDA-event timed, in turns."""
+    for name, ts in time_in_turns(steps, check_loss).items():
+        ms = statistics.mean(ts)
+        say("throughput", f"L={L100} train step, 8 x 1M x 64, B={BATCH}, bf16, {name}: "
+                          f"{ms:.4f} ms/step ({BATCH / ms * 1e3:.0f} examples/s; runs {ts})")
+
+
+# kernels of the L=100 step by what they do (names as torch 2.x and cuBLAS give them)
+KERNEL_KINDS = {
+    "K5 sorted_stream_apply": "sorted_stream_apply",
+    "sort (cub radix)": "radix|sort",
+    "gather (index_select)": "indexselect|index_select|gather",
+    "scatter (index_add_, index_put_)": "indexfunc|index_add|scatter|index_put",
+    "GEMM": "gemm|nvjet|xmma|cutlass|cublas",
+    "elementwise and reductions": "elementwise|reduce",
+}
+
+
+def profile_by_kind(per_kernel):
+    import re
+
+    seen = set()
+    for kind, pattern in KERNEL_KINDS.items():
+        names = [k for k in per_kernel if k not in seen and re.search(pattern, k.lower())]
+        seen.update(names)
+        say("profile", f"  {kind}: {sum(per_kernel[k] for k in names):.5f} ms/step "
+                       f"({len(names)} kernel names)")
+    rest = sum(v for k, v in per_kernel.items() if k not in seen)
+    say("profile", f"  other kernels: {rest:.5f} ms/step")
 
 
 def main():
@@ -690,54 +1044,67 @@ def main():
             if "registers" in line or "spill" in line:
                 say("build", f"  {name}: {line.strip()}")
 
-    # 3, a. kernels against their plain versions
+    # 3, a, f. kernels against their plain versions
     k1 = check_interaction_kernel()
     small, big = terabyte_groups()
     k2 = check_overwrite_kernel(big)
     k3 = check_finish_kernel(small)
+    bench_cfg = benchmark_config()
+    k5, k6 = check_stream_kernels(bench_cfg)
 
-    # 4, b. the main paths: serving, then training
+    # 4, b, g, h. the main paths: serving, training at L=1, the L=100
+    # benchmark (K5) and its batch-4096 RWSAdagrad run (K6)
     rows = DLRMConfig.terabyte_mlperf(max_ind_range=1_000_000).emb_rows
     serve_main_path(rows)
     launches = train_main_path(rows, big_index=1)
+    l100_launches = benchmark_main_path()
+    big_launches = big_batch_main_path()
 
-    # 5, c. the eval and train steps against the CPU on a small input
+    # 5, c, i. the eval and train steps against the CPU on a small input
     check_against_cpu()
     check_train_against_cpu()
+    check_stream_train_against_cpu()
 
-    # 6, d. serving and training throughput, then 7, e. where their device
-    # time goes: every timing runs before the first profiler session, whose
-    # tracing can linger and slow the host's launches
+    # 6, d, j. serving and training throughput, then 7, e, k. where their
+    # device time goes: every timing runs before the first profiler
+    # session, whose tracing can linger and slow the host's launches
     step, params, batch = serving_throughput(rows)
     steps, tparams, state, tbatch, hint = full_train_step(rows)
     train_throughput(steps, tparams, state, tbatch, hint)
+    l100_steps = l100_train_steps()
+    l100_throughput(l100_steps)
     profile_step(lambda: step(params, batch), "serving",
                  ("embedding_lookup", "bottom_mlp", "interaction", "top_mlp"))
-    it = iter(range(10**6))
-    per_kernel = profile_step(
-        lambda: steps["pallas"](tparams, state, tbatch, next(it)),
-        "train (pallas interaction)",
-        ("embedding_lookup", "bottom_mlp", "interaction", "top_mlp", "loss_compute",
-         "backward", "optimizer"))
+    train_phases = ("embedding_lookup", "bottom_mlp", "interaction", "top_mlp",
+                    "loss_compute", "backward", "optimizer")
+    per_kernel = profile_step(train_step_fn(steps["pallas"], tparams, state, tbatch),
+                              "train (pallas interaction)", train_phases)
     for name in ("sparse_rows_overwrite", "dense_finish"):
         ms = sum(v for k, v in per_kernel.items() if name in k)
         say("profile", f"  {name} kernels: {ms:.5f} ms/step of device time")
+    for name, fn in l100_steps.items():
+        profile_by_kind(profile_step(fn, f"L={L100} train ({name})", train_phases))
 
     sources = {
-        "fused_interaction": ("dlrm_yx_tpu/ops/pallas_interaction.py:84", k1,
+        "fused_interaction": ("dlrm_yx_tpu/ops/pallas_interaction.py:84", k1, launches,
                               "no single call computes bmm + tril + concat"),
-        "sparse_rows_overwrite": ("dlrm_yx_tpu/ops/pallas_sparse_update.py:505", k2, None),
+        "sparse_rows_overwrite": ("dlrm_yx_tpu/ops/pallas_sparse_update.py:505", k2,
+                                  launches, None),
         "rwsadagrad_dense_finish": ("dlrm_yx_tpu/ops/pallas_dense_finish.py:119", k3,
-                                    "no single call does a row-wise Adagrad step"),
+                                    launches, "no single call does a row-wise Adagrad step"),
+        "sorted_stream_apply": ("dlrm_yx_tpu/ops/pallas_stream_update.py:257", k5,
+                                l100_launches, "no single call expands and adds"),
+        "sorted_stream_add": ("dlrm_yx_tpu/ops/pallas_stream_update.py:343", k6,
+                              big_launches, None),
     }
     kernels = []
-    for name, (replaces, row, no_library) in sources.items():
+    for name, (replaces, row, path_launches, no_library) in sources.items():
         kernels.append({
             "name": name,
             "route": "cuda",
             "source": f"dlrm_yx_tpu_torch/csrc/{name}.cu",
             "replaces": replaces,
-            "launches": launches[name],
+            "launches": path_launches[name],
             "max_abs_err": row["max_abs_err"],
             "ms": row["ms"],
             "plain_ms": row["plain_ms"],
@@ -747,6 +1114,7 @@ def main():
         })
         if no_library:
             say("kernel", f"{name}: library_ms null ({no_library})")
+    say("done", f"chip_smoke.py wall time {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

@@ -5,8 +5,11 @@ The port of the single-device training and ``--inference-only`` paths of
 and meaning; one flag is new, ``--device`` (``cuda`` by default; ``cpu``
 for the tests). Flags of parts not yet ported are still recognised, and
 giving any of them raises ``NotImplementedError`` instead of being
-ignored; so do ``--sparse-update-impl stream`` and
-``--no-write-only-update``, whose kernels (K5/K6, K4) are not ported yet.
+ignored; so does ``--no-write-only-update``, whose kernel (K4) is not
+ported yet. ``--print-time`` is accepted and has no effect, as in the JAX
+CLI. The reference's L=100 throughput benchmark
+(``bench/dlrm_tpu_benchmark.sh``) runs with ``dlrm_yx_tpu.cli`` replaced by
+``dlrm_yx_tpu_torch.cli``.
 
     python -m dlrm_yx_tpu_torch.cli \
         --arch-embedding-size 1000-1000 --arch-sparse-feature-size 128 \
@@ -23,12 +26,18 @@ import argparse
 import dataclasses
 
 import numpy as np
+import torch
 
 from dlrm_yx_tpu_torch.config import DLRMConfig, parse_int_list
-from dlrm_yx_tpu_torch.data.synthetic import RandomDataConfig, make_random_batches
+from dlrm_yx_tpu_torch.data.synthetic import (
+    RandomDataConfig,
+    make_device_random_batches,
+    make_random_batches,
+)
 from dlrm_yx_tpu_torch.optim.lr_policy import LRPolicy
 from dlrm_yx_tpu_torch.optim.optimizer import OptConfig
 from dlrm_yx_tpu_torch.train.trainer import Trainer, TrainerConfig
+from dlrm_yx_tpu_torch.utils.device import resolve_device
 from dlrm_yx_tpu_torch.utils.logging import rank0_print
 
 # flags of dlrm_yx_tpu/cli.py whose parts are not ported yet
@@ -50,7 +59,7 @@ UNPORTED_FLAGS = (
     "bucket-size-mb", "dist-backend", "local-rank", "pin-memory",
     "early-barrier", "aggregated-allreduce", "test-num-workers",
     "collect-execution-graph", "steps-per-dispatch", "prefetch-depth",
-    "test-mini-batch-size", "print-time", "print-wall-time",
+    "test-mini-batch-size", "print-wall-time",
 )
 
 
@@ -73,7 +82,9 @@ def build_parser() -> argparse.ArgumentParser:
     # data (random only)
     p.add_argument("--data-size", type=int, default=1)
     p.add_argument("--num-batches", type=int, default=0)
-    p.add_argument("--data-generation", type=str, default="random")
+    p.add_argument("--data-generation", type=str, default="random",
+                   help="random (numpy, on the host) or random-device (drawn on "
+                        "the device)")
     p.add_argument("--rand-data-dist", type=str, default="uniform")  # or gaussian
     p.add_argument("--rand-data-min", type=float, default=0)
     p.add_argument("--rand-data-max", type=float, default=1)
@@ -112,9 +123,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--sparse-update-impl", type=str, default="xla",
                    choices=["xla", "pallas", "stream"],
                    help="pallas = the row-touching update kernels for big "
-                        "tables (write-only update, CUDA) and the fused "
-                        "RWSAdagrad finish for small ones; stream is not "
-                        "ported yet")
+                        "tables (write-only update, CUDA), the fused "
+                        "RWSAdagrad finish for small ones and, with SGD, the "
+                        "sorted-stream update in the dense regime; stream = "
+                        "the sorted-stream update in the dense regime")
     p.add_argument("--exact-row-momentum", action="store_true", default=False,
                    help="coalesce duplicate rows before the kernel route's "
                         "adagrad-family momentum")
@@ -124,6 +136,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--lr-decay-start-step", type=int, default=0)
     p.add_argument("--lr-num-decay-steps", type=int, default=0)
     p.add_argument("--print-freq", type=int, default=1)
+    p.add_argument("--print-time", action="store_true", default=False,
+                   help="accepted for parity with the JAX CLI; no effect")
     p.add_argument("--test-freq", type=int, default=-1)
     # mlperf
     p.add_argument("--inference-only", action="store_true", default=False)
@@ -143,15 +157,10 @@ def check_ported(args) -> None:
             raise NotImplementedError(
                 f"--{flag} is not yet ported to dlrm_yx_tpu_torch"
             )
-    if args.data_generation != "random":
+    if args.data_generation not in ("random", "random-device"):
         raise NotImplementedError(
             f"--data-generation={args.data_generation} is not yet ported "
-            "(random only)"
-        )
-    if args.sparse_update_impl == "stream":
-        raise NotImplementedError(
-            "--sparse-update-impl stream is not yet ported to dlrm_yx_tpu_torch: "
-            "it needs sorted_stream_apply / sorted_stream_add (K5/K6)"
+            "(random and random-device only)"
         )
     if args.no_write_only_update:
         raise NotImplementedError(
@@ -183,8 +192,17 @@ def config_from_args(args) -> DLRMConfig:
 def make_data(args, cfg: DLRMConfig, train: bool = True):
     """The JAX CLI's random batches: (train, test), test drawn with
     seed + 1; without ``train`` only the test batches are drawn (train is
-    None)."""
+    None). ``random-device`` batches are drawn on ``--device``."""
     nb = args.num_batches or int(np.ceil(args.data_size / args.mini_batch_size))
+    if args.data_generation == "random-device":
+        def device_batches(seed):
+            return make_device_random_batches(
+                cfg.emb_rows, cfg.ln_bot[0], args.mini_batch_size, nb,
+                args.num_indices_per_lookup, args.num_indices_per_lookup_fixed,
+                bool(args.round_targets), seed, resolve_device(args.device))
+
+        test = device_batches(args.numpy_rand_seed + 1)
+        return (device_batches(args.numpy_rand_seed) if train else None), test
     dc = RandomDataConfig(
         emb_rows=cfg.emb_rows, m_den=cfg.ln_bot[0],
         mini_batch_size=args.mini_batch_size, num_batches=nb,
@@ -203,10 +221,10 @@ def _measure_dup_density(cfg: DLRMConfig, train):
     """Unique rows per occurrence of the big (kernel-eligible) tables on
     the first batch: the measured statistic behind the dense-vs-kernel
     routing (``config.dup_density_hint``). None when there is no big table
-    or no batch."""
+    or no batch. A batch drawn on the device is copied to the host once."""
     if not train:
         return None
-    idx = np.asarray(train[0].indices)  # [T, B, L]
+    idx = torch.as_tensor(train[0].indices).cpu().numpy()  # [T, B, L]
     thr = cfg.emb_split_threshold or 0
     big = [t for t, n in enumerate(cfg.emb_rows) if not thr or n > thr]
     if not big:
@@ -243,7 +261,7 @@ def main(argv=None):
         seed=args.numpy_rand_seed,
     )
     train, test = make_data(args, cfg, train=not args.inference_only)
-    if cfg.sparse_update_impl == "pallas" and cfg.dup_density_hint <= 0:
+    if cfg.sparse_update_impl in ("pallas", "stream") and cfg.dup_density_hint <= 0:
         hint = _measure_dup_density(cfg, train)
         if hint is not None:
             cfg = dataclasses.replace(cfg, dup_density_hint=hint)

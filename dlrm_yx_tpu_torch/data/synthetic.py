@@ -1,7 +1,8 @@
-"""Random synthetic data generation (host side, numpy).
+"""Random synthetic data generation.
 
 A copy of the host generator in ``dlrm_yx_tpu/data/synthetic.py``, with the
-same draw sequence, so both packages see identical batches from one seed.
+same draw sequence, so both packages see identical batches from one seed,
+and ``make_device_random_batches``, which draws batches on the device.
 It mirrors the reference's random pipeline
 (``dlrm_data_pytorch.py:1031-1230``):
   * uniform indices: unique-ified groups of round(r * (n-1)); with
@@ -19,6 +20,7 @@ import dataclasses
 from typing import List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from dlrm_yx_tpu_torch.data.batch import Batch
 
@@ -97,3 +99,72 @@ def make_random_batches(cfg: RandomDataConfig, seed: Optional[int] = None) -> Li
             labels = np.round(labels).astype(np.float32)
         batches.append(Batch(dense, indices, weights, labels))
     return batches
+
+
+def make_device_random_batches(emb_rows, m_den: int, mini_batch_size: int,
+                               num_batches: int, num_indices_per_lookup: int,
+                               num_indices_per_lookup_fixed: bool = False,
+                               round_targets: bool = True, seed: int = 123,
+                               device="cuda"):
+    """Random batches drawn on the device (``--data-generation
+    random-device``): the port of ``make_device_random_batches`` in
+    ``dlrm_yx_tpu/data/synthetic.py``. A synthetic benchmark is then not
+    bound by the host's generator or its copy to the card. Returns a
+    sequence of ``num_batches`` batches of tensors on ``device``, each
+    drawn when it is asked for.
+
+    Batch ``i`` is drawn by a ``torch.Generator`` on ``device`` seeded from
+    (seed, i), as the JAX package folds i into its key, so indexing or
+    iterating again gives the same batch. The formulas are the JAX
+    package's: dense uniform in [0, 1); indices floor(u * rows) for each
+    table; with a variable lookup length, lengths uniform in 1..L and a
+    weight prefix of ones; labels uniform, or (u > 0.5) when
+    ``round_targets``. The draws are torch's, not ``jax.random``'s: the
+    two packages get other batches from one seed (not a fault; ROADMAP
+    Queue C)."""
+    return _DeviceBatches(emb_rows, m_den, mini_batch_size, num_batches,
+                          num_indices_per_lookup, num_indices_per_lookup_fixed,
+                          round_targets, seed, torch.device(device))
+
+
+class _DeviceBatches:
+    def __init__(self, emb_rows, m_den, mini_batch_size, num_batches,
+                 num_indices_per_lookup, num_indices_per_lookup_fixed, round_targets,
+                 seed, device):
+        self.shape = (len(emb_rows), mini_batch_size, num_indices_per_lookup)
+        self.m_den = m_den
+        self.num_batches = num_batches
+        self.fixed = num_indices_per_lookup_fixed
+        self.round_targets = round_targets
+        self.seed = seed
+        self.device = device
+        self.rows = torch.tensor(emb_rows, dtype=torch.int64, device=device)
+
+    def __len__(self):
+        return self.num_batches
+
+    def __iter__(self):
+        return (self[i] for i in range(self.num_batches))
+
+    def __getitem__(self, i: int) -> Batch:
+        if not 0 <= i < self.num_batches:
+            raise IndexError(i)
+        t, b, l = self.shape
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(int(np.random.SeedSequence([self.seed, i]).generate_state(
+            1, np.uint64)[0] >> np.uint64(1)))
+        dev = self.device
+        dense = torch.rand((b, self.m_den), generator=gen, device=dev)
+        u = torch.rand((t, b, l), generator=gen, device=dev)
+        rows = self.rows[:, None, None]
+        # an f32 product can round up to rows itself past 2**24 rows
+        idx = torch.minimum((u * rows).long(), rows - 1).to(torch.int32)
+        if self.fixed:
+            w = torch.ones((t, b, l), device=dev)
+        else:
+            lens = torch.randint(1, l + 1, (t, b), generator=gen, device=dev)
+            w = (torch.arange(l, device=dev) < lens[..., None]).float()
+        y = torch.rand((b, 1), generator=gen, device=dev)
+        if self.round_targets:
+            y = (y > 0.5).float()
+        return Batch(dense, idx, w, y)

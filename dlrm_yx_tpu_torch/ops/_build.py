@@ -6,8 +6,9 @@ into its own shared library, loaded with ``ctypes``:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -o build/torch_kernels/<name>-<hash>.so <name>.cu
 
-The library name carries a hash of the source and the flags, so an edited
-source is rebuilt and an unchanged one is loaded as it is. The build
+A kernel may include a shared ``csrc/*.cuh`` header. The library name
+carries a hash of the source, the headers and the flags, so an edited
+source or header is rebuilt and an unchanged one is loaded as it is. The build
 directory sits at the root of the checkout and is listed in ``.gitignore``.
 Nothing is built when a module is imported: a kernel's wrapper calls
 ``load`` at its first launch on a CUDA tensor.
@@ -56,6 +57,7 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{key}.so"
 

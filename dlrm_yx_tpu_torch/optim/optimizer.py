@@ -13,7 +13,10 @@ gradients, routed by the JAX package's gates, copied as they are:
     (K2, ``ops/sparse_rows_overwrite.py``);
   * the dense branch builds the exactly coalesced gradient with a
     zeros-plus-scatter and finishes RWSAdagrad with K3
-    (``ops/dense_finish.py``) under ``impl='pallas'``.
+    (``ops/dense_finish.py``) under ``impl='pallas'``;
+  * ``sparse_update_stream``, which the train step chooses for the high-L
+    dense regime, sorts the occurrences by row and applies them with K5 or
+    K6 (``ops/stream_update.py``).
 
 Routes whose kernel is not ported yet raise ``NotImplementedError`` naming
 it, and take no other path: K4 ``sparse_rows_add`` (a bf16 store or
@@ -40,6 +43,7 @@ from typing import Dict, List, Sequence
 import numpy as np
 import torch
 
+from dlrm_yx_tpu_torch.ops import stream_update
 from dlrm_yx_tpu_torch.ops.coalesce import coalesce_rows
 from dlrm_yx_tpu_torch.ops.dense_finish import rwsadagrad_dense_finish
 from dlrm_yx_tpu_torch.ops.embedding import TableGroup, dim_pack
@@ -144,6 +148,50 @@ def stream_eligible(opt: OptConfig, store: torch.Tensor, group: TableGroup) -> b
         and group.dim * group.pack == 128
         and group.size_class != 0
     )
+
+
+def sparse_update_stream(opt: OptConfig, store: torch.Tensor, acc, group: TableGroup,
+                         gidx: torch.Tensor, weights: torch.Tensor,
+                         g_pooled: torch.Tensor, lr: float):
+    """The sorted-stream update of one group store (the high-L dense
+    regime), in place; returns (store, acc). The port of the JAX package's
+    ``sparse_update_stream`` (``optimizer.py:594-711``).
+
+    gidx: [T, B, L] global row ids; weights: [T, B, L] (0 = padding, which
+    keeps its row id and stays in the stream); g_pooled: [T, B, dim] pooled
+    cotangent. The scalar triples (row, segment, weight) are sorted by row
+    with a stable sort (no [K, dim] payload moves); K5
+    (``sorted_stream_apply``) expands each occurrence's update from the
+    pooled-gradient table, or, when the table is over ``GTAB_MAX_BYTES``,
+    the values are expanded here and K6 (``sorted_stream_add``) adds them.
+    SGD is exact. RWSAdagrad's row momentum accumulates per occurrence:
+    every occurrence adds w^2 * sum(g^2) / dim first, then every occurrence
+    divides by the final accumulator."""
+    t, b, l = gidx.shape
+    dim = group.dim
+    rows_s, perm = torch.sort(gidx.reshape(-1).to(torch.int32), stable=True)
+    seg_s = torch.div(perm, l, rounding_mode="floor").to(torch.int32)
+    w_s = weights.reshape(-1).float()[perm]
+    gtab = g_pooled.float().reshape(t * b, dim)
+    fits = stream_update.gtab_fits(t * b)
+
+    def apply_update(w_eff):
+        if fits:
+            stream_update.sorted_stream_apply(store, rows_s, seg_s, w_eff, gtab)
+        else:
+            vals = gtab.index_select(0, seg_s) * w_eff[:, None]
+            stream_update.sorted_stream_add(store, rows_s, vals)
+        return store
+
+    if opt.name == "sgd":
+        return apply_update(-lr * w_s), acc
+    active = (rows_s < group.total_rows).float()
+    sumsq = (gtab * gtab).sum(dim=-1)
+    mom_inc = w_s * w_s * sumsq.index_select(0, seg_s) / dim * active
+    safe = torch.where(active > 0, rows_s, group.total_rows)
+    _add_at(acc, safe, mom_inc, group.total_rows)
+    denom = _take_fill(acc, safe, 1.0, group.total_rows).sqrt() + opt.eps
+    return apply_update(-lr * w_s / denom), acc
 
 
 def _where_rows(keep: torch.Tensor, vals: torch.Tensor, other: float) -> torch.Tensor:

@@ -12,15 +12,16 @@ there is nothing to jit:
     interaction + loss) with respect to the dense params and the pooled
     vectors;
   * the pooled cotangent becomes per-row gradients that
-    ``optim/optimizer.sparse_update`` applies to the stores in place. The
-    stores never see a dense gradient and autograd never reaches them.
+    ``optim/optimizer.sparse_update`` applies to the stores in place, or,
+    in the high-L dense regime, ``sparse_update_stream`` applies from the
+    pooled cotangent itself (K5/K6). The stores never see a dense gradient
+    and autograd never reaches them.
 
 Every update is in place: the step returns the params and optimizer state
 it was given, updated. Nothing in the step waits for the device; the loss
 comes back as a device scalar. Not ported yet: gradient accumulation
-(``make_accum_train_step``), multi-step dispatch (``scan_multistep``),
-QR / MD / weighted-pooling updates, and the sorted-stream update (K5/K6),
-which raises.
+(``make_accum_train_step``), multi-step dispatch (``scan_multistep``) and
+QR / MD / weighted-pooling updates.
 """
 
 from __future__ import annotations
@@ -40,12 +41,13 @@ from dlrm_yx_tpu_torch.models.dlrm import (
     lookup_all_groups,
     model_groups,
 )
-from dlrm_yx_tpu_torch.ops.embedding import flat_row_grads
+from dlrm_yx_tpu_torch.ops.embedding import flat_row_grads, global_row_ids
 from dlrm_yx_tpu_torch.ops.losses import loss_fn, predictions_from_logits
 from dlrm_yx_tpu_torch.optim.optimizer import (
     DENSE_ACCUM_FACTOR,
     OptConfig,
     sparse_update,
+    sparse_update_stream,
     stream_eligible,
     update_dense_towers,
 )
@@ -76,11 +78,13 @@ def apply_gradients(config: DLRMConfig, opt: OptConfig, groups, params: Dict,
                 and t * b * l * DENSE_ACCUM_FACTOR >= g.total_rows // g.pack
             )
             if use_stream:
-                raise NotImplementedError(
-                    f"group {gi} takes the sorted-stream update, whose kernels "
-                    "sorted_stream_apply / sorted_stream_add (K5/K6) are not yet "
-                    "ported to dlrm_yx_tpu_torch"
-                )
+                # SGD is exact on both routes, so 'pallas' sends its dense
+                # regime through the sorted stream as well; weighted
+                # pooling (unported) would scale w_g by the row weights
+                sparse_update_stream(
+                    opt, store, opt_state["emb"][gi] if opt.name != "sgd" else None,
+                    g, global_row_ids(g, idx_g), w_g, g_pooled[gi], lr)
+                continue
             fidx, fg = flat_row_grads(g, idx_g, w_g, g_pooled[gi])
             old_rows = None
             if raw_rows is not None and raw_rows[gi] is not None:

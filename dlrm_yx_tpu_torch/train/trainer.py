@@ -89,7 +89,7 @@ class Trainer:
         for b in test_batches:
             preds, _ = self.eval_step(self.params, b)
             p = preds.float().cpu().numpy().ravel()
-            t = np.asarray(b.labels).ravel()
+            t = torch.as_tensor(b.labels).cpu().numpy().ravel()
             n_correct += int(((p >= 0.5) == (t > 0.5)).sum())
             n_total += len(t)
             sauc.add(p, t)

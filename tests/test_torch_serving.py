@@ -187,8 +187,7 @@ def test_cli_without_inference_only_is_not_ported():
     """Training is ported (tests/test_torch_training.py); its options whose
     kernels or parts are not raise."""
     flags = [f for f in CLI_FLAGS if f != "--inference-only"] + ["--device", "cpu"]
-    for extra in (["--sparse-update-impl", "stream"], ["--no-write-only-update"],
-                  ["--steps-per-dispatch", "4"]):
+    for extra in (["--no-write-only-update"], ["--steps-per-dispatch", "4"]):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             port_cli.main(flags + extra)
 
