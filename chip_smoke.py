@@ -50,17 +50,36 @@ no result):
      share and the kernels that take the time;
   e. profile: a torch.profiler window over the train step;
   k. profile: the same over both L=100 steps, with the device time by kind
-     of kernel (K5, sort, gather, scatter, GEMM).
+     of kernel (K5, sort, gather, scatter, GEMM);
+  l. kernel: K4 (sparse_rows_add) against its plain version, bit for bit, at
+     the capacity config's shapes (bench/capacity_demo.py: Terabyte-MLPerf
+     capped at 10M rows, bf16 stores): its bf16 big store [53,942,848, 128]
+     with one batch's 16,384 ids, SR off and on; the f32 1-D momentum of that
+     group viewed as [len, 1]; and the 1M-capped f32 store of phase a (the
+     --no-write-only-update route), with ``index_add_`` on the f32 routes;
+  m. train-bf16: phase b's CLI run with --emb-dtype bfloat16
+     --stochastic-rounding: K4 and K3 once per step, K1 per step and eval
+     batch, K2 never; no big-store row that no live lookup touched changed
+     by a single bit;
+  n. capacity: the bench/capacity_demo.py analog through make_train_step
+     (device init of the 13.8 GB bf16 store, RWSAdagrad lr 0.01, bf16
+     compute, the uniform-stream density hint, B=2048, L=1): K4 twice and K3
+     once per step (the big store and its 206 MiB momentum), then timed with
+     SR off and on in turns;
+  o. reference: three train steps on the card against the CPU on phase c's
+     model with both K4 gates at 0: a bf16 store with SR off and on, f32
+     with write_only_update off, and Adagrad on the kernel route;
+  p. profile: the capacity step, with the device time by kind of kernel.
 Then a JSON line of the kernels (launches from the path each kernel serves:
-K1-K3 phase b, K5 phase g, K6 phase h), nvidia-smi's line, and the result
-line.
+K1-K3 phase b, K5 phase g, K6 phase h, K4 phase m), nvidia-smi's line, and
+the result line.
 
 Bound: bytes each input read once and each output written once over
 3.35 TB/s, or operations over the card's peak for their type (67 TFLOP/s
 f32 outside the tensor cores), whichever is larger (H100 SXM data sheet).
 Where the work depends on the data (K2's duplicates and inactive items,
-K3's untouched rows, the distinct rows K6 updates and those K5 updates with
-a nonzero weight), the bytes are those this run's inputs need.
+K3's untouched rows, the distinct rows K6 and K4 update and those K5
+updates with a nonzero weight), the bytes are those this run's inputs need.
 """
 
 import json
@@ -443,6 +462,7 @@ def terabyte_argv(rows):
 def launch_counters():
     from dlrm_yx_tpu_torch.ops.dense_finish import rwsadagrad_dense_finish
     from dlrm_yx_tpu_torch.ops.fused_interaction import fused_interaction
+    from dlrm_yx_tpu_torch.ops.sparse_rows_add import sparse_rows_add
     from dlrm_yx_tpu_torch.ops.sparse_rows_overwrite import sparse_rows_overwrite
     from dlrm_yx_tpu_torch.ops.stream_update import sorted_stream_add, sorted_stream_apply
 
@@ -450,7 +470,8 @@ def launch_counters():
             "sparse_rows_overwrite": sparse_rows_overwrite,
             "rwsadagrad_dense_finish": rwsadagrad_dense_finish,
             "sorted_stream_apply": sorted_stream_apply,
-            "sorted_stream_add": sorted_stream_add}
+            "sorted_stream_add": sorted_stream_add,
+            "sparse_rows_add": sparse_rows_add}
 
 
 def only(**launched):
@@ -463,10 +484,10 @@ def cli_training_run(phase, what, argv, n_steps, want, big_index):
     steps, then an eval of as many batches), with the launch counts set to
     0 just before and read just after. Fails unless the kernels launched as
     ``want`` says, the losses and eval metrics are finite, and the big
-    store changed where it should: every row that a live (nonzero-weight)
-    lookup of the first batch touched changed, and no row that no live
-    lookup touched (once the loss saturates, a later step's samples may
-    have an exactly zero gradient). Returns the launch counts."""
+    store changed where it should, bit for bit: every row that a live
+    (nonzero-weight) lookup of the first batch touched changed, and no row
+    that no live lookup touched (once the loss saturates, a later step's
+    samples may have an exactly zero gradient). Returns the launch counts."""
     import contextlib
     import io
     import math
@@ -530,7 +551,7 @@ def cli_training_run(phase, what, argv, n_steps, want, big_index):
         for m in live[: 1 + (i == 0)]:
             m[ids] = True
     any_live, first_live = live
-    changed = (trainer.params["emb"][big_index] != trainer.big_before).any(dim=1)
+    changed = (bits(trainer.params["emb"][big_index]) != bits(trainer.big_before)).any(dim=1)
     if (changed & ~any_live).any() or (first_live & ~changed).any():
         fail(f"{what}: {int(changed.sum())} big-store rows changed, "
              f"{int((changed & ~any_live).sum())} of them untouched by a live lookup; "
@@ -543,6 +564,13 @@ def cli_training_run(phase, what, argv, n_steps, want, big_index):
                f"live rows of the first batch among them, and none of the rows that no "
                f"live lookup touched ({int(any_live.sum())} rows were); launches {launches}")
     return launches
+
+
+def bits(t):
+    """The bit patterns of an f32 or bf16 tensor, as integers."""
+    import torch
+
+    return t.view({torch.float32: torch.int32, torch.bfloat16: torch.int16}[t.dtype])
 
 
 def train_main_path(rows, big_index):
@@ -964,7 +992,8 @@ def l100_train_steps():
     """The benchmark's train step at batch 2048 on device-drawn params and
     batch: SGD with --sparse-update-impl pallas (K5), and RWSAdagrad lr 0.01
     with --sparse-update-impl stream (K5, per-occurrence momentum); each as a
-    function of nothing."""
+    function of nothing, with params of its own (drawn alike): SGD at lr 0.1
+    on params that RWSAdagrad's first steps have moved can diverge."""
     import dataclasses
 
     from dlrm_yx_tpu_torch.models.dlrm import init_dlrm_on_device, model_groups
@@ -972,14 +1001,15 @@ def l100_train_steps():
     from dlrm_yx_tpu_torch.train.train_step import make_train_step
 
     cfg = benchmark_config()
-    params = init_dlrm_on_device(cfg, seed=0)
     batch = benchmark_batch(cfg, BATCH, seed=3)
     sgd, rws = OptConfig("sgd", 0.1), OptConfig("rwsadagrad", LR)
+    rws_params = init_dlrm_on_device(cfg, seed=0)
     return {
-        "sgd pallas": train_step_fn(make_train_step(cfg, sgd), params, {}, batch),
+        "sgd pallas": train_step_fn(make_train_step(cfg, sgd), init_dlrm_on_device(cfg, seed=0),
+                                    {}, batch),
         "rwsadagrad stream": train_step_fn(
             make_train_step(dataclasses.replace(cfg, sparse_update_impl="stream"), rws),
-            params, init_opt_state(rws, params, model_groups(cfg)), batch),
+            rws_params, init_opt_state(rws, rws_params, model_groups(cfg)), batch),
     }
 
 
@@ -1002,11 +1032,11 @@ KERNEL_KINDS = {
 }
 
 
-def profile_by_kind(per_kernel):
+def profile_by_kind(per_kernel, kinds=None):
     import re
 
     seen = set()
-    for kind, pattern in KERNEL_KINDS.items():
+    for kind, pattern in (kinds or KERNEL_KINDS).items():
         names = [k for k in per_kernel if k not in seen and re.search(pattern, k.lower())]
         seen.update(names)
         say("profile", f"  {kind}: {sum(per_kernel[k] for k in names):.5f} ms/step "
@@ -1015,7 +1045,322 @@ def profile_by_kind(per_kernel):
     say("profile", f"  other kernels: {rest:.5f} ms/step")
 
 
+# ------------------------------------- bf16 stores, SR and the capacity config
+
+CAPACITY_ROWS = 10_000_000  # bench/capacity_demo.py's max_ind_range
+K4_CHUNK_ROWS = 1 << 20     # rows compared at a time (no full-size temporaries)
+
+# kernels of the capacity step by what they do (names as torch 2.x gives them)
+CAPACITY_KINDS = {
+    "K4 sparse_rows_add": "sparse_rows_add",
+    "K3 rwsadagrad_dense_finish": "dense_finish",
+    "sort (cub radix)": "radix|sort",
+    "gather (index_select)": "indexselect|index_select|gather",
+    "scatter (index_add_, index_put_)": "indexfunc|index_add|scatter|index_put",
+    "GEMM": "gemm|nvjet|xmma|cutlass|cublas",
+    "elementwise and reductions": "elementwise|reduce",
+}
+
+
+def capacity_config():
+    """bench/capacity_demo.py's setting: Terabyte-MLPerf with tables capped
+    at 10M rows, bf16 table storage and compute, --sparse-update-impl
+    pallas, and the duplicate-density hint of a uniform stream."""
+    import dataclasses
+
+    from dlrm_yx_tpu_torch.config import DLRMConfig
+    from dlrm_yx_tpu_torch.optim.optimizer import uniform_stream_density
+
+    cfg = dataclasses.replace(
+        DLRMConfig.terabyte_mlperf(max_ind_range=CAPACITY_ROWS), compute_dtype="bfloat16",
+        sparse_update_impl="pallas", emb_dtype="bfloat16")
+    return dataclasses.replace(cfg, dup_density_hint=uniform_stream_density(
+        cfg.emb_rows, cfg.emb_split_threshold, BATCH))
+
+
+def same_bits(a, b):
+    """(a and b equal bit for bit, max |a - b|), compared in row chunks."""
+    equal, err = True, 0.0
+    for r0 in range(0, a.shape[0], K4_CHUNK_ROWS):
+        x, y = a[r0:r0 + K4_CHUNK_ROWS], b[r0:r0 + K4_CHUNK_ROWS]
+        equal = equal and bool((bits(x) == bits(y)).all())
+        err = max(err, (x.float() - y.float()).abs().max().item())
+    return equal, err
+
+
+def batch_rows(group, gen):
+    """One batch's global row ids of a group, [tables x BATCH], uniform in
+    each table, with a run of 16 repeats (15 occurrences in the JAX
+    kernel's serialized tail)."""
+    import torch
+
+    offs = torch.tensor(group.row_offsets, device="cuda")[:, None]
+    n = torch.tensor(group.rows, device="cuda", dtype=torch.float64)[:, None]
+    u = torch.rand(group.num_tables, BATCH, device="cuda", dtype=torch.float64, generator=gen)
+    ids = (offs + (u * n).long()).reshape(-1)
+    ids[1000:1016] = ids[999]
+    return ids.int()
+
+
+def check_rows_add_kernel(cap_big, big):
+    """Phase l: K4 against its plain version, bit for bit, on the capacity
+    group's bf16 store (SR off, then on), its f32 1-D momentum viewed as
+    [len, 1], and the 1M-capped group's f32 store, each with one batch's
+    ids; returns the bf16 store's row of the kernels line (the capacity
+    step's main K4 launch)."""
+    import torch
+
+    from dlrm_yx_tpu_torch.ops.sparse_rows_add import (
+        sparse_rows_add,
+        sparse_rows_add_reference,
+    )
+    from dlrm_yx_tpu_torch.optim.optimizer import acc_len
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    row = None
+    cases = [  # (what, group, rows, dim, dtype, SR)
+        ("capacity bf16 store", cap_big, cap_big.total_rows, cap_big.dim, torch.bfloat16, False),
+        ("capacity bf16 store, SR", cap_big, cap_big.total_rows, cap_big.dim, torch.bfloat16,
+         True),
+        ("capacity f32 1-D momentum as [len, 1]", cap_big, acc_len(cap_big.total_rows), 1,
+         torch.float32, False),
+        ("1M-capped f32 store (--no-write-only-update)", big, big.total_rows, big.dim,
+         torch.float32, False),
+    ]
+    store = None
+    for what, group, r, d, dtype, sr in cases:
+        if store is None or store.shape != (r, d) or store.dtype != dtype:
+            store = None
+            torch.cuda.empty_cache()
+            store = torch.empty(r, d, dtype=dtype, device="cuda").uniform_(
+                -0.5, 0.5, generator=gen)
+        ids = batch_rows(group, gen)
+        k = ids.numel()
+        active = torch.ones(k, dtype=torch.int32, device="cuda")
+        upd = torch.randn(k, d, device="cuda", generator=gen) * 1e-2
+        if d == 1:
+            upd = upd.abs()  # momentum increments are g^2 means
+        uniq = torch.unique(ids.long())
+        before = store.index_select(0, uniq)
+        got = sparse_rows_add(store.clone(), ids, upd, active, sr, seed=7)
+        torch.cuda.synchronize()
+        sparse_rows_add_reference(store, ids, upd, active, sr, seed=7)
+        equal, err = same_bits(got, store)
+        moved = bool((bits(got.index_select(0, uniq)) != bits(before)).any(dim=1).all())
+        del got
+        if not equal or not moved:
+            fail(f"sparse_rows_add {what}: kernel and plain version differ (max abs err "
+                 f"{err}), or a touched row kept its value")
+        ms = device_time_ms(lambda: sparse_rows_add(store, ids, upd, active, sr, seed=7))
+        sparse_rows_add_reference(store, ids, upd, active, sr, seed=7)  # warm-up
+        plain_ms = events_ms(
+            lambda: sparse_rows_add_reference(store, ids, upd, active, sr, seed=7), 10)[0]
+        library_ms = None
+        if dtype == torch.float32:  # a bf16 index_add_ rounds the update first
+            ids64 = ids.long()
+            library_ms = device_time_ms(lambda: store.index_add_(0, ids64, upd))
+        # ids and flags read, the update rows read, each distinct row read
+        # and written once; one add an element an occurrence
+        n_rows = uniq.numel()
+        nbytes = 8 * k + 4 * d * k + 2 * store.element_size() * d * n_rows
+        bound, by = bound_ms(nbytes, d * k)
+        say("kernel", f"sparse_rows_add {what} [{r}, {d}] {dtype}, K={k} on {n_rows} distinct "
+                      f"rows: bit-equal to the plain version (max_abs_err {err:.3e}), every "
+                      f"touched row changed; wrapper (sorts + kernel, CUDA graph) {ms:.5f} ms, "
+                      f"plain {plain_ms:.5f} ms (CUDA events over 10 calls, host sync "
+                      f"included), index_add_ "
+                      f"{'none' if library_ms is None else f'{library_ms:.5f} ms'}, bound "
+                      f"{bound:.5f} ms ({by}, {nbytes} B)")
+        if row is None:
+            row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                   "bound_by": by, "library_ms": library_ms}
+    del store
+    torch.cuda.empty_cache()
+    return row
+
+
+def train_bf16_sr_main_path(rows, big_index):
+    """Phase m: phase b's CLI training run with bf16 stores and stochastic
+    rounding: K4 (the big store; its 28 MB momentum stays on the scatter)
+    and K3 once per step, K1 per step and eval batch, K2 never."""
+    argv = terabyte_argv(rows) + [
+        "--num-batches", str(N_TRAIN_BATCHES), "--optimizer", "rwsadagrad",
+        "--learning-rate", str(LR), "--sparse-update-impl", "pallas",
+        "--print-freq", "1", "--emb-dtype", "bfloat16", "--stochastic-rounding",
+    ]
+    want = only(fused_interaction=2 * N_TRAIN_BATCHES, sparse_rows_add=N_TRAIN_BATCHES,
+                rwsadagrad_dense_finish=N_TRAIN_BATCHES)
+    return cli_training_run(
+        "train-bf16", f"cli training, 26 tables <=1M rows x 128 in bf16, B={BATCH}, L=1, "
+                      "bf16 compute, rwsadagrad, sparse-update pallas, stochastic rounding, "
+                      "pallas interaction",
+        argv, N_TRAIN_BATCHES, want, big_index)
+
+
+def capacity_steps():
+    """Phase n: the bench/capacity_demo.py analog's train step, SR off and
+    on, on device-drawn stores and batch; checks each step's launches (K4
+    twice, K3 once) and returns the steps as functions of nothing."""
+    import dataclasses
+
+    import torch
+
+    from dlrm_yx_tpu_torch.data.batch import Batch
+    from dlrm_yx_tpu_torch.models.dlrm import init_dlrm_on_device, model_groups
+    from dlrm_yx_tpu_torch.optim.optimizer import OptConfig, init_opt_state
+    from dlrm_yx_tpu_torch.train.train_step import make_train_step
+
+    cfg = capacity_config()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = init_dlrm_on_device(cfg, seed=123)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    stores = sum(e.numel() * e.element_size() for e in params["emb"])
+    opt = OptConfig("rwsadagrad", LR)
+    state = init_opt_state(opt, params, model_groups(cfg))
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    rows_t = torch.tensor(cfg.emb_rows, device="cuda", dtype=torch.float64)[:, None, None]
+    u = torch.rand(cfg.num_tables, BATCH, 1, device="cuda", dtype=torch.float64, generator=gen)
+    batch = Batch(
+        torch.rand(BATCH, 13, device="cuda", generator=gen),
+        (u * rows_t).int(),
+        torch.ones(cfg.num_tables, BATCH, 1, device="cuda"),
+        (torch.rand(BATCH, 1, device="cuda", generator=gen) > 0.5).float(),
+    )
+    steps = {
+        name: train_step_fn(make_train_step(dataclasses.replace(cfg, stochastic_rounding=sr),
+                                            opt), params, state, batch)
+        for name, sr in (("sr off", False), ("sr on", True))
+    }
+    counters = launch_counters()
+    want = only(sparse_rows_add=2, rwsadagrad_dense_finish=1)
+    for name, fn in steps.items():
+        for c in counters.values():
+            c.launches = 0
+        check_loss(name, fn())
+        launches = {n: c.launches for n, c in counters.items()}
+        if launches != want:
+            fail(f"capacity train step ({name}) launched {launches}, want {want}")
+    say("capacity", f"Terabyte-MLPerf <=10M rows ({sum(cfg.emb_rows)} rows, groups "
+                    f"{[g.total_rows for g in model_groups(cfg)]}), bf16 stores of {stores} B "
+                    f"drawn on the card in {init_s:.2f} s (peak {peak} B above what was "
+                    f"allocated before); one step each with SR off and on launched {want}")
+    return steps
+
+
+def capacity_throughput(steps):
+    """Phase n: the capacity steps, CUDA-event timed, in turns."""
+    for name, ts in time_in_turns(steps, check_loss).items():
+        ms = statistics.mean(ts)
+        say("throughput", f"capacity train step (Terabyte-MLPerf <=10M rows, bf16 stores and "
+                          f"compute, rwsadagrad, sparse-update pallas), {name}: {ms:.4f} "
+                          f"ms/step ({BATCH / ms * 1e3:.0f} examples/s; runs {ts})")
+
+
+def within_one_bf16_ulp(got, want):
+    """|got - want| at most one bf16 ulp of the larger magnitude, element
+    by element (exact where both are 0)."""
+    import torch
+
+    m = torch.maximum(got.abs(), want.abs())
+    ulp = torch.ldexp(torch.ones_like(m), torch.frexp(m).exponent - 8)
+    return bool(((got - want).abs() <= torch.where(got == want, 0.0, ulp)).all())
+
+
+def check_k4_train_against_cpu():
+    """Phase o: three train steps on the card (K4) against the CPU (its
+    plain version) on phase c's two-group model with PALLAS_MIN_STORE_BYTES
+    and ACC_KERNEL_MIN_BYTES at 0: a bf16 store with SR off and on, f32 with
+    write_only_update off, and Adagrad on the kernel route."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    import dlrm_yx_tpu_torch.optim.optimizer as optimizer
+    from dlrm_yx_tpu_torch.config import DLRMConfig
+    from dlrm_yx_tpu_torch.data.synthetic import RandomDataConfig, make_random_batches
+    from dlrm_yx_tpu_torch.models.dlrm import init_dlrm, model_groups
+    from dlrm_yx_tpu_torch.train.train_step import make_train_step
+
+    base = DLRMConfig.build(
+        emb_rows=(40, 3000, 60, 3200), ln_bot=(4, 64, 128), ln_top=(64, 1),
+        emb_split_threshold=100, loss="bce", interaction_impl="pallas",
+        sparse_update_impl="pallas",
+    )
+    batches = make_random_batches(RandomDataConfig(
+        emb_rows=base.emb_rows, m_den=4, mini_batch_size=64, num_batches=3, seed=8))
+    for b in batches:
+        b.indices[1, :6, 0] = b.indices[1, 0, 0]  # a duplicated row
+    rws = only(fused_interaction=3, sparse_rows_add=6, rwsadagrad_dense_finish=3)
+    cases = {  # the big store and its momentum take K4; Adagrad's store takes K2
+        "bf16 store": (dataclasses.replace(base, emb_dtype="bfloat16"), "rwsadagrad", rws),
+        "bf16 store, SR": (dataclasses.replace(base, emb_dtype="bfloat16",
+                                               stochastic_rounding=True), "rwsadagrad", rws),
+        "f32, write-only update off": (dataclasses.replace(base, write_only_update=False),
+                                       "rwsadagrad", rws),
+        "adagrad, f32": (base, "adagrad", only(fused_interaction=3, sparse_rows_overwrite=3,
+                                                sparse_rows_add=3)),
+    }
+    counters = launch_counters()
+    rtol, atol = 1e-5, 1e-6
+    saved = optimizer.PALLAS_MIN_STORE_BYTES, optimizer.ACC_KERNEL_MIN_BYTES
+    optimizer.PALLAS_MIN_STORE_BYTES = optimizer.ACC_KERNEL_MIN_BYTES = 0
+    try:
+        for what, (cfg, optname, want) in cases.items():
+            opt = optimizer.OptConfig(optname, 0.05)
+            out = {}
+            for dev in ("cpu", "cuda"):
+                params = init_dlrm(cfg, seed=7, device=dev)
+                state = optimizer.init_opt_state(opt, params, model_groups(cfg))
+                for t in state["emb"] + [a for k in ("bot", "top")
+                                         for pair in state["dense"][k] for a in pair]:
+                    t.fill_(0.01)
+                before = {n: c.launches for n, c in counters.items()}
+                step = make_train_step(cfg, opt, device=dev)
+                losses = []
+                for i, b in enumerate(batches):
+                    params, state, loss = step(params, state, b, i)
+                    losses.append(float(loss))
+                ran = {n: c.launches - before[n] for n, c in counters.items()}
+                out[dev] = (np.array(losses), params, state, ran)
+            if out["cuda"][3] != want:
+                fail(f"K4 train step ({what}) on the card launched {out['cuda'][3]}, want {want}")
+            (lc, pc, sc, _), (lg, pg, sg, _) = out["cpu"], out["cuda"]
+            f32 = [("losses", torch.from_numpy(lc), torch.from_numpy(lg))]
+            f32 += [(f"acc {i}", a, b.cpu()) for i, (a, b) in enumerate(zip(sc["emb"], sg["emb"]))]
+            f32 += [(f"{k} W{i}", a[0].detach(), b[0].detach().cpu())
+                    for k in ("bot", "top") for i, (a, b) in enumerate(zip(pc[k], pg[k]))]
+            stores = [(f"store {i}", a, b.cpu()) for i, (a, b) in enumerate(zip(pc["emb"],
+                                                                                pg["emb"]))]
+            for name, a, b in stores:
+                ok = (within_one_bf16_ulp(b.float(), a.float()) if a.dtype == torch.bfloat16
+                      else torch.allclose(b, a, rtol=rtol, atol=atol))
+                if not ok:
+                    fail(f"K4 train step ({what}) card vs CPU: {name} differs beyond "
+                         f"{'one bf16 ulp' if a.dtype == torch.bfloat16 else 'rtol/atol'}: "
+                         f"max {(a.float() - b.float()).abs().max().item()}")
+            for name, a, b in f32:
+                if not torch.allclose(b, a, rtol=rtol, atol=atol):
+                    fail(f"K4 train step ({what}) card vs CPU: {name} differs beyond rtol "
+                         f"{rtol} atol {atol}: max {(a - b).abs().max().item()}")
+            n_diff = sum(int((bits(a) != bits(b)).sum()) for _, a, b in stores)
+            worst = max((a.float() - b.float()).abs().max().item() for _, a, b in stores + f32)
+            say("reference", f"3 train steps card vs CPU ({what}, K4 launches "
+                             f"{want['sparse_rows_add']}): losses {lg.tolist()}, max |diff| "
+                             f"{worst:.3e}; {n_diff} store elements not bit-equal (stores "
+                             f"within one bf16 ulp or rtol {rtol} atol {atol}, the rest rtol "
+                             f"{rtol} atol {atol})")
+    finally:
+        optimizer.PALLAS_MIN_STORE_BYTES, optimizer.ACC_KERNEL_MIN_BYTES = saved
+
+
 def main():
+    import re
+
     import torch
 
     # 1. device
@@ -1040,39 +1385,50 @@ def main():
     seconds = _build.build()
     say("build", f"kernels {list(_build.kernel_names())} built in {seconds:.1f} s")
     for name, log in _build.build_logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                say("build", f"  {name}: {line.strip()}")
+        regs = [int(n) for n in re.findall(r"Used (\d+) registers", log)]
+        spills = [int(n) for n in re.findall(r"(\d+) bytes spill stores", log)]
+        say("build", f"  {name}: {len(regs)} kernel instances, at most {max(regs, default=0)} "
+                     f"registers and {max(spills, default=0)} bytes of spill stores a thread "
+                     f"(ptxas)")
 
-    # 3, a, f. kernels against their plain versions
+    # 3, a, f, l. kernels against their plain versions
     k1 = check_interaction_kernel()
     small, big = terabyte_groups()
     k2 = check_overwrite_kernel(big)
     k3 = check_finish_kernel(small)
     bench_cfg = benchmark_config()
     k5, k6 = check_stream_kernels(bench_cfg)
+    from dlrm_yx_tpu_torch.models.dlrm import model_groups
 
-    # 4, b, g, h. the main paths: serving, training at L=1, the L=100
-    # benchmark (K5) and its batch-4096 RWSAdagrad run (K6)
+    _, cap_big = model_groups(capacity_config())
+    k4 = check_rows_add_kernel(cap_big, big)
+
+    # 4, b, g, h, m. the main paths: serving, training at L=1, the L=100
+    # benchmark (K5), its batch-4096 RWSAdagrad run (K6) and training on
+    # bf16 stores with stochastic rounding (K4)
     rows = DLRMConfig.terabyte_mlperf(max_ind_range=1_000_000).emb_rows
     serve_main_path(rows)
     launches = train_main_path(rows, big_index=1)
     l100_launches = benchmark_main_path()
     big_launches = big_batch_main_path()
+    bf16_launches = train_bf16_sr_main_path(rows, big_index=1)
 
-    # 5, c, i. the eval and train steps against the CPU on a small input
+    # 5, c, i, o. the eval and train steps against the CPU on a small input
     check_against_cpu()
     check_train_against_cpu()
     check_stream_train_against_cpu()
+    check_k4_train_against_cpu()
 
-    # 6, d, j. serving and training throughput, then 7, e, k. where their
-    # device time goes: every timing runs before the first profiler
+    # 6, d, j, n. serving and training throughput, then 7, e, k, p. where
+    # their device time goes: every timing runs before the first profiler
     # session, whose tracing can linger and slow the host's launches
     step, params, batch = serving_throughput(rows)
     steps, tparams, state, tbatch, hint = full_train_step(rows)
     train_throughput(steps, tparams, state, tbatch, hint)
     l100_steps = l100_train_steps()
     l100_throughput(l100_steps)
+    cap_steps = capacity_steps()
+    capacity_throughput(cap_steps)
     profile_step(lambda: step(params, batch), "serving",
                  ("embedding_lookup", "bottom_mlp", "interaction", "top_mlp"))
     train_phases = ("embedding_lookup", "bottom_mlp", "interaction", "top_mlp",
@@ -1084,6 +1440,11 @@ def main():
         say("profile", f"  {name} kernels: {ms:.5f} ms/step of device time")
     for name, fn in l100_steps.items():
         profile_by_kind(profile_step(fn, f"L={L100} train ({name})", train_phases))
+    per_kernel = profile_step(cap_steps["sr off"], "capacity train (sr off)", train_phases)
+    profile_by_kind(per_kernel, CAPACITY_KINDS)
+    for name, ms in per_kernel.items():
+        if "sparse_rows_add" in name:  # one launch a step each: the store, the momentum
+            say("profile", f"  K4 alone: {ms:.5f} ms/step {name[:90]}")
 
     sources = {
         "fused_interaction": ("dlrm_yx_tpu/ops/pallas_interaction.py:84", k1, launches,
@@ -1096,6 +1457,9 @@ def main():
                                 l100_launches, "no single call expands and adds"),
         "sorted_stream_add": ("dlrm_yx_tpu/ops/pallas_stream_update.py:343", k6,
                               big_launches, None),
+        "sparse_rows_add": ("dlrm_yx_tpu/ops/pallas_sparse_update.py:293", k4,
+                            bf16_launches, "index_add_ with a bf16 store rounds the update "
+                                           "before adding: another function"),
     }
     kernels = []
     for name, (replaces, row, path_launches, no_library) in sources.items():

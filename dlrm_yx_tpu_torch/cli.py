@@ -5,11 +5,11 @@ The port of the single-device training and ``--inference-only`` paths of
 and meaning; one flag is new, ``--device`` (``cuda`` by default; ``cpu``
 for the tests). Flags of parts not yet ported are still recognised, and
 giving any of them raises ``NotImplementedError`` instead of being
-ignored; so does ``--no-write-only-update``, whose kernel (K4) is not
-ported yet. ``--print-time`` is accepted and has no effect, as in the JAX
+ignored. ``--print-time`` is accepted and has no effect, as in the JAX
 CLI. The reference's L=100 throughput benchmark
 (``bench/dlrm_tpu_benchmark.sh``) runs with ``dlrm_yx_tpu.cli`` replaced by
-``dlrm_yx_tpu_torch.cli``.
+``dlrm_yx_tpu_torch.cli``. bf16 table storage (``--emb-dtype bfloat16``)
+takes ``--stochastic-rounding``.
 
     python -m dlrm_yx_tpu_torch.cli \
         --arch-embedding-size 1000-1000 --arch-sparse-feature-size 128 \
@@ -51,7 +51,7 @@ UNPORTED_FLAGS = (
     "mlperf-bin-shuffle", "print-precision",
     "dataset-multiprocessing", "use-tpu", "force-cpu-devices",
     "use-gpu", "distributed", "mesh-data", "mesh-model", "shard-mode",
-    "sharder", "allocation", "stochastic-rounding", "debug-mode",
+    "sharder", "allocation", "debug-mode",
     "enable-profiling", "profile-out-dir", "plot-compute-graph",
     "tensor-board-filename", "save-model", "load-model", "ckpt-backend",
     "save-onnx", "mlperf-grad-accum-iter", "quantize-mlp-with-bit",
@@ -110,6 +110,9 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["float32", "bfloat16"])
     p.add_argument("--emb-dtype", type=str, default="float32",
                    choices=["float32", "bfloat16"])
+    p.add_argument("--stochastic-rounding", action="store_true", default=False,
+                   help="round bf16 table updates stochastically on the "
+                        "row-update kernel's route")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default; raises when absent) or cpu")
     p.add_argument("--max-ind-range", type=int, default=-1,
@@ -131,7 +134,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="coalesce duplicate rows before the kernel route's "
                         "adagrad-family momentum")
     p.add_argument("--no-write-only-update", action="store_true", default=False,
-                   help="not ported yet: it needs the sparse_rows_add kernel")
+                   help="read-modify-write every updated row (the "
+                        "sparse_rows_add kernel) instead of writing the rows "
+                        "the lookup gathered")
     p.add_argument("--lr-num-warmup-steps", type=int, default=0)
     p.add_argument("--lr-decay-start-step", type=int, default=0)
     p.add_argument("--lr-num-decay-steps", type=int, default=0)
@@ -162,11 +167,6 @@ def check_ported(args) -> None:
             f"--data-generation={args.data_generation} is not yet ported "
             "(random and random-device only)"
         )
-    if args.no_write_only_update:
-        raise NotImplementedError(
-            "--no-write-only-update is not yet ported to dlrm_yx_tpu_torch: "
-            "it needs the sparse_rows_add kernel (K4)"
-        )
 
 
 def config_from_args(args) -> DLRMConfig:
@@ -181,6 +181,8 @@ def config_from_args(args) -> DLRMConfig:
         wbce_weights=tuple(float(x) for x in args.loss_weights.split("-")),
         compute_dtype=args.compute_dtype,
         emb_dtype=args.emb_dtype,
+        stochastic_rounding=args.stochastic_rounding,
+        write_only_update=not args.no_write_only_update,
         lookup_impl=args.lookup_impl,
         interaction_impl=args.interaction_impl,
         sparse_update_impl=args.sparse_update_impl,

@@ -1,19 +1,24 @@
-// The run walk shared by sorted_stream_apply.cu (K5) and sorted_stream_add.cu
-// (K6), for Hopper (sm_90a). In place, for k ascending:
+// The run walk shared by sorted_stream_apply.cu (K5), sorted_stream_add.cu
+// (K6) and sparse_rows_add.cu (K4), for Hopper (sm_90a). In place, for k
+// ascending:
 //
-//   store[pos[k]] += (update row of occurrence k)     (pos[k] outside [0, R): dropped)
+//   store[row(k)] += (update row of occurrence k)     (row(k) outside [0, R): dropped)
 //
-// store [R, dim] is f32 rows; pos [K] int32 is sorted ascending, so the
-// occurrences of one row are neighbours (a run).
+// store [R, dim] is f32 or bf16 rows, held in f32 while a run is applied
+// and rounded to nearest at the store; row(k) = pos[k] >> shift, where
+// pos [K] (int32 or int64) is sorted ascending, so the occurrences of one
+// row are neighbours (a run). K5 and K6 pass their row ids (shift 0); K4
+// passes row * 2 + flag (shift 1).
 //
 // A group of G lanes (the power of two that covers the row's vectors, at
 // most a warp) takes one sorted position. A position that is not the head
-// of its run (pos[p - 1] == pos[p]) returns. A run head holds its row in
-// registers, one 16-byte vector a lane when dim % 4 == 0, adds the run's
+// of its run returns. A run head holds its row in registers, one vector of
+// V elements a lane (16 bytes of f32 when dim % 4 == 0), adds the run's
 // update rows in ascending k and stores the row once: duplicates are exact
 // and deterministic, with no atomics and no second launch. The run is
 // walked G occurrences at a time: each lane loads one occurrence and a
-// ballot finds where the run ends. Only the rows that occur move.
+// ballot finds where the run ends. Only the rows that occur move. dim == 1
+// (a 1-D accumulator viewed as [R, 1]) runs with V = 1 and G = 1.
 //
 // An update Op says where occurrence k's row comes from:
 //   Op::Item                         what a lane loads for its occurrence
@@ -22,10 +27,11 @@
 //                                    v plus vector c of the rows of occurrences
 //                                    q0 .. q0 + n - 1, in order (occurrence q0 + j's
 //                                    item is lane j's); called by every lane of the
-//                                    group, has = (c < nv)
+//                                    group, has = (c < nv); T is float4 or float
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <type_traits>
@@ -34,42 +40,78 @@ namespace sorted_stream {
 
 constexpr int kThreads = 256;
 
-template <int V> struct Vec;
-template <> struct Vec<4> { using T = float4; };
-template <> struct Vec<1> { using T = float; };
+// V elements of a store of type S: Raw as they lie in memory, T as f32.
+template <class S, int V> struct StoreVec;
 
-// The body of a kernel instance: V floats a vector, nv vectors a row, G
+template <> struct StoreVec<float, 4> {
+  using Raw = float4;
+  using T = float4;
+  static __device__ __forceinline__ T load(Raw r) { return r; }
+  static __device__ __forceinline__ Raw store(T v) { return v; }
+};
+
+template <> struct StoreVec<float, 1> {
+  using Raw = float;
+  using T = float;
+  static __device__ __forceinline__ T load(Raw r) { return r; }
+  static __device__ __forceinline__ Raw store(T v) { return v; }
+};
+
+template <> struct StoreVec<__nv_bfloat16, 4> {
+  struct alignas(8) Raw {
+    __nv_bfloat162 lo, hi;
+  };
+  using T = float4;
+  static __device__ __forceinline__ T load(Raw r) {
+    const float2 a = __bfloat1622float2(r.lo), b = __bfloat1622float2(r.hi);
+    return make_float4(a.x, a.y, b.x, b.y);
+  }
+  static __device__ __forceinline__ Raw store(T v) {
+    return Raw{__floats2bfloat162_rn(v.x, v.y), __floats2bfloat162_rn(v.z, v.w)};
+  }
+};
+
+template <> struct StoreVec<__nv_bfloat16, 1> {
+  using Raw = __nv_bfloat16;
+  using T = float;
+  static __device__ __forceinline__ T load(Raw r) { return __bfloat162float(r); }
+  static __device__ __forceinline__ Raw store(T v) { return __float2bfloat16_rn(v); }
+};
+
+// The body of a kernel instance: V elements a vector, nv vectors a row, G
 // lanes a position.
-template <int V, int G, class Op>
-__device__ __forceinline__ void apply_runs(float* __restrict__ store,
-                                           const int* __restrict__ pos, long long R,
-                                           long long K, int nv, const Op& op) {
-  using T = typename Vec<V>::T;
+template <int V, int G, class S, class P, class Op>
+__device__ __forceinline__ void apply_runs(S* __restrict__ store, const P* __restrict__ pos,
+                                           long long R, long long K, int nv, const Op& op,
+                                           int shift = 0) {
+  using SV = StoreVec<S, V>;
+  using T = typename SV::T;
   const long long p =
       (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) / G;
   if (p >= K) return;
-  const int row = pos[p];
+  const long long row = static_cast<long long>(pos[p]) >> shift;
   if (row < 0 || row >= R) return;
-  if (p > 0 && pos[p - 1] == row) return;  // the run's head applies the run
+  if (p > 0 && (static_cast<long long>(pos[p - 1]) >> shift) == row) return;  // the head applies the run
   const int gl = threadIdx.x % G;
   const int lane = threadIdx.x % 32;
   const unsigned gmask =
       G == 32 ? 0xffffffffu : ((1u << (G % 32)) - 1u) << (lane & ~(G - 1));
-  T* dst = reinterpret_cast<T*>(store) + static_cast<long long>(row) * nv;
+  typename SV::Raw* dst = reinterpret_cast<typename SV::Raw*>(store) + row * nv;
   for (int c0 = 0; c0 < nv; c0 += G) {
     const int c = c0 + gl;
     const bool has = c < nv;
     T v{};
-    if (has) v = dst[c];
+    if (has) v = SV::load(dst[c]);
     for (long long q0 = p;; q0 += G) {
       const long long q = q0 + gl;
-      const bool in = q < K && pos[q] == row;  // the run is a prefix of the lanes
+      // the run is a prefix of the lanes
+      const bool in = q < K && (static_cast<long long>(pos[q]) >> shift) == row;
       const typename Op::Item item = op.load(q, in);
       const int n = __popc(__ballot_sync(gmask, in));
       v = op.template add_step<G>(v, item, q0, n, c, nv, has, gmask);
       if (n < G) break;
     }
-    if (has) dst[c] = v;
+    if (has) dst[c] = SV::store(v);
   }
 }
 

@@ -41,6 +41,8 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # call per table (uniform draws are sequential in C order), without a
 # float64 temporary of a whole 1M-row table
 _INIT_CHUNK_ROWS = 1 << 16
+# rows drawn per torch.rand call in init_dlrm_on_device (512 MB of f32 at dim 128)
+_DEVICE_CHUNK_ROWS = 1 << 20
 
 
 def model_groups(config: DLRMConfig) -> List[TableGroup]:
@@ -108,8 +110,10 @@ def init_dlrm_on_device(config: DLRMConfig, seed: int = 123,
     with a ``torch.Generator`` (seeded ``seed + group index``), so the
     tables never exist on the host. Same distribution as ``init_dlrm``
     (U(-1/sqrt n, 1/sqrt n) per table, zero padding rows), other values.
-    The dense params take the numpy draws that the JAX package's
-    ``init_dlrm_on_device`` takes."""
+    Each table is drawn in f32 blocks of ``_DEVICE_CHUNK_ROWS`` rows cast
+    into the store, so the device holds the store and one block (a bf16
+    store of 13.8 GB never has an f32 twin). The dense params take the
+    numpy draws that the JAX package's ``init_dlrm_on_device`` takes."""
     check_supported(config)
     dev = resolve_device(device)
     edt = DTYPES[config.emb_dtype]
@@ -117,12 +121,14 @@ def init_dlrm_on_device(config: DLRMConfig, seed: int = 123,
     for gi, g in enumerate(model_groups(config)):
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed + gi)
-        bound = torch.zeros(g.total_rows, device=dev)
+        store = torch.zeros((g.total_rows, g.dim), dtype=edt, device=dev)
         for n, off in zip(g.rows, g.row_offsets):
-            bound[off : off + n] = float(np.sqrt(1.0 / n))
-        store = torch.rand((g.total_rows, g.dim), generator=gen, device=dev)
-        store.mul_(2.0).sub_(1.0).mul_(bound[:, None])
-        emb.append(store.to(edt))
+            bound = float(np.float32(np.sqrt(1.0 / n)))
+            for r0 in range(0, n, _DEVICE_CHUNK_ROWS):
+                r1 = min(n, r0 + _DEVICE_CHUNK_ROWS)
+                block = torch.rand((r1 - r0, g.dim), generator=gen, device=dev)
+                store[off + r0 : off + r1] = block.mul_(2.0).sub_(1.0).mul_(bound)
+        emb.append(store)
     return {**_dense_params(np.random.RandomState(seed), config, dev), "emb": emb}
 
 

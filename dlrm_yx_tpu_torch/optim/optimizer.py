@@ -10,18 +10,18 @@ gradients, routed by the JAX package's gates, copied as they are:
     the row-touching kernel route and the XLA routes;
   * on the kernel route, ``MOMENTUM_EXACT_DENSITY`` chooses per-occurrence
     or coalesce-first momentum, and ``can_overwrite`` the write-only update
-    (K2, ``ops/sparse_rows_overwrite.py``);
+    (K2, ``ops/sparse_rows_overwrite.py``) over the row read-modify-write
+    (K4, ``ops/sparse_rows_add.py``), which takes bf16 stores, stochastic
+    rounding and updates without the lookup's rows. K4 also applies
+    Adagrad's per-element accumulator on that route and, past
+    ``ACC_KERNEL_MIN_BYTES``, RWSAdagrad's 1-D momentum viewed as
+    ``[len, 1]`` rows;
   * the dense branch builds the exactly coalesced gradient with a
     zeros-plus-scatter and finishes RWSAdagrad with K3
     (``ops/dense_finish.py``) under ``impl='pallas'``;
   * ``sparse_update_stream``, which the train step chooses for the high-L
     dense regime, sorts the occurrences by row and applies them with K5 or
     K6 (``ops/stream_update.py``).
-
-Routes whose kernel is not ported yet raise ``NotImplementedError`` naming
-it, and take no other path: K4 ``sparse_rows_add`` (a bf16 store or
-stochastic rounding on the kernel route, no gathered rows, Adagrad on the
-kernel route, a 1-D accumulator of ``ACC_KERNEL_MIN_BYTES`` or more).
 
 Differences of form from the JAX package, none of result:
   * updates are in place (the multi-GB stores are never copied); each
@@ -47,6 +47,7 @@ from dlrm_yx_tpu_torch.ops import stream_update
 from dlrm_yx_tpu_torch.ops.coalesce import coalesce_rows
 from dlrm_yx_tpu_torch.ops.dense_finish import rwsadagrad_dense_finish
 from dlrm_yx_tpu_torch.ops.embedding import TableGroup, dim_pack
+from dlrm_yx_tpu_torch.ops.sparse_rows_add import sparse_rows_add
 from dlrm_yx_tpu_torch.ops.sparse_rows_overwrite import sparse_rows_overwrite
 
 # the JAX package's routing constants (optimizer.py:129-211)
@@ -55,8 +56,6 @@ ACC_KERNEL_MIN_BYTES = 160 << 20
 ACC_SENTINEL_PAD = 256
 DENSE_ACCUM_FACTOR = 8
 MOMENTUM_EXACT_DENSITY = 0.95
-
-K4_MISSING = "the sparse_rows_add kernel (K4) is not yet ported to dlrm_yx_tpu_torch"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -221,16 +220,16 @@ def _take_fill(src: torch.Tensor, idx: torch.Tensor, fill: float, limit: int):
 
 def _acc_update_1d(acc, flat_idx, mom_inc, active, sentinel, impl):
     """acc[idx] += mom_inc for active items: a scatter, or, past
-    ACC_KERNEL_MIN_BYTES, the row-RMW kernel on the accumulator (K4)."""
+    ACC_KERNEL_MIN_BYTES, the row-RMW kernel (K4) on the accumulator viewed
+    as [len, 1] rows."""
     if (
         impl in ("pallas", "stream")
         and acc.shape[0] % 128 == 0
         and acc.shape[0] >= sentinel + 129
         and acc.shape[0] * 4 >= ACC_KERNEL_MIN_BYTES
     ):
-        raise NotImplementedError(
-            f"a 1-D accumulator of {acc.shape[0] * 4} bytes updates through {K4_MISSING}"
-        )
+        sparse_rows_add(acc.view(-1, 1), flat_idx, mom_inc[:, None], active)
+        return
     safe = torch.where(active > 0, flat_idx, sentinel)
     _add_at(acc, safe, mom_inc * active, sentinel)
 
@@ -245,6 +244,7 @@ def sparse_update(
     sentinel: int,
     impl: str = "xla",
     stochastic_round: bool = False,
+    sr_seed: int = 0,
     size_class: int = 1,
     dim: int | None = None,
     exact_momentum: bool = False,
@@ -258,8 +258,10 @@ def sparse_update(
     flat_idx: [K] row ids, duplicates allowed, ``sentinel`` (= R) for
     padding; flat_g: [K, dim] f32 row gradients; old_rows: [K, dim] f32
     store rows gathered by the forward lookup (L=1), which enable the
-    write-only update; size_class: 0 for a small-table group, which always
-    takes the dense branch. See the module docstring for the routes.
+    write-only update; stochastic_round and sr_seed (the step) apply to a
+    bf16 store on the kernel route; size_class: 0 for a small-table group,
+    which always takes the dense branch. See the module docstring for the
+    routes.
     """
     d = store.shape[1]
     if dim is not None and dim != d:
@@ -290,7 +292,7 @@ def sparse_update(
         exact_momentum = not (density_hint >= MOMENTUM_EXACT_DENSITY)
     if use_kernel:
         return _kernel_route(opt, store, acc, flat_idx, flat_g, lr, sentinel, impl,
-                             stochastic_round, exact_momentum, old_rows)
+                             stochastic_round, sr_seed, exact_momentum, old_rows)
 
     if opt.name == "sgd":
         # linear: a scatter-add is exact on duplicates
@@ -336,7 +338,7 @@ def sparse_update(
 
 
 def _kernel_route(opt, store, acc, flat_idx, flat_g, lr, sentinel, impl,
-                  stochastic_round, exact_momentum, old_rows):
+                  stochastic_round, sr_seed, exact_momentum, old_rows):
     """The row-touching route (``optimizer.py:333-429``)."""
     if exact_momentum:
         # coalesce first: momentum sees each row's summed gradient once;
@@ -355,21 +357,23 @@ def _kernel_route(opt, store, acc, flat_idx, flat_g, lr, sentinel, impl,
     )
 
     def apply_store(delta):
-        if not can_overwrite:
-            why = ("stochastic rounding" if stochastic_round
-                   else f"a {store.dtype} store" if store.dtype != torch.float32
-                   else "an update without the lookup's rows (write_only_update off, L > 1)")
-            raise NotImplementedError(f"{why} on the kernel route needs {K4_MISSING}")
-        sparse_rows_overwrite(store, flat_idx, old_rows + delta, delta, active)
+        if can_overwrite:
+            sparse_rows_overwrite(store, flat_idx, old_rows + delta, delta, active)
+        else:
+            sparse_rows_add(store, flat_idx, delta, active, stochastic_round, sr_seed)
         return store
 
     if opt.name == "sgd":
         return apply_store(-lr * flat_g), acc
+    safe = torch.where(active > 0, flat_idx, sentinel)
     if opt.name == "adagrad":
-        raise NotImplementedError(f"adagrad on the kernel route needs {K4_MISSING}")
+        # per-element accumulator: K4 adds g^2, then the update divides by
+        # the updated entries (sentinel items read 1.0)
+        sparse_rows_add(acc, flat_idx, flat_g * flat_g, active)
+        denom = _take_fill(acc, safe, 1.0, sentinel).sqrt() + opt.eps
+        return apply_store(-lr * flat_g / denom), acc
     # rwsadagrad: 1-D per-row momentum, per occurrence unless coalesced
     mom_inc = ((flat_g * flat_g).sum(dim=-1) / store.shape[1]) * active
     _acc_update_1d(acc, flat_idx, mom_inc, active, sentinel, impl)
-    safe = torch.where(active > 0, flat_idx, sentinel)
     denom = _take_fill(acc, safe, 1.0, sentinel).sqrt() + opt.eps
     return apply_store(-lr * flat_g / denom[:, None]), acc

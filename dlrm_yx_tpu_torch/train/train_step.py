@@ -58,10 +58,11 @@ from dlrm_yx_tpu_torch.utils.profiling import phase_scope
 @torch.no_grad()
 def apply_gradients(config: DLRMConfig, opt: OptConfig, groups, params: Dict,
                     opt_state: Dict, batch, g_dense: Dict, g_pooled, lr: float,
-                    raw_rows=None) -> None:
+                    raw_rows=None, sr_seed: int = 0) -> None:
     """Dense updates of the MLPs and sparse row updates of every group
     store from the pooled cotangent, in place. raw_rows: per-group rows
-    gathered by the forward lookup (L=1 groups, else None)."""
+    gathered by the forward lookup (L=1 groups, else None); sr_seed: the
+    stochastic rounding's seed (the step)."""
     with phase_scope("optimizer"):
         update_dense_towers(opt, params, opt_state, g_dense, lr)
         for gi, g in enumerate(groups):
@@ -93,7 +94,7 @@ def apply_gradients(config: DLRMConfig, opt: OptConfig, groups, params: Dict,
                 opt, store, opt_state["emb"][gi] if opt.name != "sgd" else None,
                 fidx, fg, lr, g.total_rows,
                 impl=config.sparse_update_impl,
-                stochastic_round=config.stochastic_rounding,
+                stochastic_round=config.stochastic_rounding, sr_seed=sr_seed,
                 size_class=g.size_class, dim=g.dim,
                 exact_momentum=config.exact_row_momentum,
                 old_rows=old_rows, density_hint=config.dup_density_hint,
@@ -141,7 +142,7 @@ def make_train_step(config: DLRMConfig, opt: OptConfig,
         g_dense = {k: [(next(it), next(it)) for _ in params[k]] for k in ("bot", "top")}
         g_pooled = list(it)
         apply_gradients(config, opt, groups, params, opt_state, b, g_dense,
-                        g_pooled, lr, raw_rows)
+                        g_pooled, lr, raw_rows, sr_seed=iteration)
         return params, opt_state, loss.detach()
 
     return step

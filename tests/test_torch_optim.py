@@ -5,8 +5,9 @@ against the JAX package on the CPU.
 batch over every optimizer, impl, duplicate-density hint and size class,
 with the kernel routes forced on the small store by patching
 ``PALLAS_MIN_STORE_BYTES`` in both packages; the JAX Pallas kernels run in
-interpret mode. Routes whose kernel the port does not have yet must raise
-``NotImplementedError``.
+interpret mode. The kernel routes that take K4 (``sparse_rows_add``) are
+counted: Adagrad's accumulator, a bf16 store, an update without the
+lookup's rows and a 1-D accumulator past ``ACC_KERNEL_MIN_BYTES``.
 """
 
 import jax.numpy as jnp
@@ -23,6 +24,31 @@ from dlrm_yx_tpu_torch.optim.lr_policy import LRPolicy
 from dlrm_yx_tpu_torch.optim.optimizer import OptConfig, acc_len
 
 TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+def assert_within_one_bf16_ulp(got, want):
+    """|got - want| at most one bf16 ulp of the larger magnitude, element by
+    element (exact where both are 0)."""
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    _, e = np.frexp(np.maximum(np.abs(got), np.abs(want)))
+    ulp = np.ldexp(np.float32(1.0), e - 8)  # 8 significant bits
+    bad = np.abs(got - want) > np.where(got == want, 0, ulp)
+    assert not bad.any(), f"{bad.sum()} elements beyond one bf16 ulp"
+
+
+def _counted(monkeypatch, *attrs):
+    """Count the port optimizer's calls of each kernel wrapper in attrs."""
+    calls = dict.fromkeys(attrs, 0)
+
+    def counted(name, fn):
+        def wrapped(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return wrapped
+
+    for name in attrs:
+        monkeypatch.setattr(port_opt, name, counted(name, getattr(port_opt, name)))
+    return calls
 
 
 @pytest.mark.parametrize("kw", [
@@ -86,22 +112,8 @@ def test_sparse_update_matches_jax(monkeypatch, optname, impl, hint, size_class)
     t = torch.from_numpy
     args = (OptConfig(optname, 0.05), t(store.copy()),
             None if acc is None else t(acc.copy()), t(idx), t(g), 0.05, rows)
-    if optname == "adagrad" and impl == "pallas" and size_class == 1:
-        with pytest.raises(NotImplementedError, match="K4"):
-            port_opt.sparse_update(*args, old_rows=t(old), **kw)
-        return
-    calls = {"k2": 0, "k3": 0}
-
-    def counted(name, fn):
-        def wrapped(*a, **k):
-            calls[name] += 1
-            return fn(*a, **k)
-        return wrapped
-
-    monkeypatch.setattr(port_opt, "sparse_rows_overwrite",
-                        counted("k2", port_opt.sparse_rows_overwrite))
-    monkeypatch.setattr(port_opt, "rwsadagrad_dense_finish",
-                        counted("k3", port_opt.rwsadagrad_dense_finish))
+    calls = _counted(monkeypatch, "sparse_rows_overwrite", "rwsadagrad_dense_finish",
+                     "sparse_rows_add")
     got_s, got_a = port_opt.sparse_update(*args, old_rows=t(old), **kw)
     want_s, want_a = jax_opt.sparse_update(
         jax_opt.OptConfig(optname, 0.05), jnp.asarray(store),
@@ -111,28 +123,54 @@ def test_sparse_update_matches_jax(monkeypatch, optname, impl, hint, size_class)
     if acc is not None:
         np.testing.assert_allclose(got_a.numpy(), np.asarray(want_a), **TOL)
     kernel_route = impl == "pallas" and size_class == 1
-    assert calls["k2"] == int(kernel_route)
-    assert calls["k3"] == int(impl == "pallas" and size_class == 0
-                              and optname == "rwsadagrad")
+    assert calls["sparse_rows_overwrite"] == int(kernel_route)
+    assert calls["rwsadagrad_dense_finish"] == int(impl == "pallas" and size_class == 0
+                                                   and optname == "rwsadagrad")
+    # Adagrad's per-element accumulator takes K4 on the kernel route
+    assert calls["sparse_rows_add"] == int(kernel_route and optname == "adagrad")
     assert np.abs(got_s.numpy() - store).max() > 0
 
 
 @pytest.mark.parametrize("why", ["bf16 store", "no rows", "big accumulator"])
 def test_kernel_routes_without_a_kernel_raise(monkeypatch, why):
-    monkeypatch.setattr(port_opt, "PALLAS_MIN_STORE_BYTES", 0)
+    """The kernel routes that raised while K4 was missing: a bf16 store, an
+    update without the lookup's rows, and a 1-D accumulator past
+    ACC_KERNEL_MIN_BYTES (gates patched to 0 in both packages). Each now
+    takes K4 and matches the JAX package: an f32 store and the accumulators
+    to TOL, a bf16 store to one bf16 ulp (the f32 updates it rounds are
+    summed in other orders by torch and XLA)."""
+    for mod in (jax_opt, port_opt):
+        monkeypatch.setattr(mod, "PALLAS_MIN_STORE_BYTES", 0)
+        if why == "big accumulator":
+            monkeypatch.setattr(mod, "ACC_KERNEL_MIN_BYTES", 0)
     store, acc, idx, g, old = _update_case("rwsadagrad", 1)
-    t = torch.from_numpy
-    store_t, acc_t, old_t = t(store), t(acc), t(old)
+    rows = store.shape[0]
+    jstore = jnp.asarray(store, jnp.bfloat16 if why == "bf16 store" else jnp.float32)
+    before = np.array(jstore.astype(jnp.float32))  # a copy: the port updates in place
+    store_t = torch.from_numpy(before.copy())
     if why == "bf16 store":
         store_t = store_t.bfloat16()
-    elif why == "no rows":
-        old_t = None
+    old = None if why == "no rows" else old
+    calls = _counted(monkeypatch, "sparse_rows_overwrite", "sparse_rows_add")
+    t = torch.from_numpy
+    got_s, got_a = port_opt.sparse_update(
+        OptConfig("rwsadagrad", 0.05), store_t, t(acc.copy()), t(idx), t(g), 0.05, rows,
+        impl="pallas", old_rows=None if old is None else t(old))
+    want_s, want_a = jax_opt.sparse_update(
+        jax_opt.OptConfig("rwsadagrad", 0.05), jstore, jnp.asarray(acc), jnp.asarray(idx),
+        jnp.asarray(g), 0.05, rows, impl="pallas", interpret=True,
+        old_rows=None if old is None else jnp.asarray(old))
+    want_s = np.asarray(want_s.astype(jnp.float32))
+    if why == "bf16 store":
+        assert got_s.dtype == torch.bfloat16
+        assert_within_one_bf16_ulp(got_s.float().numpy(), want_s)
     else:
-        monkeypatch.setattr(port_opt, "ACC_KERNEL_MIN_BYTES", 0)
-    with pytest.raises(NotImplementedError, match="K4"):
-        port_opt.sparse_update(OptConfig("rwsadagrad", 0.05), store_t, acc_t, t(idx),
-                               t(g), 0.05, store.shape[0], impl="pallas",
-                               old_rows=old_t)
+        np.testing.assert_allclose(got_s.numpy(), want_s, **TOL)
+    np.testing.assert_allclose(got_a.numpy(), np.asarray(want_a), **TOL)
+    k2 = why == "big accumulator"  # f32 store with the lookup's rows: write-only
+    assert calls == {"sparse_rows_overwrite": int(k2),
+                     "sparse_rows_add": 1 + (why == "big accumulator") - k2}
+    assert (got_s.float().numpy() != before).any()
 
 
 def test_dense_update_matches_jax():

@@ -124,6 +124,23 @@ def test_init_on_device_distribution():
     np.testing.assert_array_equal(pp["bot"][0][0].numpy(), w0)
 
 
+def test_init_on_device_draws_bf16_stores_in_blocks(monkeypatch):
+    """Tables are drawn in f32 blocks (a few rows here) and cast into the
+    store: a bf16 store equals the f32 one rounded, block edges included."""
+    import dataclasses
+
+    import dlrm_yx_tpu_torch.models.dlrm as port_dlrm
+
+    monkeypatch.setattr(port_dlrm, "_DEVICE_CHUNK_ROWS", 7)
+    _, pcfg = _configs(**SMALL)
+    f32 = init_dlrm_on_device(pcfg, seed=4, device="cpu")
+    b16 = init_dlrm_on_device(dataclasses.replace(pcfg, emb_dtype="bfloat16"), seed=4,
+                              device="cpu")
+    for a, b in zip(f32["emb"], b16["emb"]):
+        assert b.dtype == torch.bfloat16 and a.dtype == torch.float32
+        assert torch.equal(b, a.bfloat16())
+
+
 def test_dlrm_module_owns_params():
     _, pcfg = _configs(**SMALL, interaction_impl="pallas")
     params = init_dlrm(pcfg, seed=1, device="cpu")
@@ -184,12 +201,12 @@ def test_cli_rejects_unported_flags(extra):
 
 
 def test_cli_without_inference_only_is_not_ported():
-    """Training is ported (tests/test_torch_training.py); its options whose
-    kernels or parts are not raise."""
+    """Training is ported (tests/test_torch_training.py, with
+    --no-write-only-update and --stochastic-rounding); its options whose
+    parts are not raise."""
     flags = [f for f in CLI_FLAGS if f != "--inference-only"] + ["--device", "cpu"]
-    for extra in (["--no-write-only-update"], ["--steps-per-dispatch", "4"]):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            port_cli.main(flags + extra)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        port_cli.main(flags + ["--steps-per-dispatch", "4"])
 
 
 def test_cuda_asked_for_and_absent_raises(monkeypatch):

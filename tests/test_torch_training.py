@@ -6,8 +6,10 @@ Both packages start from the JAX ``init_dlrm`` params and ``init_opt_state``
 take the same numpy batches. The JAX train step donates its inputs, so its
 outputs are rebound; the port updates in place, so its inputs are its own
 copies. The kernel routes are forced on small stores by patching
-``PALLAS_MIN_STORE_BYTES`` in both packages; JAX runs its Pallas kernels
-in interpret mode.
+``PALLAS_MIN_STORE_BYTES`` (and, for K4 on the 1-D momentum,
+``ACC_KERNEL_MIN_BYTES``) in both packages; JAX runs its Pallas kernels in
+interpret mode, which skips stochastic rounding, so the port's SR runs are
+held to JAX's nearest-even runs within bf16 rounding.
 """
 
 import json
@@ -37,8 +39,10 @@ from dlrm_yx_tpu_torch.models.dlrm import init_dlrm, model_groups
 from dlrm_yx_tpu_torch.ops.fused_interaction import fused_interaction
 from dlrm_yx_tpu_torch.optim.optimizer import OptConfig, init_opt_state
 from dlrm_yx_tpu_torch.train.train_step import make_train_step
+from test_torch_optim import assert_within_one_bf16_ulp
 
 TOL = {"float32": dict(rtol=1e-5, atol=1e-6), "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+
 # big tables of 3000 and 3200 rows (size class 1, the K2 route) and small
 # ones of 40 and 60 (size class 0, the dense branch and K3)
 TWO_GROUPS = dict(emb_rows=(40, 3000, 60, 3200), ln_bot=(4, 64, 128),
@@ -62,13 +66,16 @@ def _np(tree):
     return jax.tree.map(np.asarray, tree)
 
 
-def _run_both(monkeypatch, optname, impl, cdt="float32", hint=-1.0, dim=128, b=64):
-    """3 steps of each package from the same state; returns both (params,
-    state, losses) and how often the port called K2 and K3."""
-    monkeypatch.setattr(jax_opt, "PALLAS_MIN_STORE_BYTES", 0)
-    monkeypatch.setattr(port_opt, "PALLAS_MIN_STORE_BYTES", 0)
+def _run_both(monkeypatch, optname, impl, cdt="float32", hint=-1.0, dim=128, b=64,
+              steps=3, **cfg_kw):
+    """``steps`` steps of each package from the same state (config
+    overrides in cfg_kw); returns both (params, state, losses) and how
+    often the port called K2, K3 and K4."""
+    for mod in (jax_opt, port_opt):
+        monkeypatch.setattr(mod, "PALLAS_MIN_STORE_BYTES", 0)
+        monkeypatch.setattr(mod, "ACC_KERNEL_MIN_BYTES", 0)
     kw = dict(TWO_GROUPS, ln_bot=(4, 64, dim), sparse_update_impl=impl,
-              compute_dtype=cdt, dup_density_hint=hint)
+              compute_dtype=cdt, dup_density_hint=hint, **cfg_kw)
     jcfg, pcfg = JaxConfig.build(**kw), DLRMConfig.build(**kw)
     jp = jax_init_dlrm(jcfg, seed=3)
     js = jax_opt.init_opt_state(jax_opt.OptConfig(optname, 0.05), jp, jax_model_groups(jcfg))
@@ -77,8 +84,9 @@ def _run_both(monkeypatch, optname, impl, cdt="float32", hint=-1.0, dim=128, b=6
     opt = OptConfig(optname, 0.05)
     pp = params_from_jax(_np(jp), pcfg, "cpu")
     ps = opt_state_from_jax(_np(js), opt, pcfg, "cpu")
-    calls = {"k2": 0, "k3": 0}
-    for name, attr in (("k2", "sparse_rows_overwrite"), ("k3", "rwsadagrad_dense_finish")):
+    calls = {"k2": 0, "k3": 0, "k4": 0}
+    for name, attr in (("k2", "sparse_rows_overwrite"), ("k3", "rwsadagrad_dense_finish"),
+                       ("k4", "sparse_rows_add")):
         fn = getattr(port_opt, attr)
 
         def counted(*a, _fn=fn, _name=name, **k):
@@ -89,7 +97,7 @@ def _run_both(monkeypatch, optname, impl, cdt="float32", hint=-1.0, dim=128, b=6
     jstep = jax_make_train_step(jcfg, jax_opt.OptConfig(optname, 0.05))
     pstep = make_train_step(pcfg, opt, device="cpu")
     jl, pl = [], []
-    for i, batch in enumerate(_batches(pcfg.emb_rows, b)):
+    for i, batch in enumerate(_batches(pcfg.emb_rows, b, n=steps)):
         jp, js, loss = jstep(jp, js, Batch(*map(jnp.asarray, batch)), i)
         jl.append(float(loss))
         pp, ps, loss = pstep(pp, ps, batch, i)
@@ -97,7 +105,9 @@ def _run_both(monkeypatch, optname, impl, cdt="float32", hint=-1.0, dim=128, b=6
     return (jp, js, jl), (pp, ps, pl), calls, pcfg
 
 
-def _compare(jax_out, port_out, cfg, tol):
+def _compare(jax_out, port_out, cfg, tol, store_check=None):
+    """Losses, MLPs, stores and optimizer state at ``tol``; the stores with
+    ``store_check(got, want)`` instead when one is given."""
     (jp, js, jl), (pp, ps, pl) = jax_out, port_out
     np.testing.assert_allclose(pl, jl, **tol)
     for name in ("bot", "top"):
@@ -105,8 +115,11 @@ def _compare(jax_out, port_out, cfg, tol):
             np.testing.assert_allclose(pw.numpy(), np.asarray(jw), **tol)
             np.testing.assert_allclose(pb.numpy(), np.asarray(jb), **tol)
     for js_, ps_, g in zip(jp["emb"], pp["emb"], model_groups(cfg)):
-        np.testing.assert_allclose(ps_.numpy(), np.asarray(js_).reshape(g.total_rows, g.dim),
-                                   **tol)
+        want = np.asarray(js_.astype(jnp.float32)).reshape(g.total_rows, g.dim)
+        if store_check is None:
+            np.testing.assert_allclose(ps_.float().numpy(), want, **tol)
+        else:
+            store_check(ps_.float().numpy(), want)
     if ps:
         for name in ("bot", "top"):
             for (jw, jb), (pw, pb) in zip(js["dense"][name], ps["dense"][name]):
@@ -129,7 +142,9 @@ def test_train_step_matches_jax(monkeypatch, optname, impl, hint, dim):
                                               dim=dim)
     _compare(jax_out, port_out, cfg, TOL["float32"])
     pallas = impl == "pallas"
-    assert calls == {"k2": 3 * pallas, "k3": 3 * (pallas and optname == "rwsadagrad")}
+    # the 1-D momentum of the big group takes K4 (ACC_KERNEL_MIN_BYTES is 0)
+    assert calls == {"k2": 3 * pallas, "k3": 3 * (pallas and optname == "rwsadagrad"),
+                     "k4": 3 * (pallas and optname == "rwsadagrad")}
     # gradients reached the bottom MLP (through the fused interaction at dim 128)
     w0 = port_out[0]["bot"][0][0]
     assert not np.allclose(w0.numpy(), np.asarray(jax_init_dlrm(
@@ -140,7 +155,57 @@ def test_train_step_bf16_matches_jax(monkeypatch):
     jax_out, port_out, calls, cfg = _run_both(monkeypatch, "rwsadagrad", "pallas",
                                               cdt="bfloat16")
     _compare(jax_out, port_out, cfg, TOL["bfloat16"])
-    assert calls == {"k2": 3, "k3": 3}
+    assert calls == {"k2": 3, "k3": 3, "k4": 3}
+
+
+@pytest.mark.parametrize("variant", ["bf16 store", "no write-only update", "adagrad"])
+def test_train_step_k4_routes_match_jax(monkeypatch, variant):
+    """Three steps through K4: a bf16 big store (``emb_dtype``; the small
+    group's bf16 store takes K3), an f32 store with ``write_only_update``
+    off, and Adagrad on the kernel route (K4 on its per-element
+    accumulator, K2 on the store). The 1-D momentum takes K4 too. bf16
+    stores are held to one bf16 ulp (torch and XLA sum the f32 updates in
+    other orders before the rounding), everything else to TOL."""
+    optname = "adagrad" if variant == "adagrad" else "rwsadagrad"
+    kw = ({"emb_dtype": "bfloat16"} if variant == "bf16 store"
+          else {"write_only_update": False} if variant == "no write-only update" else {})
+    jax_out, port_out, calls, cfg = _run_both(monkeypatch, optname, "pallas", **kw)
+    bf16 = variant == "bf16 store"
+    _compare(jax_out, port_out, cfg, TOL["float32"],
+             assert_within_one_bf16_ulp if bf16 else None)
+    assert port_out[0]["emb"][1].dtype == (torch.bfloat16 if bf16 else torch.float32)
+    if variant == "adagrad":
+        assert calls == {"k2": 3, "k3": 0, "k4": 3}
+    else:  # the big store and its momentum
+        assert calls == {"k2": 0, "k3": 3, "k4": 6}
+
+
+def test_train_step_stochastic_rounding_matches_jax_within_rounding(monkeypatch):
+    """SR on a bf16 big store against JAX's nearest-even (its interpret mode
+    skips SR). After one step from the same state every element is within
+    one bf16 ulp of JAX's, some differ, and no untouched row changed; after
+    three steps the run is held to the JAX bf16 tests' own tolerance
+    (stores rtol 0.02 / atol 0.05, the rest TOL['bfloat16'])."""
+    jax_out, port_out, calls, cfg = _run_both(
+        monkeypatch, "rwsadagrad", "pallas", steps=1, emb_dtype="bfloat16",
+        stochastic_rounding=True)
+    g = model_groups(cfg)[1]
+    got = port_out[0]["emb"][1].float().numpy()
+    want = np.asarray(jax_out[0]["emb"][1].astype(jnp.float32)).reshape(g.total_rows, g.dim)
+    assert_within_one_bf16_ulp(got, want)
+    assert 0 < (got != want).sum() < 0.5 * (got != 0).sum()
+    start = np.asarray(jax_init_dlrm(JaxConfig.build(**dict(
+        TWO_GROUPS, emb_dtype="bfloat16")), seed=3)["emb"][1].astype(jnp.float32))
+    untouched = (want == start.reshape(want.shape)).all(axis=1)
+    np.testing.assert_array_equal(got[untouched], want[untouched])
+    assert calls == {"k2": 0, "k3": 1, "k4": 2}
+    jax_out, port_out, calls, cfg = _run_both(
+        monkeypatch, "rwsadagrad", "pallas", emb_dtype="bfloat16", stochastic_rounding=True)
+
+    def close(got, want):
+        np.testing.assert_allclose(got, want, rtol=0.02, atol=0.05)
+
+    _compare(jax_out, port_out, cfg, TOL["bfloat16"], close)
 
 
 @pytest.mark.parametrize("itself", [False, True])
@@ -212,6 +277,32 @@ def test_cli_training_matches_jax_cli(monkeypatch, capsys):
     assert set(got) == set(want)
     for key, value in want.items():
         assert abs(got[key] - value) <= 1e-6, key
+
+
+@pytest.mark.parametrize("extra,tol", [
+    (["--no-write-only-update"], 1e-5),
+    (["--emb-dtype", "bfloat16"], 1e-5),
+    # JAX's interpret mode skips SR: the port's SR losses against its
+    # nearest-even ones, at the bf16 tolerance
+    (["--emb-dtype", "bfloat16", "--stochastic-rounding"], 2e-2),
+])
+def test_cli_k4_flags_match_jax_cli(monkeypatch, capsys, extra, tol):
+    """The CLI flags whose route is K4, on the big tables of CLI_TRAIN."""
+    monkeypatch.setattr(jax_opt, "PALLAS_MIN_STORE_BYTES", 0)
+    monkeypatch.setattr(port_opt, "PALLAS_MIN_STORE_BYTES", 0)
+    want = jax_cli_main(CLI_TRAIN + extra)
+    want_losses = _losses(capsys.readouterr().out)
+    launched = []
+    monkeypatch.setattr(port_opt, "sparse_rows_add",
+                        lambda *a, _f=port_opt.sparse_rows_add: launched.append(1) or _f(*a))
+    got = port_cli.main(CLI_TRAIN + extra + ["--device", "cpu"])
+    got_losses = _losses(capsys.readouterr().out)
+    assert len(got_losses) == len(want_losses) == 6
+    assert len(launched) == 6  # one per step: the big group's store
+    np.testing.assert_allclose(got_losses, want_losses, rtol=tol)
+    assert set(got) == set(want)
+    for key, value in want.items():
+        assert abs(got[key] - value) <= max(1e-6, tol), key
 
 
 def test_cli_training_needs_the_card_by_default(monkeypatch):
