@@ -11,7 +11,11 @@ no result):
      and the least time the card could take (the bound);
   a. kernel: K2 (sparse_rows_overwrite) and K3 (rwsadagrad_dense_finish)
      against their plain versions at the training path's shapes, with the
-     same numbers and, for K2, one PyTorch call's (``index_add_``);
+     same numbers and, for K2, one PyTorch call's (``index_add_``); then K2
+     on more traffic (TRAFFIC: all rows unique, a hot row on half of K, all
+     K on one row, a skewed stream, no active item, K=1, K=32,768), each
+     against the plain version run on the CPU over the touched rows (where
+     ``index_add_`` adds in item order, as the kernel does), with its time;
   f. kernel: K5 (sorted_stream_apply) and K6 (sorted_stream_add) against
      their plain versions on the reference benchmark's store (8 x 1M rows
      x 64 f32) with one device batch's sorted occurrences (K5 at batch 2048,
@@ -57,6 +61,8 @@ no result):
      with one batch's 16,384 ids, SR off and on; the f32 1-D momentum of that
      group viewed as [len, 1]; and the 1M-capped f32 store of phase a (the
      --no-write-only-update route), with ``index_add_`` on the f32 routes;
+     then the bf16 store with SR on phase a's traffic and on items that
+     all share one 8-row unit, bit for bit, each with its time;
   m. train-bf16: phase b's CLI run with --emb-dtype bfloat16
      --stochastic-rounding: K4 and K3 once per step, K1 per step and eval
      batch, K2 never; no big-store row that no live lookup touched changed
@@ -69,7 +75,10 @@ no result):
   o. reference: three train steps on the card against the CPU on phase c's
      model with both K4 gates at 0: a bf16 store with SR off and on, f32
      with write_only_update off, and Adagrad on the kernel route;
-  p. profile: the capacity step, with the device time by kind of kernel.
+  p. profile: the capacity step, with the device time by kind of kernel;
+  q. ops: the device operations (kernels, memsets, copies) of one K2 and
+     one K4 wrapper call at each main-path shape, counted with
+     torch.profiler (at most 5, no sort).
 Then a JSON line of the kernels (launches from the path each kernel serves:
 K1-K3 phase b, K5 phase g, K6 phase h, K4 phase m), nvidia-smi's line, and
 the result line.
@@ -334,9 +343,94 @@ def terabyte_groups():
     return small, big
 
 
+TRAFFIC = ("all rows unique", "a hot row on half of K", "all K on one row",
+           "skewed: 30% of K on 10 rows", "no active item", "K=1", "K=32768 (B=4096)")
+TRAFFIC_REPS = 5  # graph replays of 5 calls: the one-row cases take ms a call
+
+
+def traffic(group, gen, case):
+    """(ids [K] int32, active [K] int32) on the card: one of TRAFFIC, or
+    "one 8-row unit", over the group's live rows."""
+    import torch
+
+    if case == "K=32768 (B=4096)":
+        ids = batch_rows(group, gen, 2 * BATCH, repeats=False)
+    else:
+        ids = batch_rows(group, gen, repeats=False)
+    k = ids.numel()
+    active = torch.ones(k, dtype=torch.int32, device="cuda")
+    if case == "all rows unique":
+        ids = torch.randperm(group.total_rows - 8, device="cuda", generator=gen)[:k].int()
+    elif case == "a hot row on half of K":
+        ids[::2] = ids[0]
+    elif case == "all K on one row":
+        ids[:] = ids[0]
+    elif case == "skewed: 30% of K on 10 rows":
+        hot = ids[torch.randint(0, 10, (k,), device="cuda", generator=gen)]
+        ids = torch.where(torch.rand(k, device="cuda", generator=gen) < 0.3, hot, ids)
+    elif case == "no active item":
+        active.zero_()
+    elif case == "K=1":
+        ids, active = ids[:1].clone(), active[:1].clone()
+    elif case == "one 8-row unit":
+        ids = ids[0] // 8 * 8 + torch.randint(0, 8, (k,), device="cuda", generator=gen,
+                                              dtype=torch.int32)
+    return ids, active
+
+
+def overwrite_plain_on_cpu(store, ids, new_vals, delta, active):
+    """(rows, their values): K2's plain version run on the CPU, where
+    index_add_ adds a row's duplicates in item order, over a copy of just
+    the rows that the items name (and the sentinel margin)."""
+    import torch
+
+    from dlrm_yx_tpu_torch.ops.sparse_rows_overwrite import (
+        CLIP_MARGIN,
+        sparse_rows_overwrite_reference,
+    )
+
+    rows, inv = torch.unique(ids.long(), return_inverse=True)
+    sub = torch.cat([store[rows], store.new_zeros(CLIP_MARGIN + 1, store.shape[1])]).cpu()
+    sparse_rows_overwrite_reference(sub, inv.int().cpu(), new_vals.cpu(), delta.cpu(),
+                                    active.cpu())
+    return rows, sub[:rows.numel()].to("cuda")
+
+
+def check_overwrite_traffic(big, store, gen, tol):
+    """Phase a, K2 on TRAFFIC: the kernel against its plain version on the
+    CPU, the rows that no item names untouched, and the wrapper's time."""
+    import torch
+
+    from dlrm_yx_tpu_torch.ops.sparse_rows_overwrite import sparse_rows_overwrite
+
+    r, w = store.shape
+    for case in TRAFFIC:
+        ids, active = traffic(big, gen, case)
+        k = ids.numel()
+        delta = torch.randn(k, w, device="cuda", generator=gen) * 1e-2
+        new_vals = store[ids.long()] + delta
+        got = sparse_rows_overwrite(store.clone(), ids, new_vals, delta, active)
+        torch.cuda.synchronize()
+        rows, want = overwrite_plain_on_cpu(store, ids, new_vals, delta, active)
+        err = (got[rows] - want).abs().max().item()
+        named = torch.zeros(r, dtype=torch.bool, device="cuda")
+        named[rows] = True
+        stray = int(((got != store).any(dim=1) & ~named).sum().item())
+        del got
+        if not err <= tol or stray:
+            fail(f"sparse_rows_overwrite, {case}: max abs err {err} > {tol} against the plain "
+                 f"version on the CPU, or {stray} rows that no item names changed")
+        ms = device_time_ms(lambda: sparse_rows_overwrite(store, ids, new_vals, delta, active),
+                            reps=TRAFFIC_REPS, samples=TRAFFIC_REPS)
+        say("kernel", f"  sparse_rows_overwrite, {case}: K={k}, {int(active.sum())} active on "
+                      f"{rows.numel()} rows: max_abs_err {err:.3e} against the plain version "
+                      f"on the CPU (tol {tol}); wrapper {ms:.5f} ms")
+
+
 def check_overwrite_kernel(big):
     """Phase a, K2: on a store of the big group's shape, one batch's K items
-    (8 tables x 2048) with a run of forced duplicates and ~20% inactive."""
+    (8 tables x 2048) with a run of forced duplicates and ~20% inactive,
+    then on TRAFFIC."""
     import numpy as np
     import torch
 
@@ -382,8 +476,11 @@ def check_overwrite_kernel(big):
     say("kernel", f"sparse_rows_overwrite store [{r}, {w}] f32, K={k} ({n_once} unique "
                   f"live rows, {n_dup_items} items on {n_dup_rows} duplicated rows, "
                   f"{k - len(ids)} inactive): max_abs_err {err:.3e} (tol {tol}), "
-                  f"kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, index_add_ "
-                  f"{library_ms:.5f} ms, bound {bound:.5f} ms ({by}, {nbytes} B)")
+                  f"wrapper (plan + apply + tail, CUDA graph) {ms:.5f} ms, plain "
+                  f"{plain_ms:.5f} ms, index_add_ {library_ms:.5f} ms, bound {bound:.5f} ms "
+                  f"({by}, {nbytes} B)")
+    del masked, idx64
+    check_overwrite_traffic(big, store, gen, tol)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": by, "library_ms": library_ms}
 
@@ -1052,7 +1149,7 @@ K4_CHUNK_ROWS = 1 << 20     # rows compared at a time (no full-size temporaries)
 
 # kernels of the capacity step by what they do (names as torch 2.x gives them)
 CAPACITY_KINDS = {
-    "K4 sparse_rows_add": "sparse_rows_add",
+    "K4 sparse_rows_add (row_plan)": "row_plan",
     "K3 rwsadagrad_dense_finish": "dense_finish",
     "sort (cub radix)": "radix|sort",
     "gather (index_select)": "indexselect|index_select|gather",
@@ -1088,18 +1185,48 @@ def same_bits(a, b):
     return equal, err
 
 
-def batch_rows(group, gen):
-    """One batch's global row ids of a group, [tables x BATCH], uniform in
-    each table, with a run of 16 repeats (15 occurrences in the JAX
-    kernel's serialized tail)."""
+def batch_rows(group, gen, batch=BATCH, repeats=True):
+    """One batch's global row ids of a group, [tables x batch], uniform in
+    each table, with (``repeats``) a run of 16 repeats (15 occurrences in
+    the JAX kernel's serialized tail)."""
     import torch
 
     offs = torch.tensor(group.row_offsets, device="cuda")[:, None]
     n = torch.tensor(group.rows, device="cuda", dtype=torch.float64)[:, None]
-    u = torch.rand(group.num_tables, BATCH, device="cuda", dtype=torch.float64, generator=gen)
+    u = torch.rand(group.num_tables, batch, device="cuda", dtype=torch.float64, generator=gen)
     ids = (offs + (u * n).long()).reshape(-1)
-    ids[1000:1016] = ids[999]
+    if repeats:
+        ids[1000:1016] = ids[999]
     return ids.int()
+
+
+def check_rows_add_traffic(group, store, gen):
+    """Phase l, K4 with SR on the capacity bf16 store, on TRAFFIC and on
+    items that all share one 8-row unit (each flagged but the first): the
+    kernel against its plain version, bit for bit, and the wrapper's time."""
+    import torch
+
+    from dlrm_yx_tpu_torch.ops.sparse_rows_add import sparse_rows_add, sparse_rows_add_reference
+
+    for case in TRAFFIC + ("one 8-row unit",):
+        ids, active = traffic(group, gen, case)
+        k = ids.numel()
+        upd = torch.randn(k, store.shape[1], device="cuda", generator=gen) * 1e-2
+        got = sparse_rows_add(store.clone(), ids, upd, active, True, seed=7)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sparse_rows_add_reference(store, ids, upd, active, True, seed=7)
+        plain_s = time.perf_counter() - t0
+        equal, err = same_bits(got, store)
+        del got
+        if not equal:
+            fail(f"sparse_rows_add, {case}: kernel and plain version differ (max abs err {err})")
+        ms = device_time_ms(lambda: sparse_rows_add(store, ids, upd, active, True, seed=7),
+                            reps=TRAFFIC_REPS, samples=TRAFFIC_REPS)
+        rows = torch.unique(ids.long()).numel()
+        say("kernel", f"  sparse_rows_add bf16 store, SR, {case}: K={k}, {int(active.sum())} "
+                      f"active on {rows} rows: bit-equal to the plain version ({plain_s:.1f} s "
+                      f"of host time); wrapper {ms:.5f} ms")
 
 
 def check_rows_add_kernel(cap_big, big):
@@ -1166,7 +1293,7 @@ def check_rows_add_kernel(cap_big, big):
         bound, by = bound_ms(nbytes, d * k)
         say("kernel", f"sparse_rows_add {what} [{r}, {d}] {dtype}, K={k} on {n_rows} distinct "
                       f"rows: bit-equal to the plain version (max_abs_err {err:.3e}), every "
-                      f"touched row changed; wrapper (sorts + kernel, CUDA graph) {ms:.5f} ms, "
+                      f"touched row changed; wrapper (plan + apply + tail, CUDA graph) {ms:.5f} ms, "
                       f"plain {plain_ms:.5f} ms (CUDA events over 10 calls, host sync "
                       f"included), index_add_ "
                       f"{'none' if library_ms is None else f'{library_ms:.5f} ms'}, bound "
@@ -1174,9 +1301,64 @@ def check_rows_add_kernel(cap_big, big):
         if row is None:
             row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                    "bound_by": by, "library_ms": library_ms}
+        if sr:
+            check_rows_add_traffic(group, store, gen)
     del store
     torch.cuda.empty_cache()
     return row
+
+
+def count_device_ops(big, cap_big):
+    """Phase q: the device operations (kernels, memsets, copies) of one
+    wrapper call at each main-path shape of K2 and K4, counted with
+    torch.profiler; fails above 5 or on a sort. Runs after every timing:
+    a profiler session can slow later host launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from dlrm_yx_tpu_torch.ops.sparse_rows_add import sparse_rows_add
+    from dlrm_yx_tpu_torch.ops.sparse_rows_overwrite import sparse_rows_overwrite
+    from dlrm_yx_tpu_torch.optim.optimizer import acc_len
+
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    cases = [  # (what, group, rows, dim, dtype, SR); K2 on the first
+        ("sparse_rows_overwrite 1M-capped f32 store", big, big.total_rows, big.dim,
+         torch.float32, False),
+        ("sparse_rows_add capacity bf16 store, SR", cap_big, cap_big.total_rows, cap_big.dim,
+         torch.bfloat16, True),
+        ("sparse_rows_add capacity f32 1-D momentum as [len, 1]", cap_big,
+         acc_len(cap_big.total_rows), 1, torch.float32, False),
+        ("sparse_rows_add 1M-capped f32 store", big, big.total_rows, big.dim, torch.float32,
+         False),
+    ]
+    counts = {}
+    for what, group, r, d, dtype, sr in cases:
+        store = torch.zeros(r, d, dtype=dtype, device="cuda")
+        ids = batch_rows(group, gen)
+        k = ids.numel()
+        active = torch.ones(k, dtype=torch.int32, device="cuda")
+        upd = torch.randn(k, d, device="cuda", generator=gen) * 1e-2
+        if what.startswith("sparse_rows_overwrite"):
+            new_vals = store[ids.long()] + upd
+            fn = lambda: sparse_rows_overwrite(store, ids, new_vals, upd, active)  # noqa: E731
+        else:
+            fn = lambda: sparse_rows_add(store, ids, upd, active, sr, seed=7)  # noqa: E731
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type.name == "CUDA"]
+        del store
+        torch.cuda.empty_cache()
+        sorts = [n for n in names if "sort" in n.lower() or "radix" in n.lower()]
+        if not names or len(names) > 5 or sorts:
+            fail(f"{what}: one call ran {len(names)} device operations {names} (want 1 to 5, "
+                 f"no sort)")
+        counts[what.split()[0]] = max(counts.get(what.split()[0], 0), len(names))
+        say("ops", f"{what} [{r}, {d}], K={k}: {len(names)} device operations in one call "
+                   f"({', '.join(n.split('(')[0] for n in names)})")
+    return counts
 
 
 def train_bf16_sr_main_path(rows, big_index):
@@ -1435,16 +1617,20 @@ def main():
                     "loss_compute", "backward", "optimizer")
     per_kernel = profile_step(train_step_fn(steps["pallas"], tparams, state, tbatch),
                               "train (pallas interaction)", train_phases)
-    for name in ("sparse_rows_overwrite", "dense_finish"):
-        ms = sum(v for k, v in per_kernel.items() if name in k)
+    for name, pattern in (("K2 sparse_rows_overwrite (row_plan)", "row_plan"),
+                          ("K3 rwsadagrad_dense_finish", "dense_finish")):
+        ms = sum(v for k, v in per_kernel.items() if pattern in k)
         say("profile", f"  {name} kernels: {ms:.5f} ms/step of device time")
     for name, fn in l100_steps.items():
         profile_by_kind(profile_step(fn, f"L={L100} train ({name})", train_phases))
     per_kernel = profile_step(cap_steps["sr off"], "capacity train (sr off)", train_phases)
     profile_by_kind(per_kernel, CAPACITY_KINDS)
     for name, ms in per_kernel.items():
-        if "sparse_rows_add" in name:  # one launch a step each: the store, the momentum
-            say("profile", f"  K4 alone: {ms:.5f} ms/step {name[:90]}")
+        if "row_plan" in name:  # K4's kernels, once a step each for the store and the momentum
+            say("profile", f"  K4 kernel: {ms:.5f} ms/step {name[:90]}")
+
+    # q. device operations per wrapper call
+    count_device_ops(big, cap_big)
 
     sources = {
         "fused_interaction": ("dlrm_yx_tpu/ops/pallas_interaction.py:84", k1, launches,

@@ -1,14 +1,11 @@
-// The run walk shared by sorted_stream_apply.cu (K5), sorted_stream_add.cu
-// (K6) and sparse_rows_add.cu (K4), for Hopper (sm_90a). In place, for k
+// The run walk shared by sorted_stream_apply.cu (K5) and
+// sorted_stream_add.cu (K6), for Hopper (sm_90a). In place, for k
 // ascending:
 //
 //   store[row(k)] += (update row of occurrence k)     (row(k) outside [0, R): dropped)
 //
-// store [R, dim] is f32 or bf16 rows, held in f32 while a run is applied
-// and rounded to nearest at the store; row(k) = pos[k] >> shift, where
-// pos [K] (int32 or int64) is sorted ascending, so the occurrences of one
-// row are neighbours (a run). K5 and K6 pass their row ids (shift 0); K4
-// passes row * 2 + flag (shift 1).
+// store [R, dim] is f32 rows; row(k) = pos[k], where pos [K] is sorted
+// ascending, so the occurrences of one row are neighbours (a run).
 //
 // A group of G lanes (the power of two that covers the row's vectors, at
 // most a warp) takes one sorted position. A position that is not the head
@@ -31,7 +28,6 @@
 
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <type_traits>
@@ -40,7 +36,7 @@ namespace sorted_stream {
 
 constexpr int kThreads = 256;
 
-// V elements of a store of type S: Raw as they lie in memory, T as f32.
+// V elements of an f32 store: Raw as they lie in memory, T as held.
 template <class S, int V> struct StoreVec;
 
 template <> struct StoreVec<float, 4> {
@@ -57,41 +53,19 @@ template <> struct StoreVec<float, 1> {
   static __device__ __forceinline__ Raw store(T v) { return v; }
 };
 
-template <> struct StoreVec<__nv_bfloat16, 4> {
-  struct alignas(8) Raw {
-    __nv_bfloat162 lo, hi;
-  };
-  using T = float4;
-  static __device__ __forceinline__ T load(Raw r) {
-    const float2 a = __bfloat1622float2(r.lo), b = __bfloat1622float2(r.hi);
-    return make_float4(a.x, a.y, b.x, b.y);
-  }
-  static __device__ __forceinline__ Raw store(T v) {
-    return Raw{__floats2bfloat162_rn(v.x, v.y), __floats2bfloat162_rn(v.z, v.w)};
-  }
-};
-
-template <> struct StoreVec<__nv_bfloat16, 1> {
-  using Raw = __nv_bfloat16;
-  using T = float;
-  static __device__ __forceinline__ T load(Raw r) { return __bfloat162float(r); }
-  static __device__ __forceinline__ Raw store(T v) { return __float2bfloat16_rn(v); }
-};
-
 // The body of a kernel instance: V elements a vector, nv vectors a row, G
 // lanes a position.
 template <int V, int G, class S, class P, class Op>
 __device__ __forceinline__ void apply_runs(S* __restrict__ store, const P* __restrict__ pos,
-                                           long long R, long long K, int nv, const Op& op,
-                                           int shift = 0) {
+                                           long long R, long long K, int nv, const Op& op) {
   using SV = StoreVec<S, V>;
   using T = typename SV::T;
   const long long p =
       (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) / G;
   if (p >= K) return;
-  const long long row = static_cast<long long>(pos[p]) >> shift;
+  const long long row = pos[p];
   if (row < 0 || row >= R) return;
-  if (p > 0 && (static_cast<long long>(pos[p - 1]) >> shift) == row) return;  // the head applies the run
+  if (p > 0 && pos[p - 1] == row) return;  // the head applies the run
   const int gl = threadIdx.x % G;
   const int lane = threadIdx.x % 32;
   const unsigned gmask =
@@ -105,7 +79,7 @@ __device__ __forceinline__ void apply_runs(S* __restrict__ store, const P* __res
     for (long long q0 = p;; q0 += G) {
       const long long q = q0 + gl;
       // the run is a prefix of the lanes
-      const bool in = q < K && (static_cast<long long>(pos[q]) >> shift) == row;
+      const bool in = q < K && pos[q] == row;
       const typename Op::Item item = op.load(q, in);
       const int n = __popc(__ballot_sync(gmask, in));
       v = op.template add_step<G>(v, item, q0, n, c, nv, has, gmask);

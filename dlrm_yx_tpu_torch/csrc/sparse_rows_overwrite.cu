@@ -8,86 +8,69 @@
 //   it occurs several times:  store[idx[k]] += delta[k], in ascending k
 //   k is inactive:            nothing
 //
-// The wrapper (ops/sparse_rows_overwrite.py) hands the kernel the items
-// sorted by row with a stable sort: key[p] is the p-th smallest row id
-// (inactive items carry kInactive and sort last) and order[p] is the item
-// it came from. Equal keys are neighbours, in ascending item order.
+// Active ids are clipped to [0, R - 9]: the last 8 (sentinel) rows are
+// never written.
 //
 // Bound on an H100 SXM: memory. At the training shape (K = 16,384 items of
 // 128 f32, all rows unique) it reads each new_vals row once and writes each
-// store row once: 2 x 8.4 MB = 16.8 MB, about 5 us at 3.35 TB/s; the keys
-// and the order add 0.2 MB. There is no arithmetic to speak of.
+// store row once: 2 x 8.4 MB = 16.8 MB, about 5 us at 3.35 TB/s; the ids
+// and flags add 0.1 MB. There is no arithmetic to speak of.
 //
-// Design: one warp per sorted position. A position whose key differs from
-// both neighbours copies its item's new_vals row to the store with 16-byte
-// loads and stores. The first position of a run of equal keys walks the
-// whole run: each lane holds its own columns of the store row in registers
-// and adds the run's delta rows to them in ascending item order, so every
-// element takes the same serial sum as the TPU kernel's tail, without
-// atomics and without a second launch. Runs of different rows are disjoint
-// and proceed in parallel; the other positions of a run do nothing. The
-// TPU kernel's DMA slot window, its redirection of dead items to a
-// sentinel row and its 64-item tail blocks have no counterpart here.
+// Design: the row plan of row_plan.cuh, in three launches and with no
+// sort of the items. The plan counts each row's active occurrences in a hash
+// table; an item whose row occurs once copies its new_vals row to the
+// store with 16-byte loads and stores, a warp per item; the items of
+// duplicated rows are sorted by (row, k) in a one-block tail kernel,
+// which adds each run's delta rows to its row in ascending k, without
+// atomics on the store: no sort of all K items, and no torch op around
+// the kernels. The TPU kernel's DMA slot window, its redirection of
+// dead items to a sentinel row and its 64-item tail blocks have no
+// counterpart here.
 
-#include <cuda_runtime.h>
+#include "row_plan.cuh"
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
-constexpr int kInactive = 1 << 30;
+constexpr int kClipMargin = 8;  // active ids are clipped to R - 1 - kClipMargin
 
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-sparse_rows_overwrite_kernel(float* __restrict__ store,
-                             const int* __restrict__ key,
-                             const long long* __restrict__ order,
-                             const float* __restrict__ new_vals,
-                             const float* __restrict__ delta, int K, int W) {
-  const int p = blockIdx.x * kWarpsPerBlock + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (p >= K) return;
-  const int row = key[p];
-  if (row >= kInactive) return;
-  const bool first = p == 0 || key[p - 1] != row;
-  if (!first) return;  // the run's first position applies the whole run
-  const int w4 = W / 4;
-  float4* dst = reinterpret_cast<float4*>(store + static_cast<long long>(row) * W);
-  const bool unique = p + 1 == K || key[p + 1] != row;
-  if (unique) {
-    const float4* src =
-        reinterpret_cast<const float4*>(new_vals + order[p] * W);
-    for (int c = lane; c < w4; c += 32) dst[c] = src[c];
-    return;
+// An item whose row occurs once: its new_vals row, copied.
+struct CopyNewVals {
+  const float* __restrict__ new_vals;
+
+  template <int V, int G, class S>
+  __device__ __forceinline__ void prefetch(const S*, int, long long k, int gl, int nv) const {
+    using Raw = typename row_plan::RowVec<float, V>::Raw;
+    if (gl < nv) row_plan::prefetch_l2(reinterpret_cast<const Raw*>(new_vals) + k * nv + gl);
   }
-  for (int c = lane; c < w4; c += 32) {
-    float4 v = dst[c];
-    for (int q = p; q < K && key[q] == row; ++q) {
-      const float4 d = reinterpret_cast<const float4*>(delta + order[q] * W)[c];
-      v.x += d.x;
-      v.y += d.y;
-      v.z += d.z;
-      v.w += d.w;
-    }
-    dst[c] = v;
+
+  template <int V, int G, class S>
+  __device__ __forceinline__ void apply(S* __restrict__ store, int row, long long k, int,
+                                        int gl, int nv) const {
+    using Raw = typename row_plan::RowVec<float, V>::Raw;
+    Raw* dst = reinterpret_cast<Raw*>(store) + static_cast<long long>(row) * nv;
+    const Raw* src = reinterpret_cast<const Raw*>(new_vals) + k * nv;
+    for (int c = gl; c < nv; c += G) dst[c] = src[c];
   }
-}
+};
 
 }  // namespace
 
-// Launches the kernel on `stream` (a cudaStream_t) on device `device` and
-// returns cudaGetLastError(): 0 on success. store [R, W], new_vals and
-// delta [K, W] are contiguous f32 with W % 4 == 0 and 16-byte aligned
-// bases; key [K] int32 ascending, order [K] int64 (a stable sort's
-// permutation); active keys are row ids below R.
-extern "C" int sparse_rows_overwrite(float* store, const int* key,
-                                     const long long* order,
-                                     const float* new_vals, const float* delta,
-                                     int K, int W, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (K == 0) return 0;
-  const int blocks = (K + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  sparse_rows_overwrite_kernel<<<blocks, kWarpsPerBlock * 32, 0,
-                                 static_cast<cudaStream_t>(stream)>>>(
-      store, key, order, new_vals, delta, K, W);
-  return static_cast<int>(cudaGetLastError());
+// Bytes of zeroed scratch a call with K items needs (row_plan.cuh).
+extern "C" long long sparse_rows_overwrite_scratch_bytes(long long K) {
+  return row_plan::scratch_bytes(K);
+}
+
+// Launches the plan, apply and tail kernels on `stream` (a cudaStream_t) on
+// device `device` and returns cudaGetLastError(): 0 on success. store
+// [R, W] (R < 2^30), new_vals and delta [K, W] are contiguous f32 with
+// W % 4 == 0 and 16-byte aligned bases; idx [K] int32 (idx64 = 0) or
+// int64; active [K] int32; scratch: sparse_rows_overwrite_scratch_bytes(K)
+// bytes, zero before the first call, which every call leaves zero.
+extern "C" int sparse_rows_overwrite(float* store, const void* idx, int idx64,
+                                     const int* active, const float* new_vals,
+                                     const float* delta, void* scratch, long long R,
+                                     long long K, int W, int device, void* stream) {
+  return row_plan::launch<false>(store, idx, idx64, active, delta, scratch, K,
+                                 R - 1 - kClipMargin, 1, W, false, 0u, device,
+                                 static_cast<cudaStream_t>(stream), CopyNewVals{new_vals});
 }

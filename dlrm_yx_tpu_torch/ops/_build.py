@@ -12,6 +12,10 @@ source or header is rebuilt and an unchanged one is loaded as it is. The build
 directory sits at the root of the checkout and is listed in ``.gitignore``.
 Nothing is built when a module is imported: a kernel's wrapper calls
 ``load`` at its first launch on a CUDA tensor.
+
+``zeroed_scratch`` keeps the scratch of the kernels that leave it zero
+after every call (the row plan of K2 and K4), one buffer per kernel,
+device and size.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ NVCC_FLAGS = (
 )
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_scratch: Dict[tuple, "torch.Tensor"] = {}
 # nvcc's output (ptxas register / shared-memory report) per built kernel
 build_logs: Dict[str, str] = {}
 
@@ -99,3 +104,20 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_lib_path(name)))
         _loaded[name] = lib
     return lib
+
+
+def zeroed_scratch(name: str, device, nbytes: int):
+    """A cached uint8 buffer of ``nbytes`` on ``device`` for kernel ``name``,
+    zero when it is made; the kernel must leave it zero after each call.
+    Made by the first call, which must not run inside a CUDA graph capture
+    (the zero fill would only be recorded, not run)."""
+    import torch
+
+    key = (name, device, nbytes)
+    buf = _scratch.get(key)
+    if buf is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"{name}: call it once before capturing it in a CUDA graph "
+                               "(its scratch is made and zeroed at the first call)")
+        buf = _scratch[key] = torch.zeros(nbytes, dtype=torch.uint8, device=device)
+    return buf

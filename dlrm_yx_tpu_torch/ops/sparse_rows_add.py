@@ -32,14 +32,14 @@ counter-based hash of (seed, k, element) (``sr_bits``), so the CUDA kernel
 and the plain version give the same store bit for bit; the TPU's own random
 stream cannot be reproduced.
 
-The prep is torch ops on the store's device, with no host sync
-(``sorted_order``): a stable sort of the active items by unit flags each
-one whose predecessor in its unit is fewer than WINDOW items before it;
-a stable sort by ``row * 2 + flag`` (inactive items last) then lines up
-each row's occurrences in the order above. On a CUDA tensor the wrapper
-launches ``csrc/sparse_rows_add.cu`` on that order; on a CPU tensor it runs
-``sparse_rows_add_reference``, the plain PyTorch version. There is no
-fallback from one to the other.
+On a CUDA tensor the wrapper launches ``csrc/sparse_rows_add.cu``: the row
+plan of ``csrc/row_plan.cuh``, three launches with no sort of the items
+and no host sync (a plan kernel computes the flags by the window compare
+of ``conflict_flags`` and counts each row's occurrences; an apply kernel
+updates the rows that occur once; a one-block tail sorts and walks only
+the duplicated ones). On a CPU tensor it runs ``sparse_rows_add_reference``,
+the plain PyTorch version, which orders the items with ``sorted_order``.
+There is no fallback from one to the other.
 """
 
 from __future__ import annotations
@@ -83,14 +83,13 @@ def _check(store, idx, upd, active):
 
 def conflict_flags(unit: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
     """[K] bool: active items that an active item among the WINDOW - 1
-    before them hits in the same unit (``unit`` [K] ids). A stable sort by
-    unit keeps k ascending within a unit, so an item's sorted predecessor,
-    when it shares the unit, is the latest earlier active item there."""
-    dead = torch.iinfo(unit.dtype).max  # the key of an inactive item
-    skey, order = torch.sort(torch.where(active > 0, unit, dead), stable=True)
-    hit = (skey[1:] == skey[:-1]) & (skey[1:] != dead) & (order[1:] - order[:-1] < WINDOW)
+    before them hits in the same unit (``unit`` [K] ids): the JAX package's
+    WINDOW - 1 shifted compares, as the CUDA plan kernel makes them."""
+    live = active > 0
     flags = torch.zeros(unit.shape[0], dtype=torch.bool, device=unit.device)
-    return flags.index_put_((order[1:],), hit)
+    for j in range(1, min(WINDOW, unit.shape[0])):
+        flags[j:] |= (unit[j:] == unit[:-j]) & live[:-j]
+    return flags & live
 
 
 def sorted_order(store: torch.Tensor, idx: torch.Tensor, active: torch.Tensor):
@@ -183,7 +182,7 @@ def sparse_rows_add(store: torch.Tensor, idx: torch.Tensor, upd: torch.Tensor,
     on a bf16 store only; seed is the step's (an int). Updates ``store`` in
     place and returns it.
 
-    A CUDA call launches the kernel on the current stream and adds one to
+    A CUDA call launches the kernels on the current stream and adds one to
     ``sparse_rows_add.launches``; a CPU call runs the plain version."""
     _check(store, idx, upd, active)
     if store.device.type == "cpu":
@@ -191,16 +190,21 @@ def sparse_rows_add(store: torch.Tensor, idx: torch.Tensor, upd: torch.Tensor,
     if store.device.type != "cuda":
         raise ValueError(f"unsupported device {store.device}")
     r, dim = store.shape
+    if r >= 2**30:
+        raise ValueError(f"a store of {r} rows: the kernel keys row * 2 + flag in 31 bits")
     if not store.is_contiguous() or not upd.is_contiguous():
         raise ValueError("store and upd must be contiguous")
     if dim % 4 == 0 and (store.data_ptr() % (4 * store.element_size()) or upd.data_ptr() % 16):
         raise ValueError("the kernel's vector loads need aligned store and upd rows")
-    key, perm = sorted_order(store, idx, active)
+    idx, active = kernel_ids(idx, active)
+    k = idx.shape[0]
+    fn, nbytes = _kernel()
+    scratch = _build.zeroed_scratch("sparse_rows_add", store.device, nbytes(k))
     sr = stochastic_round and store.dtype != torch.float32
-    err = _kernel()(
-        store.data_ptr(), int(store.dtype == torch.bfloat16), key.data_ptr(),
-        int(key.dtype == torch.int64), perm.data_ptr(), upd.data_ptr(), r, key.shape[0],
-        dim, int(sr), _seed_mix(seed), store.device.index,
+    err = fn(
+        store.data_ptr(), int(store.dtype == torch.bfloat16), idx.data_ptr(),
+        int(idx.dtype == torch.int64), active.data_ptr(), upd.data_ptr(), scratch.data_ptr(),
+        r, k, dim, unit_rows(store.dtype, dim), int(sr), _seed_mix(seed), store.device.index,
         torch.cuda.current_stream(store.device).cuda_stream,
     )
     if err:
@@ -212,10 +216,23 @@ def sparse_rows_add(store: torch.Tensor, idx: torch.Tensor, upd: torch.Tensor,
 sparse_rows_add.launches = 0
 
 
+def kernel_ids(idx: torch.Tensor, active: torch.Tensor):
+    """idx as contiguous int32 or int64 and active as contiguous int32, the
+    types the row plan's kernels read (a copy only where they differ)."""
+    if idx.shape[0] >= 2**26:
+        raise ValueError(f"{idx.shape[0]} items: the row plan's table takes fewer than 2^26")
+    if idx.dtype not in (torch.int32, torch.int64):
+        idx = idx.to(torch.int32)
+    return idx.contiguous(), active.to(torch.int32).contiguous()
+
+
 def _kernel():
-    fn = _build.load("sparse_rows_add").sparse_rows_add
+    """(the launch function, the scratch size as a function of K)."""
+    lib = _build.load("sparse_rows_add")
+    fn, nbytes = lib.sparse_rows_add, lib.sparse_rows_add_scratch_bytes
     if fn.argtypes is None:
         i, p, ll = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong
-        fn.argtypes = [p, i, p, i, p, p, ll, ll, i, i, ctypes.c_uint, i, p]
+        fn.argtypes = [p, i, p, i, p, p, p, ll, ll, i, i, i, ctypes.c_uint, i, p]
         fn.restype = i
-    return fn
+        nbytes.argtypes, nbytes.restype = [ll], ll
+    return fn, nbytes

@@ -16,11 +16,13 @@ forward lookup gathered, so the update never reads the store for a unique
 row. Ids of active items are clipped to ``[0, R - 9]`` as the JAX package
 clips them (the last ``SENTINEL_ROWS`` rows are never live).
 
-On a CUDA tensor the wrapper sorts the items by row (``torch.sort``,
-stable, no host sync) and launches ``csrc/sparse_rows_overwrite.cu``; on a
-CPU tensor it runs ``sparse_rows_overwrite_reference``, the plain PyTorch
-version, which finds duplicates by counting instead. There is no fallback
-from one to the other.
+On a CUDA tensor the wrapper launches ``csrc/sparse_rows_overwrite.cu``:
+the row plan of ``csrc/row_plan.cuh``, three launches with no sort of the
+items and no host sync (a plan kernel counts each row's active
+occurrences; an apply kernel copies the rows that occur once; a one-block
+tail sorts and walks only the duplicated ones). On a CPU tensor it runs
+``sparse_rows_overwrite_reference``, the plain PyTorch version, which
+finds duplicates by counting. There is no fallback from one to the other.
 """
 
 from __future__ import annotations
@@ -30,8 +32,8 @@ import ctypes
 import torch
 
 from dlrm_yx_tpu_torch.ops import _build
+from dlrm_yx_tpu_torch.ops.sparse_rows_add import kernel_ids
 
-INACTIVE = 1 << 30  # the sort key of an inactive item: after every row id
 CLIP_MARGIN = 8     # active ids are clipped to R - 1 - CLIP_MARGIN
 
 
@@ -96,7 +98,7 @@ def sparse_rows_overwrite(
     [K, W] f32, active [K] (0 = skip). Updates ``store`` in place and
     returns it.
 
-    A CUDA call launches the kernel on the current stream and adds one to
+    A CUDA call launches the kernels on the current stream and adds one to
     ``sparse_rows_overwrite.launches``; a CPU call runs the plain version."""
     _check(store, idx, new_vals, delta, active)
     if store.device.type == "cpu":
@@ -106,12 +108,17 @@ def sparse_rows_overwrite(
     tensors = (store, new_vals, delta)
     if any(not t.is_contiguous() or t.data_ptr() % 16 for t in tensors):
         raise ValueError("store, new_vals and delta must be contiguous and 16-byte aligned")
-    key, order = torch.sort(_active_rows(store, idx, active, INACTIVE), stable=True)
-    k, w = new_vals.shape
-    err = _kernel()(
-        store.data_ptr(), key.data_ptr(), order.data_ptr(), new_vals.data_ptr(),
-        delta.data_ptr(), k, w, store.device.index,
-        torch.cuda.current_stream(store.device).cuda_stream,
+    r, w = store.shape
+    if r >= 2**30:
+        raise ValueError(f"a store of {r} rows: the kernel keys row * 2 in 31 bits")
+    idx, active = kernel_ids(idx, active)
+    k = idx.shape[0]
+    fn, nbytes = _kernel()
+    scratch = _build.zeroed_scratch("sparse_rows_overwrite", store.device, nbytes(k))
+    err = fn(
+        store.data_ptr(), idx.data_ptr(), int(idx.dtype == torch.int64), active.data_ptr(),
+        new_vals.data_ptr(), delta.data_ptr(), scratch.data_ptr(), r, k, w,
+        store.device.index, torch.cuda.current_stream(store.device).cuda_stream,
     )
     if err:
         raise RuntimeError(f"sparse_rows_overwrite kernel launch failed: CUDA error {err}")
@@ -123,9 +130,12 @@ sparse_rows_overwrite.launches = 0
 
 
 def _kernel():
-    fn = _build.load("sparse_rows_overwrite").sparse_rows_overwrite
+    """(the launch function, the scratch size as a function of K)."""
+    lib = _build.load("sparse_rows_overwrite")
+    fn, nbytes = lib.sparse_rows_overwrite, lib.sparse_rows_overwrite_scratch_bytes
     if fn.argtypes is None:
-        i, p = ctypes.c_int, ctypes.c_void_p
-        fn.argtypes = [p, p, p, p, p, i, i, i, p]
+        i, p, ll = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong
+        fn.argtypes = [p, p, i, p, p, p, p, ll, ll, i, i, p]
         fn.restype = i
-    return fn
+        nbytes.argtypes, nbytes.restype = [ll], ll
+    return fn, nbytes

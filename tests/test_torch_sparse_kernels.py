@@ -59,6 +59,33 @@ def test_overwrite_plain_matches_jax_kernel(consistent):
     np.testing.assert_array_equal(got[-SENTINEL_ROWS:], store[-SENTINEL_ROWS:])
 
 
+@pytest.mark.parametrize("stream", ["skewed", "one_row"])
+def test_overwrite_plain_matches_jax_kernel_on_streams(stream):
+    """A skewed stream (30% of the items on 10 rows) and one where every
+    item hits one row, a fifth of them inactive: unique rows take new_vals,
+    duplicated rows their deltas in item order, as in the JAX kernel."""
+    r = np.random.RandomState(8)
+    store = r.randn(2048 + SENTINEL_ROWS, 128).astype(np.float32)
+    if stream == "skewed":
+        idx = r.randint(0, 2048, 400).astype(np.int32)
+        hot = r.rand(400) < 0.3
+        idx[hot] = idx[:10][r.randint(0, 10, hot.sum())]
+    else:
+        idx = np.full(400, 1234, np.int32)
+    active = (r.rand(400) > 0.2).astype(np.int32)
+    delta = r.randn(400, 128).astype(np.float32)
+    new_vals = store[idx] + delta
+    want = np.asarray(jax_overwrite(
+        jnp.asarray(store), jnp.asarray(idx), jnp.asarray(new_vals),
+        jnp.asarray(delta), jnp.asarray(active), interpret=True))
+    got = sparse_rows_overwrite(torch.from_numpy(store.copy()), torch.from_numpy(idx),
+                                torch.from_numpy(new_vals), torch.from_numpy(delta),
+                                torch.from_numpy(active)).numpy()
+    np.testing.assert_array_equal(got[:-SENTINEL_ROWS], want[:-SENTINEL_ROWS])
+    np.testing.assert_array_equal(got[-SENTINEL_ROWS:], store[-SENTINEL_ROWS:])
+    assert (got != store).any()
+
+
 def test_overwrite_rejects_bad_inputs():
     store = torch.zeros(64, 128)
     idx, active = torch.zeros(4, dtype=torch.int32), torch.ones(4, dtype=torch.int32)

@@ -47,7 +47,7 @@ def test_conflict_flags_fixed_case():
 
 @pytest.mark.parametrize("unit", [1, 8, 16, 128])
 def test_conflict_flags_match_jax(unit):
-    """The sort-based flags against JAX's 63 shifted compares, on row
+    """The port's window compare against JAX's 63 shifted compares, on row
     streams with near and far repeats, cut into units of ``unit`` rows."""
     r = np.random.RandomState(unit)
     rows = r.randint(0, 3000, 2000).astype(np.int32)
@@ -60,6 +60,43 @@ def test_conflict_flags_match_jax(unit):
     got = conflict_flags(torch.from_numpy(unit_ids), torch.from_numpy(act))
     np.testing.assert_array_equal(got.int().numpy(), want)
     assert want.sum() > 0
+
+
+def _window_stream(unit, n_units, pairs, k=400, seed=0):
+    """(rows [k] int32, active [k] int32): items on distinct units, except
+    that for each (first, distance, first_active) of ``pairs`` the item
+    ``distance`` later hits the first item's unit (another row of it when
+    the unit has several rows); ``first_active`` 0 makes the first item
+    inactive. Pairs from item 230 cross the CUDA plan kernel's 256-item
+    blocks."""
+    r = np.random.RandomState(seed + unit)
+    units = r.permutation(n_units - 1)[:k]  # the last unit holds the sentinel rows
+    rows = units * unit + r.randint(0, unit, k)
+    act = np.ones(k, np.int32)
+    for first, distance, live in pairs:
+        rows[first + distance] = units[first] * unit + (rows[first] + 1) % unit
+        act[first] = live
+    return rows.astype(np.int32), act
+
+
+@pytest.mark.parametrize("unit", [1, 8, 128])
+@pytest.mark.parametrize("distance", [62, 63, 64])
+def test_conflict_flags_window_edges(unit, distance):
+    """Repeats of a unit exactly ``distance`` items apart: flagged within
+    63 items of an active item, as JAX flags them, and not after an
+    inactive one (the third pair) or 64 items on."""
+    pairs = ((20, distance, 1), (230, distance, 1), (330, distance, 0))
+    rows, act = _window_stream(unit, 600, pairs)
+    units = rows // unit
+    want = np.asarray(jax_conflict_flags(jnp.asarray(units), jnp.asarray(act)))
+    got = conflict_flags(torch.from_numpy(units), torch.from_numpy(act)).int().numpy()
+    np.testing.assert_array_equal(got, want)
+    expected = [20 + distance, 230 + distance] if distance < 64 else []
+    assert np.flatnonzero(got).tolist() == expected
+
+
+# pairs at all three distances, one of them after an inactive item
+WINDOW_PAIRS = ((20, 62, 1), (120, 63, 1), (230, 64, 1), (240, 63, 1), (330, 62, 0))
 
 
 def _fuzz_case(trial):
@@ -104,6 +141,29 @@ def _case(name, arg, dtype):
         idx[:32] = r.randint(0, 4 * pack, 32)  # unit conflicts
         upd = r.randn(512, d).astype(np.float32)
         return store, idx, upd, (r.rand(512) > 0.2).astype(np.int32), dtype
+    if name == "skewed":  # 30% of the items on 10 rows
+        r = np.random.RandomState(5)
+        store = r.randn(4096 + SENTINEL_ROWS, 128).astype(np.float32)
+        idx = r.randint(0, 4096, 512).astype(np.int32)
+        hot = r.rand(512) < 0.3
+        idx[hot] = idx[:10][r.randint(0, 10, hot.sum())]
+        upd = r.randn(512, 128).astype(np.float32)
+        return store, idx, upd, (r.rand(512) > 0.2).astype(np.int32), dtype
+    if name == "one_row":  # every item on one row, a fifth of them inactive
+        r = np.random.RandomState(6)
+        store = r.randn(256 + SENTINEL_ROWS, 128).astype(np.float32)
+        upd = r.randn(300, 128).astype(np.float32)
+        return store, np.full(300, 77, np.int32), upd, (r.rand(300) > 0.2).astype(np.int32), dtype
+    if name == "window":  # WINDOW_PAIRS in units of 1 (f32), 8 (bf16), 128 ([len, 1])
+        r = np.random.RandomState(7)
+        if dtype == "acc":
+            rows, act = _window_stream(128, 600, WINDOW_PAIRS)
+            store = np.abs(r.randn(128 * 600)).astype(np.float32)[:, None]
+            return store, rows, np.abs(r.randn(400, 1)).astype(np.float32), act, "float32"
+        unit = 8 if dtype == "bfloat16" else 1
+        rows, act = _window_stream(unit, 4096 // unit + 1, WINDOW_PAIRS)
+        store = r.randn(4096 + SENTINEL_ROWS, 128).astype(np.float32)
+        return store, rows, r.randn(400, 128).astype(np.float32), act, dtype
     if name == "bf16":  # test_sparse_rows_add_bfloat16_store
         r = np.random.RandomState(0)
         store = r.randn(4096 + SENTINEL_ROWS, 128).astype(np.float32)
@@ -128,6 +188,8 @@ CASES = (
        ("bf16", None, "bfloat16"), ("acc", None, "float32")]
     + [("packed", d, dt) for d in (8, 32, 64) for dt in ("float32", "bfloat16")]
     + [("fuzz", t, None) for t in range(8)]
+    + [(name, None, dt) for name in ("skewed", "one_row") for dt in ("float32", "bfloat16")]
+    + [("window", None, dt) for dt in ("float32", "bfloat16", "acc")]
 )
 
 
@@ -291,6 +353,8 @@ def cuda_device():
     ("bf16", None, "bfloat16", False), ("bf16", None, "bfloat16", True),
     ("packed", 64, "bfloat16", True), ("same_row", None, "bfloat16", True),
     ("reference", (500, 256), "float32", False), ("acc", None, "float32", False),
+    ("skewed", None, "bfloat16", True), ("one_row", None, "float32", False),
+    ("window", None, "bfloat16", True), ("window", None, "acc", False),
 ])
 def test_cuda_rows_add_matches_plain_version_bitwise(cuda_device, name, arg, dtype, sr):
     store, idx, upd, act, dtype = _case(name, arg, dtype)
