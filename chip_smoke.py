@@ -20,7 +20,13 @@ no result):
      their plain versions on the reference benchmark's store (8 x 1M rows
      x 64 f32) with one device batch's sorted occurrences (K5 at batch 2048,
      K6 at batch 4096, the shapes their paths give them), with the same
-     numbers and, for K6, ``index_add_``'s;
+     numbers and, for K6, ``index_add_``'s; then K5 on the same batch with
+     every weight-0 id on its table's row 0 (as host batches pad), with
+     every weight 0, with non-finite grad rows under weight-0 items only
+     (the NaN rows must match), and on a store with -0.0 elements (the
+     elements that keep -0.0 are counted, not failed); and one K5 call
+     captured in a CUDA graph and replayed on a fresh stream, against the
+     eager call bit for bit;
   4. serve: ``dlrm_yx_tpu_torch.cli.main --inference-only`` on the full-width
      Terabyte-MLPerf DLRM (26 tables capped at 1M rows, dim 128, batch 2048,
      bf16, --interaction-impl pallas), with the launch counts set to 0 just
@@ -78,7 +84,8 @@ no result):
   p. profile: the capacity step, with the device time by kind of kernel;
   q. ops: the device operations (kernels, memsets, copies) of one K2 and
      one K4 wrapper call at each main-path shape, counted with
-     torch.profiler (at most 5, no sort).
+     torch.profiler (at most 5, no sort), and of one K1 call (bf16 and f32:
+     one kernel) and one K5 call (at most 5, no sort, no host sync).
 Then a JSON line of the kernels (launches from the path each kernel serves:
 K1-K3 phase b, K5 phase g, K6 phase h, K4 phase m), nvidia-smi's line, and
 the result line.
@@ -164,9 +171,11 @@ def check_interaction_kernel():
 
     cases = [  # (B, S, D, interact_itself, compute dtype); the first is the serving shape
         (BATCH, 26, 128, False, torch.bfloat16),
-        (BATCH, 26, 128, False, torch.float32),
-        (128, 7, 128, True, torch.float32),
+        (BATCH, 26, 128, False, torch.float32),   # the f32 register route (F = 27, D = 128)
+        (128, 26, 128, True, torch.float32),
+        (128, 7, 128, True, torch.float32),       # the f32 tiles
         (128, 2, 256, False, torch.float32),
+        (128, 9, 128, True, torch.bfloat16),
     ]
     tol = 1e-5  # max |kernel - plain| over max |plain|: both sum in f32, in other orders
     row = None
@@ -963,14 +972,17 @@ def check_stream_kernels(cfg):
     say("kernel", f"sorted_stream_apply store [{r}, {d}] f32, K={k} sorted occurrences on "
                   f"{n_rows} distinct rows ({live_rows} with a nonzero weight), grad table "
                   f"{tuple(gtab.shape)}: max_abs_err {err:.3e} (relative {rel:.3e} <= {tol}), "
-                  f"kernel {ms:.5f} ms (the wrapper launches only the kernel), plain "
+                  f"kernel {ms:.5f} ms (the wrapper: flags, count, compaction, walk), plain "
                   f"{plain_ms:.5f} ms, index_add_ of the pre-expanded rows {expanded_ms:.5f} ms "
                   f"(reference only), bound {bound:.5f} ms ({by}, {nbytes} B); the whole SGD "
                   f"update (sort, segment ids, weights, K5; CUDA events, host launches "
                   f"included) {statistics.mean(update_ms):.5f} ms (runs {update_ms})")
     k5 = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
           "bound_by": by, "library_ms": None}
-    del pos, seg, w, w_eff, gtab, g_pooled, gidx, pos64, b
+    del g_pooled, pos64
+    check_stream_apply_traffic(group, store, b, gidx, gtab, compare)
+    check_stream_apply_capture(store, pos, seg, w_eff, gtab)
+    del pos, seg, w, w_eff, gtab, gidx, b
 
     store = torch.rand(r, d, device="cuda", generator=gen) - 0.5  # K5's timing moved it
     b = benchmark_batch(cfg, BIG_BATCH, seed=22)
@@ -993,6 +1005,121 @@ def check_stream_kernels(cfg):
     k6 = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
           "bound_by": by, "library_ms": library_ms}
     return k5, k6
+
+
+def check_stream_apply_traffic(group, store, b, gidx, gtab, compare):
+    """Phase f, K5 on more traffic from the benchmark batch, each against its
+    plain version with its time: (i) every weight-0 id sent to its table's
+    row 0, as host batches pad (one run of ~100k items a table); (ii) every
+    weight 0; (iii) a grad row holding inf and one holding NaN, referenced
+    only by weight-0 items: 0 * inf is NaN, and the NaN rows must match;
+    (iv) a store with -0.0 elements: the elements that keep -0.0 where the
+    plain version's +0.0 add makes +0.0 are counted, not failed."""
+    import torch
+
+    from dlrm_yx_tpu_torch.ops.stream_update import (
+        sorted_stream_apply,
+        sorted_stream_apply_reference,
+    )
+
+    offs = torch.tensor(group.row_offsets, device="cuda", dtype=gidx.dtype)[:, None, None]
+    padded = torch.where(b.weights != 0, gidx, offs)
+    pos, seg, w, _ = sorted_occurrences(padded, b.weights)
+    w_eff = -0.1 * w
+    live_rows = int(torch.unique_consecutive(pos[w != 0]).numel())
+    run0 = int((pos == pos[0]).sum())
+
+    def timed(what, w_use, g_use, rows):
+        err, rel = compare(f"sorted_stream_apply ({what})",
+                           sorted_stream_apply(store.clone(), pos, seg, w_use, g_use),
+                           sorted_stream_apply_reference(store.clone(), pos, seg, w_use, g_use),
+                           rows)
+        ms = device_time_ms(lambda: sorted_stream_apply(store, pos, seg, w_use, g_use), reps=5,
+                            samples=10)
+        plain_ms = device_time_ms(
+            lambda: sorted_stream_apply_reference(store, pos, seg, w_use, g_use), reps=5,
+            samples=10)
+        return err, rel, ms, plain_ms
+
+    err, rel, ms, plain_ms = timed("row-0 padding", w_eff, gtab, live_rows)
+    say("kernel", f"sorted_stream_apply, the benchmark batch with every weight-0 id on its "
+                  f"table's row 0 (row 0 of table 0: a run of {run0} items): max_abs_err "
+                  f"{err:.3e} (relative {rel:.3e}), {live_rows} rows changed, kernel {ms:.5f} ms, "
+                  f"plain {plain_ms:.5f} ms")
+    err, rel, ms, plain_ms = timed("every weight 0", torch.zeros_like(w_eff), gtab, 0)
+    say("kernel", f"sorted_stream_apply, every weight 0: max_abs_err {err:.3e}, no row changed, "
+                  f"kernel {ms:.5f} ms, plain {plain_ms:.5f} ms")
+
+    # (iii) two grad rows that only weight-0 items reference turn non-finite
+    dead = seg[w == 0]
+    bad_segs = dead[:1].tolist() + dead[dead != dead[0]][:1].tolist()
+    bad = torch.isin(seg, torch.tensor(bad_segs, device="cuda", dtype=seg.dtype))
+    w_bad = torch.where(bad, 0.0, w_eff)
+    g_bad = gtab.clone()
+    g_bad[bad_segs[0], 0] = float("inf")
+    g_bad[bad_segs[1], 5] = float("nan")
+    got = sorted_stream_apply(store.clone(), pos, seg, w_bad, g_bad)
+    want = sorted_stream_apply_reference(store.clone(), pos, seg, w_bad, g_bad)
+    torch.cuda.synchronize()
+    nan_rows = got.isnan().any(dim=1)
+    want_rows = torch.zeros_like(nan_rows)
+    want_rows[pos[bad].long()] = True
+    finite = ~want.isnan()
+    err = (got[finite] - want[finite]).abs().max().item()
+    if (not torch.equal(got.isnan(), want.isnan()) or not torch.equal(nan_rows, want_rows)
+            or not err <= 1e-6 * want[finite].abs().max().item()):
+        fail(f"sorted_stream_apply with non-finite grad rows under weight-0 items: "
+             f"{int(nan_rows.sum())} NaN rows against the plain version's "
+             f"{int(want.isnan().any(dim=1).sum())} and the {int(want_rows.sum())} rows those "
+             f"items name; max abs err elsewhere {err}")
+    say("kernel", f"sorted_stream_apply, grad rows {bad_segs} holding inf and NaN, referenced "
+                  f"by {int(bad.sum())} weight-0 items only: {int(nan_rows.sum())} NaN rows, the "
+                  f"same elements as the plain version's; max_abs_err elsewhere {err:.3e}")
+    del got, want, g_bad, w_bad, nan_rows, want_rows, finite
+
+    # (iv) -0.0 elements of the store
+    neg = store.clone()
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    neg[torch.rand(neg.shape, device="cuda", generator=gen) < 0.3] = -0.0
+    got = sorted_stream_apply(neg.clone(), pos, seg, w_eff, gtab)
+    want = sorted_stream_apply_reference(neg.clone(), pos, seg, w_eff, gtab)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    if not err <= 1e-6 * want.abs().max().item():
+        fail(f"sorted_stream_apply on a store with -0.0 elements: max abs err {err}")
+    kept = int(((got == 0) & got.signbit() & ~want.signbit()).sum())
+    plain_kept = int(((want == 0) & want.signbit()).sum())
+    say("kernel", f"sorted_stream_apply, store with {int(((neg == 0) & neg.signbit()).sum())} "
+                  f"-0.0 elements: max_abs_err {err:.3e}; {kept} elements keep -0.0 where the "
+                  f"plain version (and the JAX kernel) add +0.0 from a weight-0 item and make "
+                  f"+0.0 (recorded, not a fault: ROADMAP Queue C); the plain version keeps "
+                  f"{plain_kept}")
+
+
+def check_stream_apply_capture(store, pos, seg, w_eff, gtab):
+    """Phase f: one K5 call captured in a CUDA graph and replayed on a fresh
+    stream gives the eager call's store, bit for bit (the live count stays
+    on the device; the wrapper's scratch was made by an earlier call)."""
+    import torch
+
+    from dlrm_yx_tpu_torch.ops.stream_update import sorted_stream_apply
+
+    eager = sorted_stream_apply(store.clone(), pos, seg, w_eff, gtab)
+    target = store.clone()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        sorted_stream_apply(target, pos, seg, w_eff, gtab)
+    target.copy_(store)
+    fresh = torch.cuda.Stream()
+    fresh.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(fresh):
+        graph.replay()
+    fresh.synchronize()
+    if not torch.equal(bits(target), bits(eager)):
+        fail("sorted_stream_apply: a CUDA-graph replay on a fresh stream differs from the "
+             "eager call")
+    say("kernel", "sorted_stream_apply: one call captured in a CUDA graph, replayed on a fresh "
+                  "stream: the same store as the eager call, bit for bit")
 
 
 def benchmark_main_path():
@@ -1361,6 +1488,71 @@ def count_device_ops(big, cap_big):
     return counts
 
 
+def count_k1_k5_ops(bench_cfg):
+    """Phase q: the device operations of one K1 call at the serving shape
+    (bf16 and f32) and of one K5 call at the benchmark's shape, and the host
+    synchronisations inside them, counted with torch.profiler: K1 one
+    kernel; K5 at most 5 operations (its flags, count, compaction and walk),
+    no sort and no synchronising runtime call but the one that ends the
+    window (a sync would also have broken phase f's CUDA-graph capture)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from dlrm_yx_tpu_torch.models.dlrm import model_groups
+    from dlrm_yx_tpu_torch.ops.embedding import global_row_ids
+    from dlrm_yx_tpu_torch.ops.fused_interaction import fused_interaction
+    from dlrm_yx_tpu_torch.ops.stream_update import sorted_stream_apply
+
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    x = torch.randn(BATCH, 128, device="cuda", generator=gen)
+    ly = torch.randn(BATCH, 26, 128, device="cuda", generator=gen)
+    (group,) = model_groups(bench_cfg)
+    store = torch.zeros(group.total_rows, group.dim, device="cuda")
+    b = benchmark_batch(bench_cfg, BATCH, seed=23)
+    pos, seg, w, _ = sorted_occurrences(global_row_ids(group, b.indices), b.weights)
+    gtab = torch.randn(group.num_tables * BATCH, group.dim, device="cuda", generator=gen)
+    w_eff = -0.1 * w
+    cases = [
+        ("fused_interaction bf16", f"[{BATCH}, 26, 128]", 1,
+         lambda: fused_interaction(x, ly, False, torch.bfloat16)),
+        ("fused_interaction f32", f"[{BATCH}, 26, 128]", 1,
+         lambda: fused_interaction(x, ly, False, torch.float32)),
+        ("sorted_stream_apply", f"store [{group.total_rows}, {group.dim}], K={pos.numel()}", 5,
+         lambda: sorted_stream_apply(store, pos, seg, w_eff, gtab)),
+    ]
+    def window(fn):
+        """(device operations, synchronising runtime calls) of a profiled
+        fn() that ends in torch.cuda.synchronize()."""
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = prof.events()
+        return ([e.name for e in events if e.device_type.name == "CUDA"],
+                [e.name for e in events
+                 if e.device_type.name == "CPU" and "Synchronize" in e.name])
+
+    _, empty_syncs = window(lambda: None)  # the window's own synchronisations
+    for what, shape, most, fn in cases:
+        fn()
+        torch.cuda.synchronize()
+        names, syncs = window(fn)
+        ours = [n for n in names if what.split()[0] in n]
+        # a torch sort's kernels (cub radix sort); K5's own names hold "sorted"
+        sorts = [n for n in names
+                 if n not in ours and ("sort" in n.lower() or "radix" in n.lower())]
+        inside = len(syncs) - len(empty_syncs)
+        if not ours or len(names) > most or sorts or inside > 0:
+            fail(f"{what}: one call ran {len(names)} device operations {names} and "
+                 f"{inside} synchronising calls beyond an empty window's {empty_syncs} (want 1 "
+                 f"to {most} operations, no sort, no synchronisation)")
+        short = (n.replace("(anonymous namespace)::", "").split("(")[0] for n in names)
+        say("ops", f"{what} {shape}: {len(names)} device operations in one call "
+                   f"({', '.join(short)}), no sort, no host "
+                   f"synchronisation ({len(syncs)} synchronising calls, as an empty window)")
+    del store, x, ly, gtab
+    torch.cuda.empty_cache()
+
+
 def train_bf16_sr_main_path(rows, big_index):
     """Phase m: phase b's CLI training run with bf16 stores and stochastic
     rounding: K4 (the big store; its 28 MB momentum stays on the scatter)
@@ -1631,6 +1823,7 @@ def main():
 
     # q. device operations per wrapper call
     count_device_ops(big, cap_big)
+    count_k1_k5_ops(bench_cfg)
 
     sources = {
         "fused_interaction": ("dlrm_yx_tpu/ops/pallas_interaction.py:84", k1, launches,

@@ -5,8 +5,9 @@ The port of the single-device training and ``--inference-only`` paths of
 and meaning; one flag is new, ``--device`` (``cuda`` by default; ``cpu``
 for the tests). Flags of parts not yet ported are still recognised, and
 giving any of them raises ``NotImplementedError`` instead of being
-ignored. ``--print-time`` is accepted and has no effect, as in the JAX
-CLI. The reference's L=100 throughput benchmark
+ignored. ``--print-time`` and the reference-compat flags of
+``add_noop_flags`` are accepted and have no effect, as in the JAX CLI.
+The reference's L=100 throughput benchmark
 (``bench/dlrm_tpu_benchmark.sh``) runs with ``dlrm_yx_tpu.cli`` replaced by
 ``dlrm_yx_tpu_torch.cli``. bf16 table storage (``--emb-dtype bfloat16``)
 takes ``--stochastic-rounding``.
@@ -44,23 +45,41 @@ from dlrm_yx_tpu_torch.utils.logging import rank0_print
 UNPORTED_FLAGS = (
     "weighted-pooling", "md-flag", "md-threshold", "md-temperature",
     "md-round-dims", "qr-flag", "qr-threshold", "qr-operation",
-    "qr-collisions", "activation-function", "data-trace-file", "data-set",
+    "qr-collisions", "data-trace-file", "data-set",
     "raw-data-file", "processed-data-file", "load-processed",
     "data-randomize", "data-trace-enable-padding",
-    "data-sub-sample-rate", "num-workers", "memory-map", "mlperf-bin-loader",
+    "data-sub-sample-rate", "memory-map", "mlperf-bin-loader",
     "mlperf-bin-shuffle", "print-precision",
-    "dataset-multiprocessing", "use-tpu", "force-cpu-devices",
-    "use-gpu", "distributed", "mesh-data", "mesh-model", "shard-mode",
+    "dataset-multiprocessing", "force-cpu-devices",
+    "distributed", "mesh-data", "mesh-model", "shard-mode",
     "sharder", "allocation", "debug-mode",
     "enable-profiling", "profile-out-dir", "plot-compute-graph",
     "tensor-board-filename", "save-model", "load-model", "ckpt-backend",
     "save-onnx", "mlperf-grad-accum-iter", "quantize-mlp-with-bit",
-    "quantize-emb-with-bit", "batched-emb", "fbgemm-emb", "sync-dense-params",
-    "bucket-size-mb", "dist-backend", "local-rank", "pin-memory",
-    "early-barrier", "aggregated-allreduce", "test-num-workers",
-    "collect-execution-graph", "steps-per-dispatch", "prefetch-depth",
-    "test-mini-batch-size", "print-wall-time",
+    "quantize-emb-with-bit", "collect-execution-graph", "steps-per-dispatch",
+    "prefetch-depth", "test-mini-batch-size", "print-wall-time",
 )
+
+
+def add_noop_flags(p: argparse.ArgumentParser) -> None:
+    """The reference-compat flags that dlrm_yx_tpu/cli.py accepts and never
+    reads (backend pick, DDP buckets, pinned memory, loader workers,
+    table-batched storage), with its types and defaults; nothing reads
+    them here either."""
+    p.add_argument("--activation-function", type=str, default="relu")
+    p.add_argument("--num-workers", type=int, default=0)
+    p.add_argument("--use-tpu", action="store_true", default=False)
+    p.add_argument("--use-gpu", action="store_true", default=False)
+    p.add_argument("--batched-emb", action="store_true", default=False)
+    p.add_argument("--fbgemm-emb", action="store_true", default=False)
+    p.add_argument("--sync-dense-params", type=bool, default=True)
+    p.add_argument("--bucket-size-mb", type=int, default=25)
+    p.add_argument("--dist-backend", type=str, default="")
+    p.add_argument("--local-rank", type=int, default=-1)
+    p.add_argument("--pin-memory", action="store_true", default=False)
+    p.add_argument("--early-barrier", action="store_true", default=False)
+    p.add_argument("--aggregated-allreduce", action="store_true", default=False)
+    p.add_argument("--test-num-workers", type=int, default=-1)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -149,6 +168,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mlperf-logging", action="store_true", default=False)
     p.add_argument("--mlperf-acc-threshold", type=float, default=0.0)
     p.add_argument("--mlperf-auc-threshold", type=float, default=0.0)
+    add_noop_flags(p)
     for flag in UNPORTED_FLAGS:
         p.add_argument(f"--{flag}", nargs="?", const=True, default=None,
                        help=argparse.SUPPRESS)

@@ -13,9 +13,10 @@ directory sits at the root of the checkout and is listed in ``.gitignore``.
 Nothing is built when a module is imported: a kernel's wrapper calls
 ``load`` at its first launch on a CUDA tensor.
 
-``zeroed_scratch`` keeps the scratch of the kernels that leave it zero
-after every call (the row plan of K2 and K4), one buffer per kernel,
-device and size.
+``zeroed_scratch`` keeps the scratch of the kernels that leave it as the
+next call needs it (the row plan of K2 and K4 leaves it zero; K5's
+compaction writes before it reads, and resets its ticket), one buffer per
+kernel, device and size.
 """
 
 from __future__ import annotations

@@ -80,18 +80,18 @@ def _forward(x, ly, interact_itself, compute_dtype):
     s = ly.shape[1]
     if x.stride(1) != 1 or ly.stride(2) != 1:
         raise ValueError("the feature dim of x and ly must be contiguous")
-    # the kernel reads 4 floats at a time
-    if (d % 4 or x.data_ptr() % 16 or ly.data_ptr() % 16
+    # the kernel reads 4 floats at a time and sums 16 lanes a tensor-core step
+    if (d % 16 or x.data_ptr() % 16 or ly.data_ptr() % 16
             or x.stride(0) % 4 or ly.stride(0) % 4 or ly.stride(1) % 4):
-        raise ValueError("the kernel needs D % 4 == 0 and 16-byte aligned rows")
-    if s < 1 or 4 * (s + 1) * (d + 4) > SMEM_LIMIT:
+        raise ValueError("the kernel needs D % 16 == 0 and 16-byte aligned rows")
+    bf16 = int(compute_dtype == torch.bfloat16)
+    if s < 1 or _smem_bytes(s, d, int(interact_itself), bf16) > SMEM_LIMIT:
         raise ValueError(f"{s + 1} x {d} features do not fit the kernel's shared memory")
     out = torch.empty((b, d + num_pairs(s + 1, interact_itself)),
                       dtype=torch.float32, device=x.device)
     err = _kernel()(
         x.data_ptr(), x.stride(0), ly.data_ptr(), ly.stride(0), ly.stride(1),
-        out.data_ptr(), b, s, d, int(interact_itself),
-        int(compute_dtype == torch.bfloat16), x.device.index,
+        out.data_ptr(), b, s, d, int(interact_itself), bf16, x.device.index,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err:
@@ -140,6 +140,15 @@ def fused_interaction(
 
 
 fused_interaction.launches = 0
+
+
+def _smem_bytes(s, d, diag, bf16):
+    """Shared memory a block of one batch row needs (the kernel's own count)."""
+    fn = _build.load("fused_interaction").fused_interaction_smem_bytes
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * 4
+        fn.restype = ctypes.c_longlong
+    return fn(s, d, diag, bf16)
 
 
 def _kernel():

@@ -20,12 +20,17 @@ the grad table resident in VMEM, sub-128 dims packed into 128-lane rows
 (the ``h`` sub-slot) and scalar streams padded by ``CHP`` sentinels. None of
 that carries over: the port's stores are logical rows, so a packed
 group's update is a ``dim``-wide row, and the CUDA kernels touch only the
-rows that occur in ``pos``. ``GTAB_MAX_BYTES`` is kept as the port's own
+rows that occur in ``pos``: K5 only those with a live occurrence (a
+nonzero weight, or a grad row that is not finite, whose 0 * inf is NaN);
+a weight-0 occurrence of a finite grad row adds +-0, which changes no
+value but turns a ``-0.0`` element into ``+0.0`` in the JAX kernel and
+the plain version, and leaves it ``-0.0`` in K5's kernel.
+``GTAB_MAX_BYTES`` is kept as the port's own
 constant: it is the TPU's VMEM budget for the grad table, but the
 optimizer's choice between K5 and K6 follows it, as the JAX package's
 does.
 
-On a CUDA tensor each wrapper launches its kernel in
+On a CUDA tensor each wrapper launches its kernels in
 ``csrc/sorted_stream_apply.cu`` or ``csrc/sorted_stream_add.cu``; on a CPU
 tensor it runs its plain PyTorch version (``*_reference``: an
 ``index_add_``, serial in k on the CPU). There is no fallback from one to
@@ -109,8 +114,12 @@ def sorted_stream_apply(store: torch.Tensor, pos: torch.Tensor, seg: torch.Tenso
     optimizer makes them from the batch's shape); w [K] f32; gtab [S, dim]
     f32. Updates ``store`` in place and returns it.
 
-    A CUDA call launches the kernel on the current stream and adds one to
-    ``sorted_stream_apply.launches``; a CPU call runs the plain version."""
+    A CUDA call launches its four kernels (grad-row flags, count, compaction
+    of the live occurrences, run walk) on the current stream and adds one
+    to ``sorted_stream_apply.launches``; a CPU call runs the plain version.
+    The CUDA route keeps a scratch buffer per (device, K, S), made at the
+    first call of that size: make that call before capturing one in a CUDA
+    graph, and do not run two calls of one size on two streams at once."""
     _check(store, pos, gtab, store.shape[1], "gtab")
     k = pos.shape[0]
     if seg.shape != (k,) or seg.dtype != torch.int32:
@@ -121,9 +130,13 @@ def sorted_stream_apply(store: torch.Tensor, pos: torch.Tensor, seg: torch.Tenso
         return sorted_stream_apply_reference(store, pos, seg, w, gtab)
     stream = _cuda_ready((store, pos, seg, w, gtab), ("store", "pos", "seg", "w", "gtab"))
     r, dim = store.shape
+    s = gtab.shape[0]
+    lib = _build.load("sorted_stream_apply")
+    scratch = _build.zeroed_scratch("sorted_stream_apply", store.device,
+                                    _scratch_bytes(lib, k, s))
     err = _kernel("sorted_stream_apply")(
         store.data_ptr(), pos.data_ptr(), seg.data_ptr(), w.data_ptr(), gtab.data_ptr(),
-        r, k, dim, store.device.index, stream,
+        r, k, s, dim, scratch.data_ptr(), store.device.index, stream,
     )
     if err:
         raise RuntimeError(f"sorted_stream_apply kernel launch failed: CUDA error {err}")
@@ -162,11 +175,21 @@ def sorted_stream_add(store: torch.Tensor, pos: torch.Tensor,
 sorted_stream_add.launches = 0
 
 
+def _scratch_bytes(lib, k, s):
+    fn = lib.sorted_stream_apply_scratch_bytes
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_longlong, ctypes.c_longlong]
+        fn.restype = ctypes.c_longlong
+    return fn(k, s)
+
+
 def _kernel(name):
     fn = getattr(_build.load(name), name)
     if fn.argtypes is None:
         i, p, ll = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong
-        n_arrays = 5 if name == "sorted_stream_apply" else 3
-        fn.argtypes = [p] * n_arrays + [ll, ll, i, i, p]
+        if name == "sorted_stream_apply":
+            fn.argtypes = [p] * 5 + [ll, ll, ll, i, p, i, p]
+        else:
+            fn.argtypes = [p] * 3 + [ll, ll, i, i, p]
         fn.restype = i
     return fn

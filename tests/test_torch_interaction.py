@@ -151,3 +151,18 @@ def test_cuda_kernel_matches_plain_version(cuda_device, itself, cdt):
     scale = want.abs().max().item()
     assert (got - want).abs().max().item() <= 1e-5 * scale
     assert torch.equal(got[:, :128], x)
+
+
+@pytest.mark.parametrize("itself,cdt", [(False, torch.float32), (True, torch.float32),
+                                        (False, torch.bfloat16)])
+def test_cuda_kernel_matches_plain_version_at_serving_shape(cuda_device, itself, cdt):
+    """F = 27, D = 128: f32 takes the kernel's register route, bf16 its
+    tensor-core tiles; B = 130 leaves a ragged last block."""
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    x = torch.randn(130, 128, device=cuda_device, generator=g)
+    ly = torch.randn(130, 26, 128, device=cuda_device, generator=g)
+    got = fused_interaction(x, ly, itself, cdt)
+    want = fused_interaction_reference(x, ly, itself, cdt)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+    assert torch.equal(got[:, :128], x)

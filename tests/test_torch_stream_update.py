@@ -115,6 +115,89 @@ def test_sorted_stream_apply_plain_matches_jax(dim, pack):
     np.testing.assert_allclose(got.numpy().reshape(rp, 128), want, **F32)
 
 
+def _apply_both(store, pos, seg, w, gtab):
+    """K5 of both packages at dim 128 (pack 1): (port's plain version, JAX's
+    kernel in interpret mode). JAX's grad table is padded to 8 rows."""
+    s_rows = -(-gtab.shape[0] // 8) * 8
+    g_pad = np.zeros((s_rows, 128), np.float32)
+    g_pad[: gtab.shape[0]] = gtab
+    chp, rows = jax_psu.CHP, store.shape[0]
+
+    def padded(a, fill):
+        return jnp.asarray(np.concatenate([a, np.full(chp, fill, a.dtype)]))
+
+    want = np.asarray(jax_psu.sorted_stream_apply(
+        jnp.asarray(store), padded(pos, rows), padded(seg, 0), padded(w, 0),
+        padded(np.zeros_like(pos), 0), jnp.asarray(g_pad), dim=128, pack=1,
+        n_live=len(pos), interpret=True))
+    launches = sorted_stream_apply.launches
+    got = sorted_stream_apply(_t(store.copy()), _t(pos), _t(seg), _t(w), _t(gtab)).numpy()
+    assert sorted_stream_apply.launches == launches  # CPU tensors launch nothing
+    return got, want
+
+
+def _weight0_stream(case, seed):
+    """(store, pos, seg, w, gtab) with weight-0 occurrences: ``all0`` (every
+    run's weights 0), ``mixed`` (runs that mix 0 and nonzero weights) or
+    ``row0`` (host padding: a run of 1,000 weight-0 items on row 0 beside
+    live lookups)."""
+    r = np.random.RandomState(seed)
+    rows, s_rows = 700, 40
+    if case == "row0":
+        # the stable sort puts row 0's 3 real lookups among its padding
+        pos = np.concatenate([np.zeros(1003, np.int64), np.sort(r.randint(1, rows, 600))])
+        w = np.concatenate([np.zeros(1003), r.randn(600)])
+        w[r.choice(1003, 3, replace=False)] = r.randn(3)
+    else:
+        pos = np.sort(np.concatenate([r.randint(0, rows, 900), np.repeat(r.randint(0, rows, 30),
+                                                                        12)]))
+        w = r.randn(len(pos))
+        if case == "all0":
+            w[:] = 0.0
+        else:
+            w[r.rand(len(pos)) < 0.5] = 0.0
+    seg = r.randint(0, s_rows, len(pos))
+    store = r.randn(rows, 128).astype(np.float32)
+    gtab = r.randn(s_rows, 128).astype(np.float32)
+    return store, pos.astype(np.int32), seg.astype(np.int32), w.astype(np.float32), gtab
+
+
+@pytest.mark.parametrize("case", ["all0", "mixed", "row0"])
+def test_sorted_stream_apply_weight0_runs_match_jax(case):
+    """Weight-0 occurrences on a finite grad table change nothing, bit for
+    bit, in both packages: only the rows with a nonzero weight move."""
+    store, pos, seg, w, gtab = _weight0_stream(case, seed=len(case))
+    got, want = _apply_both(store, pos, seg, w, gtab)
+    np.testing.assert_allclose(got, want, **F32)
+    live = np.zeros(store.shape[0], bool)
+    live[pos[w != 0]] = True
+    np.testing.assert_array_equal(got[~live], store[~live])
+    np.testing.assert_array_equal(want[~live], store[~live])
+    assert ((got != store).any(axis=1) == live).all()
+    if case == "row0":
+        assert (pos == 0).sum() == 1003 and live[0]
+
+
+def test_sorted_stream_apply_nonfinite_grad_rows_under_weight0_match_jax():
+    """0 * inf and 0 * NaN are NaN: a grad row holding inf and one holding
+    NaN, referenced only by weight-0 occurrences, turn the rows they land on
+    to NaN in both packages, in the same places."""
+    store, pos, seg, w, gtab = _weight0_stream("mixed", seed=11)
+    gtab[3, 17] = np.inf
+    gtab[5, 100] = np.nan
+    bad = (seg == 3) | (seg == 5)
+    w[bad] = 0.0
+    got, want = _apply_both(store, pos, seg, w, gtab)
+    np.testing.assert_allclose(got, want, equal_nan=True, **F32)
+    nan_rows = np.isnan(got).any(axis=1)
+    assert nan_rows.any()
+    np.testing.assert_array_equal(nan_rows, np.isnan(want).any(axis=1))
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    hit = np.zeros(store.shape[0], bool)
+    hit[pos[bad]] = True
+    np.testing.assert_array_equal(nan_rows, hit)
+
+
 def test_stream_wrappers_reject_bad_inputs():
     store = torch.zeros(64, 8)
     pos = torch.zeros(4, dtype=torch.int32)
@@ -172,7 +255,13 @@ def _count_kernels(monkeypatch):
 
 
 def _both_stream_updates(monkeypatch, optname, dim, pack, seed):
-    jg, pg, gidx, w, gp, store, acc = _stream_case(optname, dim, pack, seed)
+    return _compare_stream_updates(monkeypatch, optname, pack,
+                                   _stream_case(optname, dim, pack, seed))
+
+
+def _compare_stream_updates(monkeypatch, optname, pack, case):
+    jg, pg, gidx, w, gp, store, acc = case
+    dim = pg.dim
     opt = OptConfig(optname, 0.1)
     want_s, want_a = jax_opt.sparse_update_stream(
         jax_opt.OptConfig(optname, 0.1), jnp.asarray(store),
@@ -207,6 +296,31 @@ def test_sparse_update_stream_fallback_matches_jax(monkeypatch, optname):
     monkeypatch.setattr(port_su, "GTAB_MAX_BYTES", 1)
     calls = _both_stream_updates(monkeypatch, optname, 64, 2, seed=9)
     assert calls == {"k5": 0, "k6": 1}
+
+
+@pytest.mark.parametrize("optname", ["sgd", "rwsadagrad"])
+def test_sparse_update_stream_host_padding_matches_jax(monkeypatch, optname):
+    """A host-random L=12 batch (``--data-generation random``) pads every bag
+    with row 0 at weight 0, so each table's row 0 is one long run of mostly
+    weight-0 items in the sorted stream; the update matches JAX's."""
+    rows, dim, pack = (300, 400), 64, 2
+    (batch,) = make_random_batches(RandomDataConfig(
+        emb_rows=rows, m_den=4, mini_batch_size=64, num_batches=1,
+        num_indices_per_lookup=12, num_indices_per_lookup_fixed=False, seed=8))
+    total = sum(rows)
+    gidx = batch.indices + np.array([0, rows[0]], np.int32)[:, None, None]
+    pad = batch.weights == 0
+    assert pad.mean() > 0.3 and (gidx[0][pad[0]] == 0).all()
+    assert (gidx == 0).sum() > 100 and (gidx == rows[0]).sum() > 100
+    r = np.random.RandomState(2)
+    gp = r.randn(2, 64, dim).astype(np.float32)
+    store = r.randn((total + pack - 1) // pack + 2, 128).astype(np.float32)
+    acc = np.abs(r.randn(total + 4)).astype(np.float32) if optname != "sgd" else None
+    group = TableGroup((0, 1), rows, dim, (0, rows[0]), total)
+    calls = _compare_stream_updates(
+        monkeypatch, optname, pack,
+        (_G(dim, pack, total), group, gidx, batch.weights, gp, store, acc))
+    assert calls == {"k5": 1, "k6": 0}
 
 
 def test_gtab_budget_routes_like_jax():
@@ -435,3 +549,21 @@ def test_cuda_sorted_stream_add_matches_plain_version(cuda_device, dim):
     assert (got - want).abs().max().item() <= 1e-5
     cpu = sorted_stream_add(_t(store.copy()), _t(pos), _t(upd))
     assert (got.cpu() - cpu).abs().max().item() == 0
+
+
+@pytest.mark.parametrize("case", ["all0", "mixed", "row0"])
+def test_cuda_sorted_stream_apply_weight0_traffic(cuda_device, case):
+    """The kernel applies only the live occurrences: the same store as the
+    plain version on the CPU, bit for bit (no -0.0 in these stores), and a
+    non-finite grad row under weight-0 items only turns the same elements
+    to NaN."""
+    store, pos, seg, w, gtab = _weight0_stream(case, seed=3)
+    if case == "mixed":
+        gtab[3, 17] = np.inf
+        gtab[5, 100] = np.nan
+        w[(seg == 3) | (seg == 5)] = 0.0
+    cpu = sorted_stream_apply(_t(store.copy()), _t(pos), _t(seg), _t(w), _t(gtab)).numpy()
+    got = sorted_stream_apply(_t(store).to(cuda_device),
+                              *(_t(a).to(cuda_device) for a in (pos, seg, w, gtab)))
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().numpy(), cpu)
