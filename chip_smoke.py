@@ -30,7 +30,10 @@ no result):
   4. serve: ``dlrm_yx_tpu_torch.cli.main --inference-only`` on the full-width
      Terabyte-MLPerf DLRM (26 tables capped at 1M rows, dim 128, batch 2048,
      bf16, --interaction-impl pallas), with the launch counts set to 0 just
-     before and read just after;
+     before and read just after. Phases 4, b, g, h and m run the CLI's
+     captured steps: after one eager warm-up step each train and eval step
+     is a CUDA-graph replay (one step a replay at --print-freq 1), and the
+     launch counts count replays;
   b. train: the training main path, ``cli.main`` without --inference-only on
      the same model (rwsadagrad, --sparse-update-impl pallas, a few
      batches, then an eval), with the launch counts set to 0 just before
@@ -50,15 +53,27 @@ no result):
      two-group model, routed through K2 and K3;
   i. reference: the same on a small L=100 model through K5, and through K6
      with the grad-table budget at 1 byte;
-  6. throughput: the eval step at full width, CUDA-event timed, with the
-     fused kernel and with the plain interaction, in turns;
-  d. throughput: the train step at full width, CUDA-event timed over 20
-     steps after warm-up, with either interaction, in turns;
-  j. throughput: the L=100 train step at batch 2048, SGD pallas (the
+  r. capture: every captured path against its eager steps on the card, bit
+     for bit (losses, stores, accumulators, MLP tensors), with deterministic
+     algorithms on and an LR policy whose lr moves every step: three
+     dispatches (eager warm-up, capture + replay, replay) of the L=1 train
+     step (N=4: K1, K2, K3), the eval step (K1), gradient accumulation over
+     2 micro-batches (K1, K4, K3), the bf16 store with SR (N=4: K4, K3), the
+     L=100 SGD step (N=4: K5) and the B=4096 RWSAdagrad stream step (N=2:
+     K6), each with the eager steps' launch counts;
+  6. throughput: the eager eval step at full width, CUDA-event timed, with
+     the fused kernel and with the plain interaction, in turns;
+  d. throughput: the eager train step at full width, CUDA-event timed over
+     20 steps after warm-up, with either interaction, in turns;
+  j. throughput: the eager L=100 train step at batch 2048, SGD pallas (the
      benchmark) and RWSAdagrad stream, in turns;
-  7. profile: a torch.profiler window over the serving step: device busy
-     share and the kernels that take the time;
-  e. profile: a torch.profiler window over the train step;
+  s. throughput: the captured steps at N=1 and N=16 steps a replay against
+     the eager step, in turns (eager, N=1, N=16, N=16, N=1, eager), for the
+     L=1 train, L=100 SGD and capacity (SR off) steps, and the captured eval
+     step (one batch a replay) against the eager one;
+  7. profile: a torch.profiler window over the eager serving step: device
+     busy share and the kernels that take the time;
+  e. profile: a torch.profiler window over the eager train step;
   k. profile: the same over both L=100 steps, with the device time by kind
      of kernel (K5, sort, gather, scatter, GEMM);
   l. kernel: K4 (sparse_rows_add) against its plain version, bit for bit, at
@@ -82,10 +97,14 @@ no result):
      model with both K4 gates at 0: a bf16 store with SR off and on, f32
      with write_only_update off, and Adagrad on the kernel route;
   p. profile: the capacity step, with the device time by kind of kernel;
+  t. profile: the captured eval, L=1, L=100 and capacity steps (16 steps a
+     replay), kernels busy and the idle share per step;
   q. ops: the device operations (kernels, memsets, copies) of one K2 and
-     one K4 wrapper call at each main-path shape, counted with
-     torch.profiler (at most 5, no sort), and of one K1 call (bf16 and f32:
-     one kernel) and one K5 call (at most 5, no sort, no host sync).
+     one K4 wrapper call at each main-path shape, read as the nodes of a
+     CUDA graph that captures the call (at most 5, no sort), and of one K1
+     call (bf16 and f32), one K3 call (lr on the device) and one K6 call
+     (one kernel each) and one K5 call (at most 5, no sort); the capture
+     itself fails on a host synchronisation.
 Then a JSON line of the kernels (launches from the path each kernel serves:
 K1-K3 phase b, K5 phase g, K6 phase h, K4 phase m), nvidia-smi's line, and
 the result line.
@@ -99,10 +118,15 @@ updates with a nonzero weight), the bytes are those this run's inputs need.
 """
 
 import json
+import os
 import statistics
 import subprocess
 import sys
 import time
+
+# cuBLAS's workspace setting that deterministic algorithms need (phase r),
+# set before torch is imported
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 T_START = time.perf_counter()
 HBM_BYTES_PER_S = 3.35e12
@@ -114,7 +138,10 @@ LR = 0.01
 
 
 def fail(msg):
+    """Print the failure on both streams (a caller may keep only the end of
+    standard error) and exit 1."""
     print(f"FAIL: {msg}", flush=True)
+    print(f"FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
 
 
@@ -266,7 +293,8 @@ def check_against_cpu():
 
 
 def serving_throughput(rows):
-    """Phase 6: eval steps at full width on device-drawn params and batch."""
+    """Phase 6: eager eval steps at full width on device-drawn params and
+    batch. Returns the fused-interaction step, its config, params and batch."""
     import dataclasses
     import math
 
@@ -290,7 +318,8 @@ def serving_throughput(rows):
         torch.ones(len(rows), BATCH, 1, device="cuda"),
         (torch.rand(BATCH, 1, device="cuda", generator=gen) > 0.5).float(),
     )
-    steps = {impl: make_eval_step(dataclasses.replace(cfg, interaction_impl=impl))
+    steps = {impl: make_eval_step(dataclasses.replace(cfg, interaction_impl=impl),
+                                  capture=False)
              for impl in ("pallas", "xla")}
 
     def check(impl, out):
@@ -302,13 +331,14 @@ def serving_throughput(rows):
                           check)
     for impl, ts in times.items():
         ms = statistics.mean(ts)
-        say("throughput", f"eval step, interaction {impl}: {ms:.4f} ms/step "
+        say("throughput", f"eval step (eager), interaction {impl}: {ms:.4f} ms/step "
                           f"({BATCH / ms * 1e3:.0f} examples/s; runs {ts})")
-    return steps["pallas"], params, batch
+    return steps["pallas"], cfg, params, batch
 
 
-def profile_step(run_once, what, phases):
-    """Phases 7 and e: where a step's device time goes. Returns the device
+def profile_step(run_once, what, phases, steps=1):
+    """Phases 7, e, k, p and t: where a step's device time goes, over 10
+    calls of ``run_once`` that run ``steps`` steps each. Returns the device
     ms per step of each kernel by name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -316,10 +346,11 @@ def profile_step(run_once, what, phases):
     for _ in range(3):
         run_once()
     torch.cuda.synchronize()
-    n = 10
+    calls = 10
+    n = calls * steps  # steps in the window
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(n):
+        for _ in range(calls):
             run_once()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n
@@ -338,7 +369,7 @@ def profile_step(run_once, what, phases):
                        f"device span {span / 1e3 / n:.5f} ms/step")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         say("profile", f"  kernel {e.self_device_time_total / 1e3 / n:.5f} ms/step "
-                       f"x{e.count // n} {e.key[:90]}")
+                       f"x{e.count / n:g} {e.key[:90]}")
     return {e.key: e.self_device_time_total / 1e3 / n for e in kernels}
 
 
@@ -532,7 +563,9 @@ def check_finish_kernel(small):
         if not (err <= tol and aerr <= 1e-6 and torch.equal(got_a[r:], acc[r:])):
             fail(f"rwsadagrad_dense_finish {dtype}: store err {err} > {tol} or acc err "
                  f"{aerr} > 1e-6, or the accumulator's padding changed")
-        ms = device_time_ms(lambda: rwsadagrad_dense_finish(store, acc, dense_g, LR, w, 1e-10))
+        # the lr on the card, as the train step passes it (a float would add a fill a call)
+        lr = torch.full((), LR, device="cuda")
+        ms = device_time_ms(lambda: rwsadagrad_dense_finish(store, acc, dense_g, lr, w, 1e-10))
         plain_ms = device_time_ms(
             lambda: rwsadagrad_dense_finish_reference(store, acc, dense_g, LR, w, 1e-10))
         # the gradient read whole; each touched row's store read and
@@ -761,7 +794,8 @@ def check_train_against_cpu():
 
 def full_train_step(rows):
     """The full-width train step on device-drawn params and batch, one per
-    interaction impl, and the state they share."""
+    interaction impl, and the state they share; with the fused
+    interaction's config and the optimizer."""
     import dataclasses
 
     import torch
@@ -797,24 +831,24 @@ def full_train_step(rows):
     )
     steps = {impl: make_train_step(dataclasses.replace(cfg, interaction_impl=impl), opt)
              for impl in ("pallas", "xla")}
-    return steps, params, state, batch, cfg.dup_density_hint
+    return (steps, params, state, batch, cfg.dup_density_hint,
+            dataclasses.replace(cfg, interaction_impl="pallas"), opt)
 
 
 def time_in_turns(fns, check, n=20):
     """Each fn of ``fns`` (name -> fn()) warmed up 5 times, then timed over
-    ``n`` calls with CUDA events in turns (first, second, second, first);
-    ``check(name, out)`` sees each window's last output. Returns name ->
-    [ms per call of each window]."""
+    ``n`` calls with CUDA events in turns (first to last, then last to
+    first); ``check(name, out)`` sees each window's last output. Returns
+    name -> [ms per call of each window]."""
     def window(name, calls):
         ms, out = events_ms(fns[name], calls)
         check(name, out)
         return ms
 
     for name in fns:
-        window(name, 5)  # warm-up
-    first, second = fns
-    times = {first: [], second: []}
-    for name in (first, second, second, first):
+        window(name, 5)  # warm-up (a captured step's warm-up and capture)
+    times = {name: [] for name in fns}
+    for name in list(fns) + list(reversed(fns)):
         times[name].append(window(name, n))
     return times
 
@@ -841,9 +875,10 @@ def train_step_fn(step, params, state, batch):
 
 
 def check_loss(name, out):
-    import math
+    """A train step's loss (or a dispatch's losses) is finite."""
+    import torch
 
-    if not math.isfinite(out[2].item()):
+    if not bool(torch.isfinite(out[2]).all()):
         fail(f"train step ({name}) gave a non-finite loss")
 
 
@@ -853,7 +888,7 @@ def train_throughput(steps, params, state, batch, hint):
                            for impl, s in steps.items()}, check_loss)
     for impl, ts in times.items():
         ms = statistics.mean(ts)
-        say("throughput", f"train step (rwsadagrad, bf16, sparse-update pallas, density "
+        say("throughput", f"train step (eager; rwsadagrad, bf16, sparse-update pallas, density "
                           f"hint {hint:.4f}), interaction {impl}: {ms:.4f} ms/step "
                           f"({BATCH / ms * 1e3:.0f} examples/s; runs {ts})")
 
@@ -1217,7 +1252,8 @@ def l100_train_steps():
     batch: SGD with --sparse-update-impl pallas (K5), and RWSAdagrad lr 0.01
     with --sparse-update-impl stream (K5, per-occurrence momentum); each as a
     function of nothing, with params of its own (drawn alike): SGD at lr 0.1
-    on params that RWSAdagrad's first steps have moved can diverge."""
+    on params that RWSAdagrad's first steps have moved can diverge. Also
+    returns the SGD step's (config, optimizer, params, state, batch)."""
     import dataclasses
 
     from dlrm_yx_tpu_torch.models.dlrm import init_dlrm_on_device, model_groups
@@ -1228,20 +1264,20 @@ def l100_train_steps():
     batch = benchmark_batch(cfg, BATCH, seed=3)
     sgd, rws = OptConfig("sgd", 0.1), OptConfig("rwsadagrad", LR)
     rws_params = init_dlrm_on_device(cfg, seed=0)
+    sgd_params = init_dlrm_on_device(cfg, seed=0)
     return {
-        "sgd pallas": train_step_fn(make_train_step(cfg, sgd), init_dlrm_on_device(cfg, seed=0),
-                                    {}, batch),
+        "sgd pallas": train_step_fn(make_train_step(cfg, sgd), sgd_params, {}, batch),
         "rwsadagrad stream": train_step_fn(
             make_train_step(dataclasses.replace(cfg, sparse_update_impl="stream"), rws),
             rws_params, init_opt_state(rws, rws_params, model_groups(cfg)), batch),
-    }
+    }, (cfg, sgd, sgd_params, {}, batch)
 
 
 def l100_throughput(steps):
     """Phase j: both L=100 steps, CUDA-event timed, in turns."""
     for name, ts in time_in_turns(steps, check_loss).items():
         ms = statistics.mean(ts)
-        say("throughput", f"L={L100} train step, 8 x 1M x 64, B={BATCH}, bf16, {name}: "
+        say("throughput", f"L={L100} train step (eager), 8 x 1M x 64, B={BATCH}, bf16, {name}: "
                           f"{ms:.4f} ms/step ({BATCH / ms * 1e3:.0f} examples/s; runs {ts})")
 
 
@@ -1281,6 +1317,18 @@ CAPACITY_KINDS = {
     "sort (cub radix)": "radix|sort",
     "gather (index_select)": "indexselect|index_select|gather",
     "scatter (index_add_, index_put_)": "indexfunc|index_add|scatter|index_put",
+    "GEMM": "gemm|nvjet|xmma|cutlass|cublas",
+    "elementwise and reductions": "elementwise|reduce",
+}
+
+
+# kernels of the L=1 train step by what they do (names as torch 2.x gives them)
+L1_KINDS = {
+    "K1 fused_interaction": "fused_interaction",
+    "K2 sparse_rows_overwrite (row_plan)": "row_plan",
+    "K3 rwsadagrad_dense_finish": "dense_finish",
+    "gather (index_select)": "indexselect|index_select|gather",
+    "scatter (index_add_, index_put_)": "indexfunc|index_add|scatter|index_put|indexing_backward",
     "GEMM": "gemm|nvjet|xmma|cutlass|cublas",
     "elementwise and reductions": "elementwise|reduce",
 }
@@ -1327,6 +1375,14 @@ def batch_rows(group, gen, batch=BATCH, repeats=True):
     return ids.int()
 
 
+def sr_step_on_card():
+    """K4's SR step 7 on the card, as a train step passes it (an int would
+    add a fill to every call); the plain version takes the int 7."""
+    import torch
+
+    return torch.full((), 7, dtype=torch.int64, device="cuda")
+
+
 def check_rows_add_traffic(group, store, gen):
     """Phase l, K4 with SR on the capacity bf16 store, on TRAFFIC and on
     items that all share one 8-row unit (each flagged but the first): the
@@ -1339,7 +1395,7 @@ def check_rows_add_traffic(group, store, gen):
         ids, active = traffic(group, gen, case)
         k = ids.numel()
         upd = torch.randn(k, store.shape[1], device="cuda", generator=gen) * 1e-2
-        got = sparse_rows_add(store.clone(), ids, upd, active, True, seed=7)
+        got = sparse_rows_add(store.clone(), ids, upd, active, True, seed=sr_step_on_card())
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         sparse_rows_add_reference(store, ids, upd, active, True, seed=7)
@@ -1348,7 +1404,8 @@ def check_rows_add_traffic(group, store, gen):
         del got
         if not equal:
             fail(f"sparse_rows_add, {case}: kernel and plain version differ (max abs err {err})")
-        ms = device_time_ms(lambda: sparse_rows_add(store, ids, upd, active, True, seed=7),
+        seed = sr_step_on_card()
+        ms = device_time_ms(lambda: sparse_rows_add(store, ids, upd, active, True, seed=seed),
                             reps=TRAFFIC_REPS, samples=TRAFFIC_REPS)
         rows = torch.unique(ids.long()).numel()
         say("kernel", f"  sparse_rows_add bf16 store, SR, {case}: K={k}, {int(active.sum())} "
@@ -1396,7 +1453,8 @@ def check_rows_add_kernel(cap_big, big):
             upd = upd.abs()  # momentum increments are g^2 means
         uniq = torch.unique(ids.long())
         before = store.index_select(0, uniq)
-        got = sparse_rows_add(store.clone(), ids, upd, active, sr, seed=7)
+        seed = sr_step_on_card()
+        got = sparse_rows_add(store.clone(), ids, upd, active, sr, seed=seed)
         torch.cuda.synchronize()
         sparse_rows_add_reference(store, ids, upd, active, sr, seed=7)
         equal, err = same_bits(got, store)
@@ -1405,7 +1463,7 @@ def check_rows_add_kernel(cap_big, big):
         if not equal or not moved:
             fail(f"sparse_rows_add {what}: kernel and plain version differ (max abs err "
                  f"{err}), or a touched row kept its value")
-        ms = device_time_ms(lambda: sparse_rows_add(store, ids, upd, active, sr, seed=7))
+        ms = device_time_ms(lambda: sparse_rows_add(store, ids, upd, active, sr, seed=seed))
         sparse_rows_add_reference(store, ids, upd, active, sr, seed=7)  # warm-up
         plain_ms = events_ms(
             lambda: sparse_rows_add_reference(store, ids, upd, active, sr, seed=7), 10)[0]
@@ -1435,19 +1493,79 @@ def check_rows_add_kernel(cap_big, big):
     return row
 
 
+GRAPH_NODE_KINDS = ("KERNEL", "MEMSET", "MEMCPY", "HOST", "EMPTY", "MEM_ALLOC", "MEM_FREE",
+                    "EVENT_RECORD", "WAIT_EVENT", "CONDITIONAL", "GRAPH")
+
+
+def kernel_name(mangled):
+    """A mangled kernel symbol's qualified name, its anonymous namespaces
+    left out: the <length><identifier> components of its name, up to its
+    template arguments or parameters."""
+    parts, i = [], 3 if mangled.startswith("_ZN") else 2
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        parts.append(mangled[j:j + int(mangled[i:j])])
+        i = j + int(mangled[i:j])
+    named = [p for p in parts if not p.startswith("_GLOBAL__N")]
+    return "::".join(named) if named else mangled
+
+
+def graph_ops(fn, what):
+    """Phase q: the device operations of one fn() call, as the nodes of a
+    CUDA graph that captures it: [(kind, label)] from the graph's DOT dump
+    (``CUDAGraph.debug_dump``, where a kernel node's label holds its
+    function's name), empty nodes left out. A capture records each launch
+    on the stream, whichever library makes it, and raises on a host
+    synchronisation. (torch.profiler's windows missed some of these
+    calls' first kernels at random.)"""
+    import re
+
+    import torch
+
+    dump = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "graph_dumps")
+    os.makedirs(dump, exist_ok=True)
+    path = os.path.join(dump, re.sub(r"\W+", "_", what) + ".dot")
+    graph = torch.cuda.CUDAGraph(keep_graph=True)  # the graph stays to be dumped
+    try:
+        with torch.cuda.graph(graph):
+            fn()
+    except RuntimeError as e:
+        fail(f"{what}: one call could not be captured in a CUDA graph (a host "
+             f"synchronisation inside it?): {e}")
+    graph.debug_dump(path)
+    del graph
+    with open(path) as f:
+        dot = f.read()
+    # node declarations open a line; an edge's line goes on with "->"
+    decls = list(re.finditer(r'^\s*"(graph_\d+_node_\d+)"\s*\[', dot, flags=re.M))
+    nodes = []
+    for i, m in enumerate(decls):
+        body = dot[m.end():decls[i + 1].start() if i + 1 < len(decls) else len(dot)]
+        body = body.split("];")[0]
+        kind = next((k for k in GRAPH_NODE_KINDS if re.search(rf"\b{k}\b", body)), "?")
+        name = re.search(r"_Z\w+", body)
+        if kind != "EMPTY":
+            nodes.append((kind, kernel_name(name.group(0)) if name
+                          else " ".join(body.split())[:80]))
+    if not nodes:
+        fail(f"{what}: no node read from the captured graph's dump {path}: {dot[:1500]!r}")
+    return nodes
+
+
 def count_device_ops(big, cap_big):
     """Phase q: the device operations (kernels, memsets, copies) of one
-    wrapper call at each main-path shape of K2 and K4, counted with
-    torch.profiler; fails above 5 or on a sort. Runs after every timing:
-    a profiler session can slow later host launches."""
+    wrapper call at each main-path shape of K2 and K4, the nodes of a
+    CUDA graph that captures it (graph_ops); fails above 5 or on a sort."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from dlrm_yx_tpu_torch.ops.sparse_rows_add import sparse_rows_add
     from dlrm_yx_tpu_torch.ops.sparse_rows_overwrite import sparse_rows_overwrite
     from dlrm_yx_tpu_torch.optim.optimizer import acc_len
 
     gen = torch.Generator(device="cuda").manual_seed(15)
+    seed = torch.full((), 7, dtype=torch.int64, device="cuda")  # on the card, as a step passes it
     cases = [  # (what, group, rows, dim, dtype, SR); K2 on the first
         ("sparse_rows_overwrite 1M-capped f32 store", big, big.total_rows, big.dim,
          torch.float32, False),
@@ -1469,39 +1587,39 @@ def count_device_ops(big, cap_big):
             new_vals = store[ids.long()] + upd
             fn = lambda: sparse_rows_overwrite(store, ids, new_vals, upd, active)  # noqa: E731
         else:
-            fn = lambda: sparse_rows_add(store, ids, upd, active, sr, seed=7)  # noqa: E731
+            fn = lambda: sparse_rows_add(store, ids, upd, active, sr, seed=seed)  # noqa: E731
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        names = [e.name for e in prof.events() if e.device_type.name == "CUDA"]
+        nodes = graph_ops(fn, what)
         del store
         torch.cuda.empty_cache()
-        sorts = [n for n in names if "sort" in n.lower() or "radix" in n.lower()]
-        if not names or len(names) > 5 or sorts:
-            fail(f"{what}: one call ran {len(names)} device operations {names} (want 1 to 5, "
-                 f"no sort)")
-        counts[what.split()[0]] = max(counts.get(what.split()[0], 0), len(names))
-        say("ops", f"{what} [{r}, {d}], K={k}: {len(names)} device operations in one call "
-                   f"({', '.join(n.split('(')[0] for n in names)})")
+        ours = [n for _, n in nodes if "row_plan" in n]
+        sorts = [n for _, n in nodes if "sort" in n.lower() or "radix" in n.lower()]
+        if not ours or len(nodes) > 5 or sorts:
+            fail(f"{what}: one call ran {len(nodes)} device operations {nodes} (want 1 to 5 "
+                 f"with the row plan's kernels, no sort)")
+        counts[what.split()[0]] = max(counts.get(what.split()[0], 0), len(nodes))
+        say("ops", f"{what} [{r}, {d}], K={k}: {len(nodes)} device operations in one call "
+                   f"({', '.join(f'{kind} {n}' for kind, n in nodes)})")
     return counts
 
 
-def count_k1_k5_ops(bench_cfg):
+def count_k1_k5_ops(bench_cfg, small):
     """Phase q: the device operations of one K1 call at the serving shape
-    (bf16 and f32) and of one K5 call at the benchmark's shape, and the host
-    synchronisations inside them, counted with torch.profiler: K1 one
-    kernel; K5 at most 5 operations (its flags, count, compaction and walk),
-    no sort and no synchronising runtime call but the one that ends the
-    window (a sync would also have broken phase f's CUDA-graph capture)."""
+    (bf16 and f32), of one K5 and one K6 call at the benchmark's shapes and
+    of one K3 call at the small group's (with the lr on the device, as the
+    train step passes it), the nodes of a CUDA graph that captures the
+    call (graph_ops, which fails on a host synchronisation): K1, K3 and K6
+    one kernel; K5 at most 5 operations (its flags, count, compaction and
+    walk); no sort. Returns the counts."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from dlrm_yx_tpu_torch.models.dlrm import model_groups
     from dlrm_yx_tpu_torch.ops.embedding import global_row_ids
+    from dlrm_yx_tpu_torch.ops.dense_finish import rwsadagrad_dense_finish
     from dlrm_yx_tpu_torch.ops.fused_interaction import fused_interaction
-    from dlrm_yx_tpu_torch.ops.stream_update import sorted_stream_apply
+    from dlrm_yx_tpu_torch.ops.stream_update import sorted_stream_add, sorted_stream_apply
+    from dlrm_yx_tpu_torch.optim.optimizer import acc_len
 
     gen = torch.Generator(device="cuda").manual_seed(16)
     x = torch.randn(BATCH, 128, device="cuda", generator=gen)
@@ -1512,45 +1630,48 @@ def count_k1_k5_ops(bench_cfg):
     pos, seg, w, _ = sorted_occurrences(global_row_ids(group, b.indices), b.weights)
     gtab = torch.randn(group.num_tables * BATCH, group.dim, device="cuda", generator=gen)
     w_eff = -0.1 * w
-    cases = [
-        ("fused_interaction bf16", f"[{BATCH}, 26, 128]", 1,
+    big_b = benchmark_batch(bench_cfg, BIG_BATCH, seed=24)
+    pos6, _, _, _ = sorted_occurrences(global_row_ids(group, big_b.indices), big_b.weights)
+    upd6 = torch.randn(pos6.numel(), group.dim, device="cuda", generator=gen) * 1e-2
+    del big_b
+    fin_store = torch.zeros(small.total_rows, small.dim, device="cuda")
+    fin_acc = torch.zeros(acc_len(small.total_rows), device="cuda")
+    fin_g = torch.randn(small.total_rows, small.dim, device="cuda", generator=gen)
+    lr = torch.full((), LR, device="cuda")
+    cases = [  # (what, a name its kernels carry, shape, most operations, one call)
+        ("fused_interaction bf16", "fused_interaction", f"[{BATCH}, 26, 128]", 1,
          lambda: fused_interaction(x, ly, False, torch.bfloat16)),
-        ("fused_interaction f32", f"[{BATCH}, 26, 128]", 1,
+        ("fused_interaction f32", "fused_interaction", f"[{BATCH}, 26, 128]", 1,
          lambda: fused_interaction(x, ly, False, torch.float32)),
-        ("sorted_stream_apply", f"store [{group.total_rows}, {group.dim}], K={pos.numel()}", 5,
+        ("sorted_stream_apply", "sorted_stream_apply",
+         f"store [{group.total_rows}, {group.dim}], K={pos.numel()}", 5,
          lambda: sorted_stream_apply(store, pos, seg, w_eff, gtab)),
+        ("sorted_stream_add", "sorted_stream_add",
+         f"store [{group.total_rows}, {group.dim}], K={pos6.numel()} (B={BIG_BATCH})", 1,
+         lambda: sorted_stream_add(store, pos6, upd6)),
+        ("rwsadagrad_dense_finish", "dense_finish",
+         f"store [{small.total_rows}, {small.dim}] f32, lr on the device", 1,
+         lambda: rwsadagrad_dense_finish(fin_store, fin_acc, fin_g, lr, small.dim, 1e-10)),
     ]
-    def window(fn):
-        """(device operations, synchronising runtime calls) of a profiled
-        fn() that ends in torch.cuda.synchronize()."""
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        events = prof.events()
-        return ([e.name for e in events if e.device_type.name == "CUDA"],
-                [e.name for e in events
-                 if e.device_type.name == "CPU" and "Synchronize" in e.name])
-
-    _, empty_syncs = window(lambda: None)  # the window's own synchronisations
-    for what, shape, most, fn in cases:
+    counts = {}
+    for what, pattern, shape, most, fn in cases:
         fn()
         torch.cuda.synchronize()
-        names, syncs = window(fn)
-        ours = [n for n in names if what.split()[0] in n]
+        nodes = graph_ops(fn, what)
+        ours = [n for _, n in nodes if pattern in n]
         # a torch sort's kernels (cub radix sort); K5's own names hold "sorted"
-        sorts = [n for n in names
-                 if n not in ours and ("sort" in n.lower() or "radix" in n.lower())]
-        inside = len(syncs) - len(empty_syncs)
-        if not ours or len(names) > most or sorts or inside > 0:
-            fail(f"{what}: one call ran {len(names)} device operations {names} and "
-                 f"{inside} synchronising calls beyond an empty window's {empty_syncs} (want 1 "
-                 f"to {most} operations, no sort, no synchronisation)")
-        short = (n.replace("(anonymous namespace)::", "").split("(")[0] for n in names)
-        say("ops", f"{what} {shape}: {len(names)} device operations in one call "
-                   f"({', '.join(short)}), no sort, no host "
-                   f"synchronisation ({len(syncs)} synchronising calls, as an empty window)")
-    del store, x, ly, gtab
+        sorts = [n for _, n in nodes
+                 if pattern not in n and ("sort" in n.lower() or "radix" in n.lower())]
+        if not ours or len(nodes) > most or sorts:
+            fail(f"{what}: one call ran {len(nodes)} device operations {nodes} (want 1 to "
+                 f"{most} with a kernel named *{pattern}*, no sort)")
+        say("ops", f"{what} {shape}: {len(nodes)} device operations in one call "
+                   f"({', '.join(f'{kind} {n}' for kind, n in nodes)}), no sort, no host "
+                   f"synchronisation (captured whole)")
+        counts[what.split()[0]] = max(counts.get(what.split()[0], 0), len(nodes))
+    del store, x, ly, gtab, upd6, fin_store, fin_acc, fin_g
     torch.cuda.empty_cache()
+    return counts
 
 
 def train_bf16_sr_main_path(rows, big_index):
@@ -1574,7 +1695,8 @@ def train_bf16_sr_main_path(rows, big_index):
 def capacity_steps():
     """Phase n: the bench/capacity_demo.py analog's train step, SR off and
     on, on device-drawn stores and batch; checks each step's launches (K4
-    twice, K3 once) and returns the steps as functions of nothing."""
+    twice, K3 once) and returns the steps as functions of nothing, and the
+    SR-off step's (config, optimizer, params, state, batch)."""
     import dataclasses
 
     import torch
@@ -1622,14 +1744,14 @@ def capacity_steps():
                     f"{[g.total_rows for g in model_groups(cfg)]}), bf16 stores of {stores} B "
                     f"drawn on the card in {init_s:.2f} s (peak {peak} B above what was "
                     f"allocated before); one step each with SR off and on launched {want}")
-    return steps
+    return steps, (cfg, opt, params, state, batch)
 
 
 def capacity_throughput(steps):
     """Phase n: the capacity steps, CUDA-event timed, in turns."""
     for name, ts in time_in_turns(steps, check_loss).items():
         ms = statistics.mean(ts)
-        say("throughput", f"capacity train step (Terabyte-MLPerf <=10M rows, bf16 stores and "
+        say("throughput", f"capacity train step (eager; Terabyte-MLPerf <=10M rows, bf16 stores and "
                           f"compute, rwsadagrad, sparse-update pallas), {name}: {ms:.4f} "
                           f"ms/step ({BATCH / ms * 1e3:.0f} examples/s; runs {ts})")
 
@@ -1732,6 +1854,256 @@ def check_k4_train_against_cpu():
         optimizer.PALLAS_MIN_STORE_BYTES, optimizer.ACC_KERNEL_MIN_BYTES = saved
 
 
+# ---------------------------------------------- captured steps (CUDA graphs)
+
+N_CAPTURE = 4        # steps a dispatch in phase r (2 on the B=4096 path)
+N_DISPATCH = 16      # steps a dispatch in phases s and t
+LR_WARMUP = 100      # phase r's LR policy warms up past its last step: every step has its own lr
+
+
+def leaves(tree):
+    """The tensors of a params or optimizer-state tree, in a fixed order."""
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from leaves(tree[k])
+    elif isinstance(tree, (list, tuple)):
+        for t in tree:
+            yield from leaves(t)
+
+
+def clone_tree(tree):
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().clone()
+    if isinstance(tree, dict):
+        return {k: clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(clone_tree(v) for v in tree)
+    return tree
+
+
+def drawn_batches(cfg, n, seed, batch=BATCH, lookups=1):
+    """n batches drawn on the card (--data-generation random-device's draws)."""
+    from dlrm_yx_tpu_torch.data.synthetic import make_device_random_batches
+
+    return list(make_device_random_batches(cfg.emb_rows, cfg.ln_bot[0], batch, n, lookups,
+                                           seed=seed, device="cuda"))
+
+
+def counted(run):
+    """(run(), the launches each kernel wrapper counted during it)."""
+    counters = launch_counters()
+    before = {n: c.launches for n, c in counters.items()}
+    out = run()
+    return out, {n: c.launches - before[n] for n, c in counters.items()}
+
+
+def capture_parity(what, cfg, opt, n_steps, params, state, seed, batch=BATCH, lookups=1,
+                   accum=0):
+    """Phase r, one path: three dispatches of ``n_steps`` steps (or, with
+    ``accum``, three accumulated steps of ``accum`` micro-batches) through
+    the captured step (the first runs eagerly as the warm-up, the second is
+    captured and replayed, the third replayed), against the same steps run
+    eagerly from a clone of the params and optimizer state (the eager step
+    takes a float lr and an int seed), each on its own batch, with an LR
+    policy that warms up over all of them. Losses, every store, accumulator
+    and MLP tensor must be equal bit for bit, and the launches equal."""
+    import torch
+
+    from dlrm_yx_tpu_torch.data.batch import stack_batches
+    from dlrm_yx_tpu_torch.optim.lr_policy import LRPolicy
+    from dlrm_yx_tpu_torch.train.train_step import (
+        make_accum_train_step,
+        make_multistep_train_step,
+        make_train_step,
+    )
+
+    lr_fn = LRPolicy(base_lr=opt.lr, num_warmup_steps=LR_WARMUP)
+    per = accum or n_steps
+    batches = drawn_batches(cfg, 3 * per, seed, batch, lookups)
+    groups = [stack_batches(batches[j * per:(j + 1) * per]) for j in range(3)]
+    eager_p, eager_s = clone_tree(params), clone_tree(state)
+    if accum:
+        eager = make_accum_train_step(cfg, opt, accum, lr_fn, capture=False)
+        captured = make_accum_train_step(cfg, opt, accum, lr_fn)
+        want, eager_launches = counted(lambda: torch.stack(
+            [eager(eager_p, eager_s, g, j)[2] for j, g in enumerate(groups)]))
+        got, replay_launches = counted(lambda: torch.stack(
+            [captured(params, state, g, j)[2] for j, g in enumerate(groups)]))
+    else:
+        eager = make_train_step(cfg, opt, lr_fn)
+        captured = make_multistep_train_step(cfg, opt, n_steps, lr_fn)
+        want, eager_launches = counted(lambda: torch.stack(
+            [eager(eager_p, eager_s, b, i)[2] for i, b in enumerate(batches)]))
+        got, replay_launches = counted(lambda: torch.cat(
+            [captured(params, state, g, j * n_steps)[2] for j, g in enumerate(groups)]))
+    torch.cuda.synchronize()
+    replays = captured.graph_step.replays()
+    pairs = [("losses", want, got)] + [
+        (f"tensor {i}", a, b)
+        for i, (a, b) in enumerate(zip(leaves((eager_p, eager_s)), leaves((params, state))))]
+    differ = [name for name, a, b in pairs if not torch.equal(bits(a), bits(b))]
+    n_elems = sum(a.numel() for _, a, _ in pairs)
+    del eager_p, eager_s, batches, groups
+    torch.cuda.empty_cache()
+    if differ or replay_launches != eager_launches or replays < 2:
+        fail(f"capture parity, {what}: {len(differ)} of {len(pairs)} tensors differ from the "
+             f"eager steps ({differ[:5]}), launches {replay_launches} against the eager "
+             f"{eager_launches}, {replays} replays (want 2 or more)")
+    ran = {k: v for k, v in replay_launches.items() if v}
+    say("capture", f"{what}: {'3 accumulated steps of ' + str(accum) + ' micro-batches' if accum else '3 dispatches of ' + str(n_steps) + ' steps'} "
+                   f"(eager warm-up, capture + replay, replay: {replays} replays), lr "
+                   f"{lr_fn(0):.6g} .. {lr_fn(3 * per - 1):.6g}: losses "
+                   f"{[round(v, 6) for v in got.tolist()]}; all {len(pairs)} tensors "
+                   f"({n_elems} elements: losses, stores, accumulators, MLPs) equal to the "
+                   f"eager steps' bit for bit; launches {ran}, as eager")
+
+
+def eval_capture_parity(cfg, params):
+    """Phase r, the eval step: 4 batches through the captured step (warm-up,
+    capture + replay, 2 replays) against the eager step: predictions and
+    loss bit for bit."""
+    import torch
+
+    from dlrm_yx_tpu_torch.train.train_step import make_eval_step
+
+    eager, captured = make_eval_step(cfg, capture=False), make_eval_step(cfg)
+    batches = drawn_batches(cfg, 4, seed=31)
+    (want, got), (eager_launches, replay_launches) = zip(*(
+        counted(lambda: [torch.cat([p.reshape(-1), l.reshape(-1)]) for p, l in
+                         (step(params, b) for b in batches)])
+        for step in (eager, captured)))
+    replays = captured.graph_step.replays()
+    differ = [i for i, (a, b) in enumerate(zip(want, got)) if not torch.equal(bits(a), bits(b))]
+    if differ or replay_launches != eager_launches or replays < 2:
+        fail(f"capture parity, eval step: batches {differ} differ, launches {replay_launches} "
+             f"against {eager_launches}, {replays} replays")
+    say("capture", f"eval step, 26 tables <=1M rows x 128, B={BATCH}, bf16, pallas "
+                   f"interaction: 4 batches ({replays} replays): predictions and losses equal "
+                   f"to the eager step's bit for bit; launches "
+                   f"{ {k: v for k, v in replay_launches.items() if v} }, as eager")
+
+
+def check_capture(rows):
+    """Phase r: every captured path against its eager steps on the card,
+    bit for bit, with deterministic algorithms on: index_add_ (the
+    scatters of the momenta and of the dense branch) adds a row's
+    duplicates with atomics in no fixed order otherwise, so two eager runs
+    could already differ."""
+    import dataclasses
+
+    import torch
+
+    from dlrm_yx_tpu_torch.config import DLRMConfig
+    from dlrm_yx_tpu_torch.models.dlrm import init_dlrm_on_device, model_groups
+    from dlrm_yx_tpu_torch.optim.optimizer import (
+        OptConfig,
+        init_opt_state,
+        uniform_stream_density,
+    )
+
+    t0 = time.perf_counter()
+    torch.use_deterministic_algorithms(True)
+    try:
+        base = DLRMConfig.build(
+            emb_rows=rows, ln_bot=(13, 512, 256, 128), ln_top=(1024, 1024, 512, 256, 1),
+            loss="bce", compute_dtype="bfloat16", sparse_update_impl="pallas",
+            interaction_impl="pallas")
+        base = dataclasses.replace(base, dup_density_hint=uniform_stream_density(
+            base.emb_rows, base.emb_split_threshold, BATCH))
+        rws = OptConfig("rwsadagrad", LR)
+        params = init_dlrm_on_device(base, seed=5)
+        state = init_opt_state(rws, params, model_groups(base))
+        capture_parity(f"L=1 train, 26 tables <=1M rows x 128 f32, B={BATCH}, bf16 compute, "
+                       "rwsadagrad, sparse-update pallas, pallas interaction (K1, K2, K3)",
+                       base, rws, N_CAPTURE, params, state, seed=32)
+        eval_capture_parity(base, params)
+        capture_parity(f"L=1 gradient accumulation, the same model (K1, K4 on the f32 store, "
+                       "K3)", base, rws, 0, params, state, seed=33, accum=2)
+        del params, state
+        torch.cuda.empty_cache()
+        sr = dataclasses.replace(base, emb_dtype="bfloat16", stochastic_rounding=True)
+        params = init_dlrm_on_device(sr, seed=5)
+        state = init_opt_state(rws, params, model_groups(sr))
+        capture_parity("L=1 train on bf16 stores with stochastic rounding (K1, K4 with SR, K3; "
+                       "a seed frozen at its captured steps would round other bits than the "
+                       "eager steps' own seeds)", sr, rws, N_CAPTURE, params, state, seed=34)
+        del params, state
+        torch.cuda.empty_cache()
+        bench = benchmark_config()
+        sgd = OptConfig("sgd", 0.1)
+        params = init_dlrm_on_device(bench, seed=5)
+        capture_parity(f"L={L100} benchmark train, 8 x 1M x 64, B={BATCH}, bf16, sgd, "
+                       "sparse-update pallas (K5)", bench, sgd, N_CAPTURE, params, {}, seed=35,
+                       lookups=L100)
+        del params
+        torch.cuda.empty_cache()
+        stream = dataclasses.replace(bench, sparse_update_impl="stream")
+        params = init_dlrm_on_device(stream, seed=5)
+        state = init_opt_state(rws, params, model_groups(stream))
+        capture_parity(f"L={L100}, B={BIG_BATCH}, rwsadagrad, sparse-update stream (K6)",
+                       stream, rws, 2, params, state, seed=36, batch=BIG_BATCH, lookups=L100)
+        del params, state
+        torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    say("capture", f"phase r at full width in {time.perf_counter() - t0:.1f} s")
+
+
+def captured_throughput(what, cfg, opt, params, state, batch, eager_fn):
+    """Phase s: the captured train step at N=1 and N=16 steps a dispatch
+    against the eager step, CUDA-event timed in turns; the dispatch copies
+    its batch (the same one, stacked N deep) into its graph's inputs and
+    its lrs and seeds from pinned memory every call. Returns the N=16
+    dispatch as a function of nothing."""
+    from dlrm_yx_tpu_torch.data.batch import stack_batches
+    from dlrm_yx_tpu_torch.train.train_step import make_multistep_train_step
+
+    fns, per_call = {"eager": eager_fn}, {"eager": 1}
+    for n in (1, N_DISPATCH):
+        step = make_multistep_train_step(cfg, opt, n)
+        fns[f"captured N={n}"] = train_step_fn(step, params, state, stack_batches([batch] * n))
+        per_call[f"captured N={n}"] = n
+    times = time_in_turns(fns, check_loss)
+    report_throughput(what, times, per_call)
+    return fns[f"captured N={N_DISPATCH}"]
+
+
+def report_throughput(what, times, per_call):
+    eager_ms = statistics.mean(times["eager"])
+    for name, ts in times.items():
+        ms = statistics.mean(ts) / per_call[name]
+        say("throughput", f"{what}, {name}: {ms:.4f} ms/step ({BATCH / ms * 1e3:.0f} "
+                          f"examples/s; {eager_ms / ms:.2f}x eager; ms a call {ts})")
+
+
+def captured_eval_throughput(cfg, params, batch, eager_fn):
+    """Phase s, the eval step: one batch a replay (neither package has a
+    multi-batch eval dispatch) against the eager step, in turns."""
+    import math
+
+    import torch
+
+    from dlrm_yx_tpu_torch.train.train_step import make_eval_step
+
+    step = make_eval_step(cfg)
+
+    def check(name, out):
+        preds, loss = out
+        if not math.isfinite(loss.item()) or not torch.isfinite(preds).all():
+            fail(f"eval step ({name}) gave non-finite output")
+
+    fns = {"eager": eager_fn, "captured": lambda: step(params, batch)}
+    report_throughput(f"eval step, 26 tables <=1M rows x 128, B={BATCH}, bf16, pallas "
+                      "interaction", time_in_turns(fns, check), {"eager": 1, "captured": 1})
+    return fns["captured"]
+
+
 def main():
     import re
 
@@ -1793,37 +2165,68 @@ def main():
     check_stream_train_against_cpu()
     check_k4_train_against_cpu()
 
-    # 6, d, j, n. serving and training throughput, then 7, e, k, p. where
-    # their device time goes: every timing runs before the first profiler
-    # session, whose tracing can linger and slow the host's launches
-    step, params, batch = serving_throughput(rows)
-    steps, tparams, state, tbatch, hint = full_train_step(rows)
+    # r. every captured path against its eager steps, bit for bit
+    check_capture(rows)
+
+    # 6, d, j, n. eager serving and training throughput, s. the captured
+    # steps against them, then 7, e, k, p, t. where their device time goes:
+    # every timing runs before the first profiler session, whose tracing can
+    # linger and slow the host's launches
+    step, serve_cfg, params, batch = serving_throughput(rows)
+    steps, tparams, state, tbatch, hint, train_cfg, train_opt = full_train_step(rows)
     train_throughput(steps, tparams, state, tbatch, hint)
-    l100_steps = l100_train_steps()
+    l100_steps, l100_parts = l100_train_steps()
     l100_throughput(l100_steps)
-    cap_steps = capacity_steps()
+    cap_steps, cap_parts = capacity_steps()
     capacity_throughput(cap_steps)
-    profile_step(lambda: step(params, batch), "serving",
+    captured = {
+        "eval": (captured_eval_throughput(serve_cfg, params, batch, lambda: step(params, batch)),
+                 1),
+        "L=1 train": (captured_throughput(
+            f"L=1 train step (rwsadagrad, bf16, sparse-update pallas, density hint {hint:.4f}, "
+            "pallas interaction)", train_cfg, train_opt, tparams, state, tbatch,
+            train_step_fn(steps["pallas"], tparams, state, tbatch)), N_DISPATCH),
+        f"L={L100} train (sgd pallas)": (captured_throughput(
+            f"L={L100} train step, 8 x 1M x 64, B={BATCH}, bf16, sgd pallas", *l100_parts,
+            l100_steps["sgd pallas"]), N_DISPATCH),
+        "capacity train (sr off)": (captured_throughput(
+            "capacity train step (Terabyte-MLPerf <=10M rows, bf16 stores and compute, "
+            "rwsadagrad, sparse-update pallas), sr off", *cap_parts, cap_steps["sr off"]),
+            N_DISPATCH),
+    }
+    profile_step(lambda: step(params, batch), "serving (eager)",
                  ("embedding_lookup", "bottom_mlp", "interaction", "top_mlp"))
     train_phases = ("embedding_lookup", "bottom_mlp", "interaction", "top_mlp",
                     "loss_compute", "backward", "optimizer")
     per_kernel = profile_step(train_step_fn(steps["pallas"], tparams, state, tbatch),
-                              "train (pallas interaction)", train_phases)
+                              "train (eager, pallas interaction)", train_phases)
     for name, pattern in (("K2 sparse_rows_overwrite (row_plan)", "row_plan"),
                           ("K3 rwsadagrad_dense_finish", "dense_finish")):
         ms = sum(v for k, v in per_kernel.items() if pattern in k)
         say("profile", f"  {name} kernels: {ms:.5f} ms/step of device time")
     for name, fn in l100_steps.items():
-        profile_by_kind(profile_step(fn, f"L={L100} train ({name})", train_phases))
-    per_kernel = profile_step(cap_steps["sr off"], "capacity train (sr off)", train_phases)
+        profile_by_kind(profile_step(fn, f"L={L100} train (eager, {name})", train_phases))
+    per_kernel = profile_step(cap_steps["sr off"], "capacity train (eager, sr off)",
+                              train_phases)
     profile_by_kind(per_kernel, CAPACITY_KINDS)
     for name, ms in per_kernel.items():
         if "row_plan" in name:  # K4's kernels, once a step each for the store and the momentum
             say("profile", f"  K4 kernel: {ms:.5f} ms/step {name[:90]}")
+    # t. the captured steps (the host's phase annotations are not replayed)
+    for name, (fn, n) in captured.items():
+        per_kernel = profile_step(fn, f"{name} (captured, {n} step{'s' * (n > 1)} a replay)",
+                                  (), steps=n)
+        if name.startswith(f"L={L100}"):
+            profile_by_kind(per_kernel)
+        elif name.startswith("L=1 "):
+            profile_by_kind(per_kernel, L1_KINDS)
+        elif name.startswith("capacity"):
+            profile_by_kind(per_kernel, CAPACITY_KINDS)
+    del captured
 
     # q. device operations per wrapper call
     count_device_ops(big, cap_big)
-    count_k1_k5_ops(bench_cfg)
+    count_k1_k5_ops(bench_cfg, small)
 
     sources = {
         "fused_interaction": ("dlrm_yx_tpu/ops/pallas_interaction.py:84", k1, launches,

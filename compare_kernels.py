@@ -1,5 +1,5 @@
-"""Times the port's K1, K5 and K6 kernels of one or more checkouts on one
-NVIDIA card, in turns, each against its plain PyTorch version.
+"""Times the port's K1, K3, K4, K5 and K6 kernels of one or more checkouts
+on one NVIDIA card, in turns, each against its plain PyTorch version.
 
     python3 compare_kernels.py [REPO ...]
 
@@ -16,7 +16,16 @@ limit. Cases, at the main path's shapes:
     with one device batch's sorted occurrences (batch 2048, SGD's
     weights), and on the same batch with every weight-0 id sent to its
     table's row 0, as host batches (``--data-generation random``) pad;
-  * K6 on the same store with a batch-4096 device batch's update rows.
+  * K6 on the same store with a batch-4096 device batch's update rows;
+  * K3 on the Terabyte-MLPerf small group's store [121,232, 128] (f32 and
+    bf16) with one batch's coalesced gradient;
+  * K4 on the capacity config's bf16 store [53,942,848, 128] with one
+    batch's 16,384 ids, SR off and on (held to its plain version bit for
+    bit; the plain version syncs, so only the kernel is timed).
+
+A checkout whose K3 reads its lr, and K4 its SR step, from device memory
+gets them as device scalars, as its train step passes them; an older one
+gets a float and an int, as its train step passed them.
 
 Times are CUDA-graph replays of ``REPS`` wrapper calls, median of
 ``SAMPLES`` replays, CUDA events. Needs a card; exits 1 without one.
@@ -29,7 +38,7 @@ import subprocess
 import sys
 
 REPS, SAMPLES = 5, 15
-TOL = {"K1": 1e-5, "K5": 1e-6, "K6": 1e-6}  # max |kernel - plain| / max |plain|
+TOL = {"K1": 1e-5, "K3": 1e-6, "K5": 1e-6, "K6": 1e-6}  # max |kernel - plain| / max |plain|
 
 
 def device_time_ms(fn):
@@ -56,6 +65,7 @@ def device_time_ms(fn):
 
 
 def rel_err(got, want):
+    got, want = got.float(), want.float()
     return ((got - want).abs().max() / want.abs().max()).item()
 
 
@@ -130,8 +140,67 @@ def run_one(repo):
     upd = torch.randn(pos.numel(), 64, device="cuda", generator=gen) * 1e-2
     case("K6 batch 4096", lambda s: sorted_stream_add(s, pos, upd),
          lambda s: sorted_stream_add_reference(s, pos, upd), store.clone, TOL["K6"])
+    del store, upd, pos, b
+    torch.cuda.empty_cache()
+    row_update_cases(repo, cases, case, gen)
     print(json.dumps({"repo": repo, "device": torch.cuda.get_device_name(0), "cases": cases}),
           flush=True)
+
+
+def uniform_ids(group, gen, batch=2048):
+    """One batch's global row ids of a group [tables x batch], int32."""
+    import torch
+
+    offs = torch.tensor(group.row_offsets, device="cuda")[:, None]
+    n = torch.tensor(group.rows, device="cuda", dtype=torch.float64)[:, None]
+    u = torch.rand(group.num_tables, batch, device="cuda", dtype=torch.float64, generator=gen)
+    return (offs + (u * n).long()).reshape(-1).int()
+
+
+def row_update_cases(repo, cases, case, gen):
+    """K3 and K4, each called as this checkout's train step calls it."""
+    import torch
+
+    import dlrm_yx_tpu_torch.ops.dense_finish as dense_finish
+    import dlrm_yx_tpu_torch.ops.sparse_rows_add as rows_add
+    from dlrm_yx_tpu_torch.config import DLRMConfig
+    from dlrm_yx_tpu_torch.models.dlrm import model_groups
+    from dlrm_yx_tpu_torch.optim.optimizer import acc_len
+
+    on_device = hasattr(dense_finish, "device_lr")
+    small, _ = model_groups(DLRMConfig.terabyte_mlperf(max_ind_range=1_000_000))
+    r, d = small.total_rows, small.dim
+    g = torch.zeros(r, d, device="cuda")
+    ids = uniform_ids(small, gen).long()
+    g.index_add_(0, ids, torch.randn(ids.numel(), d, device="cuda", generator=gen))
+    acc = torch.rand(acc_len(r), device="cuda", generator=gen)
+    lr = torch.full((), 0.01, device="cuda") if on_device else 0.01
+    for dtype in (torch.float32, torch.bfloat16):
+        store = (torch.rand(r, d, device="cuda", generator=gen) - 0.5).to(dtype)
+        case(f"K3 {str(dtype)[6:]}",
+             lambda sa: dense_finish.rwsadagrad_dense_finish(sa[0], sa[1], g, lr, d, 1e-10)[0],
+             lambda sa: dense_finish.rwsadagrad_dense_finish_reference(
+                 sa[0], sa[1], g, 0.01, d, 1e-10)[0],
+             # bf16: the two sum g * g in other orders, and may round one ulp apart
+             lambda: (store.clone(), acc.clone()), TOL["K3"] if dtype == torch.float32 else 8e-3)
+    del g, acc, store
+    _, big = model_groups(DLRMConfig.terabyte_mlperf(max_ind_range=10_000_000))
+    store = torch.empty(big.total_rows, big.dim, dtype=torch.bfloat16, device="cuda").uniform_(
+        -0.5, 0.5, generator=gen)
+    ids = uniform_ids(big, gen)
+    upd = torch.randn(ids.numel(), big.dim, device="cuda", generator=gen) * 1e-2
+    active = torch.ones(ids.numel(), dtype=torch.int32, device="cuda")
+    seed = torch.full((), 7, dtype=torch.int64, device="cuda") if on_device else 7
+    for sr in (False, True):
+        got = rows_add.sparse_rows_add(store.clone(), ids, upd, active, sr, seed)
+        want = rows_add.sparse_rows_add_reference(store.clone(), ids, upd, active, sr, 7)
+        equal = torch.equal(got.view(torch.int16), want.view(torch.int16))
+        del got, want
+        if not equal:
+            raise SystemExit(f"{repo} K4 SR={sr}: the kernel and its plain version differ")
+        cases[f"K4 capacity bf16{', SR' if sr else ''}"] = {
+            "bit_equal": equal, "ms": device_time_ms(
+                lambda: rows_add.sparse_rows_add(store, ids, upd, active, sr, seed))}
 
 
 def main():

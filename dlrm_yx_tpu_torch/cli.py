@@ -10,7 +10,10 @@ ignored. ``--print-time`` and the reference-compat flags of
 The reference's L=100 throughput benchmark
 (``bench/dlrm_tpu_benchmark.sh``) runs with ``dlrm_yx_tpu.cli`` replaced by
 ``dlrm_yx_tpu_torch.cli``. bf16 table storage (``--emb-dtype bfloat16``)
-takes ``--stochastic-rounding``.
+takes ``--stochastic-rounding``. On the card every train and eval step runs
+as a replay of a CUDA graph, ``--steps-per-dispatch`` steps a replay (0 =
+auto), with batches staged by a prefetch thread ``--prefetch-depth`` deep;
+``--mlperf-grad-accum-iter`` accumulates gradients over micro-batches.
 
     python -m dlrm_yx_tpu_torch.cli \
         --arch-embedding-size 1000-1000 --arch-sparse-feature-size 128 \
@@ -55,9 +58,9 @@ UNPORTED_FLAGS = (
     "sharder", "allocation", "debug-mode",
     "enable-profiling", "profile-out-dir", "plot-compute-graph",
     "tensor-board-filename", "save-model", "load-model", "ckpt-backend",
-    "save-onnx", "mlperf-grad-accum-iter", "quantize-mlp-with-bit",
-    "quantize-emb-with-bit", "collect-execution-graph", "steps-per-dispatch",
-    "prefetch-depth", "test-mini-batch-size", "print-wall-time",
+    "save-onnx", "quantize-mlp-with-bit",
+    "quantize-emb-with-bit", "collect-execution-graph",
+    "test-mini-batch-size", "print-wall-time",
 )
 
 
@@ -168,6 +171,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mlperf-logging", action="store_true", default=False)
     p.add_argument("--mlperf-acc-threshold", type=float, default=0.0)
     p.add_argument("--mlperf-auc-threshold", type=float, default=0.0)
+    p.add_argument("--mlperf-grad-accum-iter", type=int, default=1,
+                   help="micro-batches per optimizer step (gradient accumulation; "
+                        "turns multi-step dispatch off)")
+    # dispatch: on the card each dispatch is one CUDA-graph replay
+    p.add_argument("--steps-per-dispatch", type=int, default=0,
+                   help="full optimizer steps a dispatch, one CUDA-graph replay on the "
+                        "card (0 = auto: largest of 16/8/4/2 dividing print/test freq)")
+    p.add_argument("--prefetch-depth", type=int, default=2,
+                   help="host->device staging queue depth (0 = synchronous)")
     add_noop_flags(p)
     for flag in UNPORTED_FLAGS:
         p.add_argument(f"--{flag}", nargs="?", const=True, default=None,
@@ -281,6 +293,9 @@ def main(argv=None):
         mlperf_acc_threshold=args.mlperf_acc_threshold,
         mlperf_auc_threshold=args.mlperf_auc_threshold,
         seed=args.numpy_rand_seed,
+        grad_accum_iter=args.mlperf_grad_accum_iter,
+        steps_per_dispatch=args.steps_per_dispatch,
+        prefetch_depth=args.prefetch_depth,
     )
     train, test = make_data(args, cfg, train=not args.inference_only)
     if cfg.sparse_update_impl in ("pallas", "stream") and cfg.dup_density_hint <= 0:

@@ -170,6 +170,13 @@ __device__ __forceinline__ unsigned fmix32(unsigned h) {
   return h;
 }
 
+// The seed's part of the SR hash, step * 0x9E3779B9 (mod 2^32), with the
+// step read from the device, so that a CUDA-graph replay rounds with the
+// step it is given and not the captured one; 0 without a step.
+__device__ __forceinline__ unsigned seed_of(const long long* step) {
+  return step == nullptr ? 0u : static_cast<unsigned>(*step) * 0x9E3779B9u;
+}
+
 // x rounded to the store type S, as f32: bf16 to nearest even or, when
 // stochastic, u = bits(x) + (fmix32(salt) & 0xFFFF) with the low 16 bits
 // of u dropped. salt = seed ^ (k * dim + element).
@@ -416,9 +423,12 @@ __device__ __forceinline__ void clear_slots(const u64* keys, int D, const Scratc
 template <int V, int G, class S>
 __global__ void __launch_bounds__(kTailThreads)
 tail_kernel(S* __restrict__ store, const float* __restrict__ upd, int nv, int dim, bool sr,
-            unsigned seed, Scratch s, long long smem_bytes) {
+            const long long* step, Scratch s, long long smem_bytes) {
   extern __shared__ __align__(16) unsigned char smem[];
   u64* sk = reinterpret_cast<u64*>(smem);
+  // the step was written before the plan kernel began, so it is read
+  // while the grid waits for its predecessor
+  const unsigned seed = sr ? seed_of(step) : 0u;
   wait_for_predecessor();
   const int D = s.ctr[0];
   if (D <= kRankKeys) {  // keys are distinct (k is): each one's rank is its place
@@ -466,8 +476,9 @@ inline long long tail_smem_bytes(long long K) {
 
 // Apply: G lanes per item. Unique::prefetch<V, G>(store, row, k, gl, nv)
 // asks L2 for the item's rows; Unique::apply<V, G>(store, row, k, flag, gl,
-// nv) applies an item whose row occurs once (every lane of the group calls
-// both); the items of duplicated rows are listed for the tail.
+// nv, seed) applies an item whose row occurs once (every lane of the group
+// calls both), with seed = Unique::seed(), read before the grid waits for
+// its predecessor; the items of duplicated rows are listed for the tail.
 template <int V, int G, class S, class Unique>
 __global__ void __launch_bounds__(kThreads)
 apply_kernel(S* __restrict__ store, long long K, int nv, Scratch s, Unique unique) {
@@ -476,6 +487,7 @@ apply_kernel(S* __restrict__ store, long long K, int nv, Scratch s, Unique uniqu
   const int lane = threadIdx.x % 32;
   const unsigned gmask =
       G == 32 ? 0xffffffffu : ((1u << (G % 32)) - 1u) << (lane & ~(G - 1));
+  const unsigned seed = unique.seed();  // written before the plan kernel began
   wait_for_predecessor();
   const int2 plan = k < K ? s.item[k] : make_int2(0, -1);
   const int row = plan.x, slot = plan.y >> 1, flag = plan.y & 1;
@@ -485,7 +497,7 @@ apply_kernel(S* __restrict__ store, long long K, int nv, Scratch s, Unique uniqu
     if (gl == 0) n = static_cast<int>(s.table[slot] & 0xffffffffull);
     n = __shfl_sync(gmask, n, 0, G);
     if (n == 1) {
-      unique.template apply<V, G>(store, row, k, flag, gl, nv);
+      unique.template apply<V, G>(store, row, k, flag, gl, nv, seed);
       if (gl == 0) s.table[slot] = 0;  // no other item reads this slot
     }
   }
@@ -524,12 +536,13 @@ cudaError_t launch_after(void (*kernel)(Params...), unsigned blocks, int threads
 
 // Launches the plan, apply and tail kernels for K items (ids int32, or int64
 // when idx64) on `stream` on device `device`; active ids are clipped to
-// [0, hi]; K < 2^26 (the table's slot ids). Returns the first launch
+// [0, hi]; K < 2^26 (the table's slot ids); with sr, the tail reads the
+// SR step from the device at `step` (seed_of). Returns the first launch
 // error, or cudaGetLastError(): 0 on success.
 template <bool kFlags, class S, class Unique>
 int launch(S* store, const void* idx, int idx64, const int* active, const float* dup_upd,
            void* scratch, long long K, long long hi, int unit, int dim, bool sr,
-           unsigned seed, int device, cudaStream_t stream, Unique unique) {
+           const long long* step, int device, cudaStream_t stream, Unique unique) {
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (K == 0 || dim == 0) return 0;
@@ -562,7 +575,7 @@ int launch(S* store, const void* idx, int idx64, const int* active, const float*
     }
     if (e == cudaSuccess) {
       e = launch_after(tail_kernel<V, G, S>, 1, kTailThreads, static_cast<size_t>(smem), stream,
-                       store, dup_upd, nv, dim, sr, seed, s, smem);
+                       store, dup_upd, nv, dim, sr, step, s, smem);
     }
     if (launch_err == cudaSuccess) launch_err = e;
   };

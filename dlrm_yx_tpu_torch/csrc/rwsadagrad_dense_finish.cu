@@ -12,7 +12,9 @@
 // computed in f32 (a bf16 store is widened, and rounded to nearest even at
 // write-back). Entries of acc past R are not touched. A row whose gradient
 // is all zero is left as it is, store and acc, without being read: its
-// update is exactly a no-op.
+// update is exactly a no-op. lr is read from device memory, so that a
+// CUDA-graph replay applies the lr of its step (an LR schedule) and not the
+// one it was captured with.
 //
 // Bound on an H100 SXM: memory. At the training shape (the small-table
 // group, R = 121,232 rows of 128 f32) the gradient must be read whole
@@ -80,7 +82,7 @@ template <typename T, bool kVec>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 dense_finish_kernel(T* __restrict__ store, float* __restrict__ acc,
                     const float* __restrict__ g, long long R, int dim,
-                    float lr, float eps) {
+                    const float* __restrict__ lr_at, float eps) {
   const long long r =
       static_cast<long long>(blockIdx.x) * kWarpsPerBlock + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -111,6 +113,7 @@ dense_finish_kernel(T* __restrict__ store, float* __restrict__ acc,
     sq += __shfl_xor_sync(0xffffffffu, sq, off);
   const float a = acc[r] + sq / static_cast<float>(dim);
   const float denom = sqrtf(a) + eps;
+  const float lr = *lr_at;
   if (lane == 0) acc[r] = a;
   if (kVec) {
     for (int c = 4 * lane; c < dim; c += 128) {
@@ -130,7 +133,7 @@ dense_finish_kernel(T* __restrict__ store, float* __restrict__ acc,
 
 template <typename T>
 cudaError_t launch(T* store, float* acc, const float* g, long long R, int dim,
-                   float lr, float eps, cudaStream_t stream) {
+                   const float* lr, float eps, cudaStream_t stream) {
   const long long blocks = (R + kWarpsPerBlock - 1) / kWarpsPerBlock;
   if (dim % 4 == 0)
     dense_finish_kernel<T, true><<<static_cast<unsigned>(blocks),
@@ -148,10 +151,11 @@ cudaError_t launch(T* store, float* acc, const float* g, long long R, int dim,
 // Launches the kernel on `stream` (a cudaStream_t) on device `device` and
 // returns cudaGetLastError(): 0 on success. store [R, dim] (f32, or bf16
 // when store_bf16) and g [R, dim] f32 are contiguous; acc holds at least R
-// floats; with dim % 4 == 0 the bases are 16-byte aligned.
+// floats; with dim % 4 == 0 the bases are 16-byte aligned; lr points to one
+// f32 on the device.
 extern "C" int rwsadagrad_dense_finish(void* store, int store_bf16, float* acc,
                                        const float* g, long long R, int dim,
-                                       float lr, float eps, int device,
+                                       const float* lr, float eps, int device,
                                        void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);

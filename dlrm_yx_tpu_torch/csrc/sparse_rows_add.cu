@@ -11,9 +11,10 @@
 // round is the store's type: nothing for f32; for bf16 nearest even, or,
 // with stochastic rounding on an occurrence of the JAX kernel's main pass,
 // u = bits(v) + (r & 0xFFFF) with the low 16 bits of u dropped. r is
-// murmur3's fmix32 of seed ^ (k * dim + element), where the wrapper passes
-// seed = step * 0x9E3779B9 (32-bit); the plain version in
-// ops/sparse_rows_add.py draws the same bits.
+// murmur3's fmix32 of seed ^ (k * dim + element), where seed = step *
+// 0x9E3779B9 (32-bit) and the kernels read the step (an int64) from device
+// memory, so that a CUDA-graph replay rounds with the step of its dispatch;
+// the plain version in ops/sparse_rows_add.py draws the same bits.
 //
 // Order: a row's occurrences land as the JAX kernel applies them, its
 // unflagged ones (the main pass) in ascending k and then its flagged ones
@@ -53,7 +54,9 @@ struct RoundedRowAdd {
   const float* __restrict__ upd;
   int dim;
   bool sr;
-  unsigned seed;
+  const long long* step;  // the SR step, on the device (read only when sr)
+
+  __device__ __forceinline__ unsigned seed() const { return sr ? row_plan::seed_of(step) : 0u; }
 
   template <int V, int G, class S>
   __device__ __forceinline__ void prefetch(const S* store, int row, long long k, int gl,
@@ -68,7 +71,7 @@ struct RoundedRowAdd {
 
   template <int V, int G, class S>
   __device__ __forceinline__ void apply(S* __restrict__ store, int row, long long k, int flag,
-                                        int gl, int nv) const {
+                                        int gl, int nv, unsigned seed) const {
     using RV = RowVec<S, V>;
     typename RV::Raw* dst = reinterpret_cast<typename RV::Raw*>(store) +
                             static_cast<long long>(row) * nv;
@@ -83,11 +86,11 @@ struct RoundedRowAdd {
 
 template <class S>
 int launch(S* store, const void* idx, int idx64, const int* active, const float* upd,
-           void* scratch, long long R, long long K, int dim, int unit, bool sr, unsigned seed,
-           int device, cudaStream_t stream) {
+           void* scratch, long long R, long long K, int dim, int unit, bool sr,
+           const long long* step, int device, cudaStream_t stream) {
   return row_plan::launch<true>(store, idx, idx64, active, upd, scratch, K, R - 1 - unit, unit,
-                                dim, sr, seed, device, stream,
-                                RoundedRowAdd{upd, dim, sr, seed});
+                                dim, sr, step, device, stream,
+                                RoundedRowAdd{upd, dim, sr, step});
 }
 
 }  // namespace
@@ -104,16 +107,18 @@ extern "C" long long sparse_rows_add_scratch_bytes(long long K) {
 // [K] int32; upd [K, dim] contiguous f32 (16-byte aligned rows and an
 // aligned store when dim % 4 == 0); scratch: sparse_rows_add_scratch_bytes(K)
 // bytes, zero before the first call, which every call leaves zero.
-// Stochastic rounding applies to a bf16 store only.
+// Stochastic rounding applies to a bf16 store only, with the step read
+// from `step` (one int64 on the device; unread, and may be null, without
+// SR).
 extern "C" int sparse_rows_add(void* store, int bf16, const void* idx, int idx64,
                                const int* active, const float* upd, void* scratch, long long R,
-                               long long K, int dim, int unit, int stochastic, unsigned seed,
-                               int device, void* stream) {
+                               long long K, int dim, int unit, int stochastic,
+                               const long long* step, int device, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   if (bf16) {
     return launch(static_cast<__nv_bfloat16*>(store), idx, idx64, active, upd, scratch, R, K,
-                  dim, unit, stochastic != 0, seed, device, s);
+                  dim, unit, stochastic != 0, step, device, s);
   }
   return launch(static_cast<float*>(store), idx, idx64, active, upd, scratch, R, K, dim, unit,
-                false, seed, device, s);
+                false, nullptr, device, s);
 }

@@ -37,6 +37,8 @@ constexpr int kClipMargin = 8;  // active ids are clipped to R - 1 - kClipMargin
 struct CopyNewVals {
   const float* __restrict__ new_vals;
 
+  __device__ __forceinline__ unsigned seed() const { return 0u; }
+
   template <int V, int G, class S>
   __device__ __forceinline__ void prefetch(const S*, int, long long k, int gl, int nv) const {
     using Raw = typename row_plan::RowVec<float, V>::Raw;
@@ -45,7 +47,7 @@ struct CopyNewVals {
 
   template <int V, int G, class S>
   __device__ __forceinline__ void apply(S* __restrict__ store, int row, long long k, int,
-                                        int gl, int nv) const {
+                                        int gl, int nv, unsigned) const {
     using Raw = typename row_plan::RowVec<float, V>::Raw;
     Raw* dst = reinterpret_cast<Raw*>(store) + static_cast<long long>(row) * nv;
     const Raw* src = reinterpret_cast<const Raw*>(new_vals) + k * nv;
@@ -71,6 +73,6 @@ extern "C" int sparse_rows_overwrite(float* store, const void* idx, int idx64,
                                      const float* delta, void* scratch, long long R,
                                      long long K, int W, int device, void* stream) {
   return row_plan::launch<false>(store, idx, idx64, active, delta, scratch, K,
-                                 R - 1 - kClipMargin, 1, W, false, 0u, device,
+                                 R - 1 - kClipMargin, 1, W, false, nullptr, device,
                                  static_cast<cudaStream_t>(stream), CopyNewVals{new_vals});
 }

@@ -9,6 +9,15 @@ A numpy copy of ``dlrm_yx_tpu/data/batch.py``:
 
 L is the max pooling length (num_indices_per_lookup); Criteo has L = 1.
 The fields hold numpy arrays on the host and torch tensors on the device.
+
+A multi-step dispatch or an accumulation step takes n batches stacked on a
+new leading axis (``stack_batches``: the JAX trainer's ``dispatch_stream``
+and ``_group_microbatches`` stacking). A step captured in a CUDA graph reads
+its batch from static device buffers (``empty_like_batch``) that
+``copy_batch`` refills before each replay: host arrays through pinned
+memory with a non-blocking copy, device tensors device to device.
+``stage_batch`` starts a host batch's copy to the card on a side stream
+(the trainer's prefetch thread). ``to_device`` serves the eager path.
 """
 
 from __future__ import annotations
@@ -58,3 +67,64 @@ def csr_to_padded(
 def to_device(batch: Batch, device: torch.device) -> Batch:
     """The batch as tensors on ``device`` (no copy for fields already there)."""
     return Batch(*(torch.as_tensor(a, device=device) for a in batch))
+
+
+def stack_batches(batches: Sequence[Batch]) -> Batch:
+    """n batches stacked on a new leading axis: numpy for host batches,
+    torch tensors (on their device) for device batches."""
+    if isinstance(batches[0].dense, torch.Tensor):
+        return Batch(*(torch.stack([getattr(b, f) for b in batches])
+                       for f in Batch._fields))
+    return Batch(*(np.stack([np.asarray(getattr(b, f)) for b in batches])
+                   for f in Batch._fields))
+
+
+def signature(batch: Batch) -> Tuple:
+    """The fields' shapes: one static buffer set (and one CUDA graph) each."""
+    return tuple(tuple(a.shape) for a in batch)
+
+
+def _torch_dtype(a) -> torch.dtype:
+    if isinstance(a, torch.Tensor):
+        return a.dtype
+    return torch.from_numpy(np.zeros(0, dtype=np.asarray(a).dtype)).dtype
+
+
+def empty_like_batch(batch: Batch, device: torch.device) -> Batch:
+    """Uninitialised tensors on ``device`` with the shapes and types of
+    ``batch``'s fields (host or device)."""
+    return Batch(*(torch.empty(tuple(a.shape), dtype=_torch_dtype(a), device=device)
+                   for a in batch))
+
+
+def _pinned(a) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a)).pin_memory()
+
+
+def copy_batch(dst: Batch, src: Batch) -> None:
+    """Fill device tensors ``dst`` from ``src`` on the current stream: host
+    arrays are pinned and copied without blocking the host, device tensors
+    copied device to device."""
+    for d, a in zip(dst, src):
+        if tuple(d.shape) != tuple(a.shape):
+            raise ValueError(f"batch field of shape {tuple(a.shape)} for a buffer of "
+                             f"{tuple(d.shape)}")
+        if not isinstance(a, torch.Tensor):
+            a = _pinned(a) if d.device.type == "cuda" else torch.from_numpy(np.asarray(a))
+        d.copy_(a, non_blocking=True)
+
+
+def stage_batch(batch: Batch, device: torch.device, stream):
+    """(device batch, event): a host batch pinned and copied to ``device`` on
+    ``stream`` without blocking the host, with an event recorded after the
+    copy; the consumer makes its stream wait for the event before it reads
+    the batch. A batch already on the device is returned as it is, with no
+    event."""
+    if all(isinstance(a, torch.Tensor) and a.device == device for a in batch):
+        return batch, None
+    with torch.cuda.stream(stream):
+        staged = Batch(*(a.to(device, non_blocking=True) if isinstance(a, torch.Tensor)
+                         else _pinned(a).to(device, non_blocking=True) for a in batch))
+        event = torch.cuda.Event()
+        event.record(stream)
+    return staged, event

@@ -18,6 +18,11 @@ The port keeps logical ``[R, dim]`` stores, so the JAX package's packed
 layout (pack logical rows per 128-lane physical row) needs nothing here:
 each logical row is a row.
 
+``lr`` is a Python float or a 0-dim f32 tensor on the store's device. The
+kernel reads it from device memory, so a step captured in a CUDA graph
+takes the lr its replay is given; a float becomes a device scalar by a
+fill on the card, without a host sync.
+
 On a CUDA tensor the wrapper launches ``csrc/rwsadagrad_dense_finish.cu``;
 on a CPU tensor it runs ``rwsadagrad_dense_finish_reference``, the plain
 PyTorch version. There is no fallback from one to the other.
@@ -26,13 +31,14 @@ PyTorch version. There is no fallback from one to the other.
 from __future__ import annotations
 
 import ctypes
+from typing import Union
 
 import torch
 
 from dlrm_yx_tpu_torch.ops import _build
 
 
-def _check(store, acc, dense_g, dim):
+def _check(store, acc, dense_g, dim, lr):
     if store.dim() != 2 or store.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"want a 2-D f32 or bf16 store, got {store.dtype} "
                         f"{tuple(store.shape)}")
@@ -47,11 +53,24 @@ def _check(store, acc, dense_g, dim):
                          f"{tuple(acc.shape)}")
     if len({t.device for t in (store, acc, dense_g)}) != 1:
         raise ValueError("store, acc and dense_g must share a device")
+    if isinstance(lr, torch.Tensor) and (
+            lr.dim() != 0 or lr.dtype != torch.float32 or lr.device != store.device):
+        raise ValueError(f"want lr as a 0-dim f32 tensor on {store.device}, got {lr.dtype} "
+                         f"{tuple(lr.shape)} on {lr.device}")
+
+
+def device_lr(lr: Union[float, torch.Tensor], device: torch.device) -> torch.Tensor:
+    """lr as a 0-dim f32 tensor on ``device``: a tensor as it is (``_check``
+    has checked it), a float by a fill on the device (no host-to-device
+    copy, no sync)."""
+    if isinstance(lr, torch.Tensor):
+        return lr
+    return torch.full((), float(lr), dtype=torch.float32, device=device)
 
 
 def rwsadagrad_dense_finish_reference(
     store: torch.Tensor, acc: torch.Tensor, dense_g: torch.Tensor,
-    lr: float, dim: int, eps: float,
+    lr: Union[float, torch.Tensor], dim: int, eps: float,
 ):
     """Plain PyTorch version, in place; returns (store, acc)."""
     r = store.shape[0]
@@ -64,15 +83,16 @@ def rwsadagrad_dense_finish_reference(
 
 def rwsadagrad_dense_finish(
     store: torch.Tensor, acc: torch.Tensor, dense_g: torch.Tensor,
-    lr: float, dim: int, eps: float,
+    lr: Union[float, torch.Tensor], dim: int, eps: float,
 ):
     """store [R, dim] f32 or bf16, acc [>= R] f32, dense_g [R, dim] f32;
-    updates store and acc in place and returns them.
+    lr a float or a 0-dim f32 tensor on the store's device; updates store
+    and acc in place and returns them.
 
     A CUDA call launches the kernel on the current stream and adds one to
     ``rwsadagrad_dense_finish.launches``; a CPU call runs the plain
     version."""
-    _check(store, acc, dense_g, dim)
+    _check(store, acc, dense_g, dim, lr)
     if store.device.type == "cpu":
         return rwsadagrad_dense_finish_reference(store, acc, dense_g, lr, dim, eps)
     if store.device.type != "cuda":
@@ -81,9 +101,10 @@ def rwsadagrad_dense_finish(
         raise ValueError("store, acc and dense_g must be contiguous")
     if dim % 4 == 0 and (store.data_ptr() % 16 or dense_g.data_ptr() % 16):
         raise ValueError("the kernel's 16-byte loads need 16-byte aligned store and dense_g")
+    lr_t = device_lr(lr, store.device)
     err = _kernel()(
         store.data_ptr(), int(store.dtype == torch.bfloat16), acc.data_ptr(),
-        dense_g.data_ptr(), store.shape[0], dim, float(lr), float(eps),
+        dense_g.data_ptr(), store.shape[0], dim, lr_t.data_ptr(), float(eps),
         store.device.index, torch.cuda.current_stream(store.device).cuda_stream,
     )
     if err:
@@ -99,6 +120,6 @@ def _kernel():
     fn = _build.load("rwsadagrad_dense_finish").rwsadagrad_dense_finish
     if fn.argtypes is None:
         i, p, f = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
-        fn.argtypes = [p, i, p, p, ctypes.c_longlong, i, f, f, i, p]
+        fn.argtypes = [p, i, p, p, ctypes.c_longlong, i, p, f, i, p]
         fn.restype = i
     return fn

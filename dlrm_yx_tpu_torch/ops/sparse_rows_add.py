@@ -30,7 +30,9 @@ occurrences: ``u = bits(v) + (r & 0xFFFF)``, then the low 16 bits are
 dropped. The tail rounds to nearest even, as the JAX tail does. ``r`` is a
 counter-based hash of (seed, k, element) (``sr_bits``), so the CUDA kernel
 and the plain version give the same store bit for bit; the TPU's own random
-stream cannot be reproduced.
+stream cannot be reproduced. The seed (the step) is an int or a 0-dim
+integer tensor; the kernels read it from device memory, so a step captured
+in a CUDA graph rounds with the seed its replay is given.
 
 On a CUDA tensor the wrapper launches ``csrc/sparse_rows_add.cu``: the row
 plan of ``csrc/row_plan.cuh``, three launches with no sort of the items
@@ -45,6 +47,7 @@ There is no fallback from one to the other.
 from __future__ import annotations
 
 import ctypes
+from typing import Union
 
 import torch
 
@@ -106,8 +109,11 @@ def sorted_order(store: torch.Tensor, idx: torch.Tensor, active: torch.Tensor):
     return torch.sort(key, stable=True)
 
 
-def _seed_mix(seed: int) -> int:
-    """The seed's part of the SR hash input, as a 32-bit value."""
+def _seed_mix(seed: Union[int, torch.Tensor]):
+    """The seed's part of the SR hash input, as a 32-bit value (an int64
+    tensor in [0, 2^32) for a tensor seed)."""
+    if isinstance(seed, torch.Tensor):
+        return _mul32(seed.long() & _M32, _GOLDEN)
     return ((int(seed) & _M32) * _GOLDEN) & _M32
 
 
@@ -118,7 +124,7 @@ def _mul32(h: torch.Tensor, c: int) -> torch.Tensor:
     return (lo + hi) & _M32
 
 
-def sr_bits(seed: int, items: torch.Tensor, dim: int) -> torch.Tensor:
+def sr_bits(seed: Union[int, torch.Tensor], items: torch.Tensor, dim: int) -> torch.Tensor:
     """[n, dim] int64 in [0, 2^32): murmur3's fmix32 of
     ``seed * 0x9E3779B9 ^ (k * dim + c)`` for item k and element c, in
     32-bit arithmetic, as ``csrc/sparse_rows_add.cu`` computes it."""
@@ -131,7 +137,7 @@ def sr_bits(seed: int, items: torch.Tensor, dim: int) -> torch.Tensor:
     return h ^ (h >> 16)
 
 
-def _round_to_store(v: torch.Tensor, dtype: torch.dtype, sr_rows=None, seed: int = 0,
+def _round_to_store(v: torch.Tensor, dtype: torch.dtype, sr_rows=None, seed=0,
                     items=None) -> torch.Tensor:
     """f32 rows v [n, dim] rounded to ``dtype`` (returned as f32): f32 is
     unchanged; bf16 rounds to nearest even, or stochastically on the rows
@@ -149,7 +155,7 @@ def _round_to_store(v: torch.Tensor, dtype: torch.dtype, sr_rows=None, seed: int
 
 def sparse_rows_add_reference(store: torch.Tensor, idx: torch.Tensor, upd: torch.Tensor,
                               active: torch.Tensor, stochastic_round: bool = False,
-                              seed: int = 0) -> torch.Tensor:
+                              seed: Union[int, torch.Tensor] = 0) -> torch.Tensor:
     """Plain PyTorch version, in place: on the kernel's order, round j
     applies the j-th occurrence of every row at once (a gather, an add,
     the rounding, an ``index_copy_``). Reads the number of rounds back to
@@ -176,11 +182,12 @@ def sparse_rows_add_reference(store: torch.Tensor, idx: torch.Tensor, upd: torch
 
 def sparse_rows_add(store: torch.Tensor, idx: torch.Tensor, upd: torch.Tensor,
                     active: torch.Tensor, stochastic_round: bool = False,
-                    seed: int = 0) -> torch.Tensor:
+                    seed: Union[int, torch.Tensor] = 0) -> torch.Tensor:
     """store [R, dim] f32 or bf16 (R a whole number of units), idx [K] int,
     upd [K, dim] f32, active [K] (0 = skip); stochastic_round takes effect
-    on a bf16 store only; seed is the step's (an int). Updates ``store`` in
-    place and returns it.
+    on a bf16 store only; seed is the step's (an int, or a 0-dim integer
+    tensor on the store's device). Updates ``store`` in place and returns
+    it.
 
     A CUDA call launches the kernels on the current stream and adds one to
     ``sparse_rows_add.launches``; a CPU call runs the plain version."""
@@ -201,10 +208,12 @@ def sparse_rows_add(store: torch.Tensor, idx: torch.Tensor, upd: torch.Tensor,
     fn, nbytes = _kernel()
     scratch = _build.zeroed_scratch("sparse_rows_add", store.device, nbytes(k))
     sr = stochastic_round and store.dtype != torch.float32
+    step = device_step(seed, store.device) if sr else None
     err = fn(
         store.data_ptr(), int(store.dtype == torch.bfloat16), idx.data_ptr(),
         int(idx.dtype == torch.int64), active.data_ptr(), upd.data_ptr(), scratch.data_ptr(),
-        r, k, dim, unit_rows(store.dtype, dim), int(sr), _seed_mix(seed), store.device.index,
+        r, k, dim, unit_rows(store.dtype, dim), int(sr),
+        None if step is None else step.data_ptr(), store.device.index,
         torch.cuda.current_stream(store.device).cuda_stream,
     )
     if err:
@@ -214,6 +223,18 @@ def sparse_rows_add(store: torch.Tensor, idx: torch.Tensor, upd: torch.Tensor,
 
 
 sparse_rows_add.launches = 0
+
+
+def device_step(seed: Union[int, torch.Tensor], device: torch.device) -> torch.Tensor:
+    """The SR step as a 0-dim int64 tensor on ``device``: a tensor as it is
+    (checked; cast when it is another integer type), an int by a fill on the
+    device (no host-to-device copy, no sync)."""
+    if isinstance(seed, torch.Tensor):
+        if seed.dim() != 0 or seed.dtype.is_floating_point or seed.device != device:
+            raise ValueError(f"want the seed as a 0-dim integer tensor on {device}, got "
+                             f"{seed.dtype} {tuple(seed.shape)} on {seed.device}")
+        return seed.to(torch.int64)
+    return torch.full((), int(seed), dtype=torch.int64, device=device)
 
 
 def kernel_ids(idx: torch.Tensor, active: torch.Tensor):
@@ -232,7 +253,7 @@ def _kernel():
     fn, nbytes = lib.sparse_rows_add, lib.sparse_rows_add_scratch_bytes
     if fn.argtypes is None:
         i, p, ll = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong
-        fn.argtypes = [p, i, p, i, p, p, p, ll, ll, i, i, i, ctypes.c_uint, i, p]
+        fn.argtypes = [p, i, p, i, p, p, p, ll, ll, i, i, i, p, i, p]
         fn.restype = i
         nbytes.argtypes, nbytes.restype = [ll], ll
     return fn, nbytes

@@ -23,6 +23,13 @@ gradients, routed by the JAX package's gates, copied as they are:
     dense regime, sorts the occurrences by row and applies them with K5 or
     K6 (``ops/stream_update.py``).
 
+``lr`` is a Python float or a 0-dim f32 tensor on the params' device, and
+``sr_seed`` an int or a 0-dim integer tensor: a step captured in a CUDA
+graph (``train/capture.py``) passes tensors that the host refills before
+each replay, so nothing here reads a value back to the host and an LR
+schedule or the SR seed does not freeze at its captured value. A tensor
+and a float of the same f32 value give the same bits.
+
 Differences of form from the JAX package, none of result:
   * updates are in place (the multi-GB stores are never copied); each
     function returns the updated tensors, which are its inputs;
@@ -38,7 +45,7 @@ Differences of form from the JAX package, none of result:
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Sequence
+from typing import Dict, List, Sequence, Union
 
 import numpy as np
 import torch
@@ -56,6 +63,8 @@ ACC_KERNEL_MIN_BYTES = 160 << 20
 ACC_SENTINEL_PAD = 256
 DENSE_ACCUM_FACTOR = 8
 MOMENTUM_EXACT_DENSITY = 0.95
+
+Scalar = Union[float, torch.Tensor]  # an lr: a float, or a 0-dim f32 device tensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,7 +108,7 @@ def init_opt_state(opt: OptConfig, params: Dict, groups: Sequence[TableGroup]) -
 
 @torch.no_grad()
 def dense_update(opt: OptConfig, ps: List[torch.Tensor], gs: List[torch.Tensor],
-                 accs, lr: float) -> None:
+                 accs, lr: Scalar) -> None:
     """The dense-parameter update of every tensor in ``ps``, in place, as a
     few multi-tensor (``torch._foreach_*``) launches. SGD: p -= lr * g.
     Adagrad and RWSAdagrad's dense part are both full Adagrad
@@ -117,7 +126,7 @@ def dense_update(opt: OptConfig, ps: List[torch.Tensor], gs: List[torch.Tensor],
 
 
 def update_dense_towers(opt: OptConfig, params: Dict, opt_state: Dict, g_dense: Dict,
-                        lr: float) -> None:
+                        lr: Scalar) -> None:
     """``dense_update`` of the bottom and top MLPs, in place."""
     def flat(tree):
         return [t for k in ("bot", "top") for pair in tree[k] for t in pair]
@@ -151,7 +160,7 @@ def stream_eligible(opt: OptConfig, store: torch.Tensor, group: TableGroup) -> b
 
 def sparse_update_stream(opt: OptConfig, store: torch.Tensor, acc, group: TableGroup,
                          gidx: torch.Tensor, weights: torch.Tensor,
-                         g_pooled: torch.Tensor, lr: float):
+                         g_pooled: torch.Tensor, lr: Scalar):
     """The sorted-stream update of one group store (the high-L dense
     regime), in place; returns (store, acc). The port of the JAX package's
     ``sparse_update_stream`` (``optimizer.py:594-711``).
@@ -240,11 +249,11 @@ def sparse_update(
     acc,
     flat_idx: torch.Tensor,
     flat_g: torch.Tensor,
-    lr: float,
+    lr: Scalar,
     sentinel: int,
     impl: str = "xla",
     stochastic_round: bool = False,
-    sr_seed: int = 0,
+    sr_seed: Union[int, torch.Tensor] = 0,
     size_class: int = 1,
     dim: int | None = None,
     exact_momentum: bool = False,

@@ -1,0 +1,186 @@
+"""Steps as replays of CUDA graphs: the port's counterpart of ``jax.jit``.
+
+A JAX step is one compiled dispatch, and the JAX package hides even that
+behind ``lax.scan`` over N steps (``scan_multistep``). The port's eager step
+issues a few hundred launches through Python, the dispatcher and autograd,
+and the card idles most of each step. ``GraphStep`` runs a step body as a
+replay of a CUDA graph instead:
+
+  * the body reads its batch from static device buffers and its per-step
+    scalars (the lr and the stochastic-rounding seed of each of its steps)
+    from a static device vector. Before every call the host refills both on
+    the current stream: the batch from host arrays through pinned memory, or
+    device to device; the scalars (``lr_fn(iteration + i)`` and
+    ``iteration + i``) in one pinned, non-blocking copy. Nothing in the body
+    reads a value back to the host or copies from it;
+  * the first call of each batch shape runs the body eagerly on a side
+    stream, as real steps: it builds the kernels, their zeroed scratch and
+    the cached index vectors (a wrapper must be called once before it is
+    captured, ``ops/_build.zeroed_scratch``). The next call captures the
+    body into a graph, which does not execute it, and replays the graph
+    once, which does; later calls replay it. One graph per batch shape;
+  * the graph is bound to the params and optimizer state it was captured
+    with (they are updated in place): a call with other tensors raises.
+    Its outputs are overwritten by the next replay, so each call returns
+    copies;
+  * the kernel wrappers' ``.launches`` counters count launches on the card:
+    the capture takes back what the wrappers counted while it recorded
+    (nothing ran) and every replay adds it once;
+  * a failed capture or replay raises: nothing falls back to the eager body
+    on the card. Calls that share a kernel's scratch stay in one stream's
+    order (``csrc/row_plan.cuh``): the side stream and the capture wait for
+    the current stream and the current stream for them.
+
+With ``capture`` off (always on the CPU) the same body runs eagerly on
+scalars made for the call, so the CPU runs the same code as the card.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from dlrm_yx_tpu_torch.data.batch import Batch, copy_batch, empty_like_batch, signature, to_device
+
+
+def launch_counters() -> Dict[str, Callable]:
+    """The kernel wrappers, by name, whose ``.launches`` a capture corrects."""
+    from dlrm_yx_tpu_torch.ops.dense_finish import rwsadagrad_dense_finish
+    from dlrm_yx_tpu_torch.ops.fused_interaction import fused_interaction
+    from dlrm_yx_tpu_torch.ops.sparse_rows_add import sparse_rows_add
+    from dlrm_yx_tpu_torch.ops.sparse_rows_overwrite import sparse_rows_overwrite
+    from dlrm_yx_tpu_torch.ops.stream_update import sorted_stream_add, sorted_stream_apply
+
+    return {f.__name__: f for f in (fused_interaction, sparse_rows_overwrite,
+                                    rwsadagrad_dense_finish, sorted_stream_apply,
+                                    sorted_stream_add, sparse_rows_add)}
+
+
+def _tensors(tree):
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _tensors(tree[k])
+    elif isinstance(tree, (list, tuple)):
+        for t in tree:
+            yield from _tensors(t)
+
+
+def _copy(out):
+    return tuple(t.clone() for t in out) if isinstance(out, tuple) else out.clone()
+
+
+class _Slot:
+    """The static buffers and the graph of one batch shape."""
+
+    def __init__(self, batch: Batch, n_scalars: int, device: torch.device):
+        self.batch = empty_like_batch(batch, device)
+        # n int64 seeds, then n f32 lrs: one buffer, one copy
+        self.scalars = torch.empty(12 * n_scalars, dtype=torch.uint8, device=device)
+        self.seeds = self.scalars[:8 * n_scalars].view(torch.int64)
+        self.lrs = self.scalars[8 * n_scalars:].view(torch.float32)
+        self.warm = False
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.out = None
+        self.bound = ()
+        self.launched: Dict[str, int] = {}
+        self.replays = 0
+
+
+class GraphStep:
+    """``step(params, opt_state, batch, iteration)`` -> the body's output
+    (a tensor or a tuple of tensors), where ``body(params, opt_state, batch,
+    lrs, seeds)`` runs on device tensors: ``batch`` a ``Batch``, ``lrs``
+    [n_scalars] f32 and ``seeds`` [n_scalars] int64 (``lr_fn(iteration +
+    i)`` and ``iteration + i``). ``capture`` replays it from a CUDA graph
+    (see the module docstring); ``inference`` runs it under
+    ``torch.inference_mode``."""
+
+    def __init__(self, body, n_scalars: int, lr_fn: Callable[[int], float],
+                 device: torch.device, capture: bool, inference: bool = False):
+        if capture and device.type != "cuda":
+            raise ValueError(f"a CUDA graph needs a CUDA device, not {device}")
+        self.body = body
+        self.n_scalars = n_scalars
+        self.lr_fn = lr_fn
+        self.device = device
+        self.capture = capture
+        self.inference = inference
+        self._slots: Dict[tuple, _Slot] = {}
+
+    def replays(self) -> int:
+        """Graph replays so far, over every batch shape."""
+        return sum(slot.replays for slot in self._slots.values())
+
+    def _host_scalars(self, iteration: int):
+        its = np.arange(iteration, iteration + self.n_scalars, dtype=np.int64)
+        lrs = np.array([self.lr_fn(int(i)) for i in its], dtype=np.float32)
+        return its, lrs
+
+    def __call__(self, params, opt_state, batch: Batch, iteration: int = 0):
+        if self.inference:
+            with torch.inference_mode():
+                return self._call(params, opt_state, batch, iteration)
+        return self._call(params, opt_state, batch, iteration)
+
+    def _call(self, params, opt_state, batch, iteration):
+        if not self.capture:
+            its, lrs = self._host_scalars(iteration)
+            return self.body(params, opt_state, to_device(batch, self.device),
+                             torch.from_numpy(lrs).to(self.device),
+                             torch.from_numpy(its).to(self.device))
+        key = signature(batch)
+        slot = self._slots.get(key)
+        if slot is None:
+            slot = self._slots[key] = _Slot(batch, self.n_scalars, self.device)
+        copy_batch(slot.batch, batch)
+        if self.n_scalars:
+            its, lrs = self._host_scalars(iteration)
+            host = np.concatenate([its.view(np.uint8), lrs.view(np.uint8)])
+            slot.scalars.copy_(torch.from_numpy(host).pin_memory(), non_blocking=True)
+        args = (params, opt_state, slot.batch, slot.lrs, slot.seeds)
+        if not slot.warm:
+            out = self._warm_up(args)
+            slot.warm = True
+            return out
+        bound = tuple(t.data_ptr() for t in _tensors((params, opt_state)))
+        if slot.graph is None:
+            self._capture(slot, args)
+            slot.bound = bound
+        elif bound != slot.bound:
+            raise ValueError("a captured step is bound to the params and optimizer state it "
+                             "was captured with; these are other tensors")
+        slot.graph.replay()
+        slot.replays += 1
+        for name, f in launch_counters().items():
+            f.launches += slot.launched[name]
+        return _copy(slot.out)
+
+    def _warm_up(self, args):
+        """The body run eagerly on a side stream: real steps that build the
+        kernels, their scratch and the cached index vectors."""
+        current = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            out = self.body(*args)
+        current.wait_stream(side)
+        for t in out if isinstance(out, tuple) else (out,):
+            t.record_stream(current)
+        return out
+
+    def _capture(self, slot: _Slot, args):
+        counters = launch_counters()
+        before = {name: f.launches for name, f in counters.items()}
+        graph = torch.cuda.CUDAGraph()
+        # thread-local: the trainer's prefetch thread may allocate and copy
+        # on its own stream while this thread captures
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            slot.out = self.body(*args)
+        slot.launched = {name: f.launches - before[name] for name, f in counters.items()}
+        for name, f in counters.items():
+            f.launches = before[name]
+        slot.graph = graph

@@ -1,10 +1,11 @@
-"""The single-device train and eval steps.
+"""The single-device train and eval steps, multi-step dispatch and
+gradient accumulation.
 
-The port of ``apply_gradients``, ``make_train_step`` and ``make_eval_step``
-in ``dlrm_yx_tpu/train/train_step.py`` (the reference's hot loop,
-``dlrm_s_pytorch.py:1848-1934``): forward -> loss -> backward ->
-optimizer step, with sparse embedding updates. PyTorch runs eagerly, so
-there is nothing to jit:
+The port of ``apply_gradients``, ``make_train_step``, ``scan_multistep``,
+``make_multistep_train_step``, ``make_eval_step`` and
+``make_accum_train_step`` in ``dlrm_yx_tpu/train/train_step.py`` (the
+reference's hot loop, ``dlrm_s_pytorch.py:1848-1934``): forward -> loss ->
+backward -> optimizer step, with sparse embedding updates:
 
   * the pooled lookups run first, outside autograd (with the gathered rows
     at L=1, for the write-only update);
@@ -17,11 +18,18 @@ there is nothing to jit:
     pooled cotangent itself (K5/K6). The stores never see a dense gradient
     and autograd never reaches them.
 
-Every update is in place: the step returns the params and optimizer state
-it was given, updated. Nothing in the step waits for the device; the loss
-comes back as a device scalar. Not ported yet: gradient accumulation
-(``make_accum_train_step``), multi-step dispatch (``scan_multistep``) and
-QR / MD / weighted-pooling updates.
+Every update is in place: a step returns the params and optimizer state it
+was given, updated. Nothing in a step waits for the device; losses come
+back as device tensors.
+
+``make_train_step`` is the eager step (an lr from ``lr_fn`` as a float).
+Where JAX jits and scans, the port captures: ``make_multistep_train_step``
+(N full optimizer steps a dispatch), ``make_accum_train_step`` and
+``make_eval_step`` run, on the card, as replays of CUDA graphs
+(``train/capture.GraphStep``), their lr and stochastic-rounding seed read
+from device buffers that the host fills before each replay; with
+``capture=False``, and always on the CPU, the same bodies run eagerly. Not
+ported: QR / MD / weighted-pooling updates.
 """
 
 from __future__ import annotations
@@ -32,7 +40,7 @@ import numpy as np
 import torch
 
 from dlrm_yx_tpu_torch.config import DLRMConfig
-from dlrm_yx_tpu_torch.data.batch import to_device
+from dlrm_yx_tpu_torch.data.batch import Batch, to_device
 from dlrm_yx_tpu_torch.models.dlrm import (
     check_supported,
     forward_from_pooled,
@@ -51,18 +59,20 @@ from dlrm_yx_tpu_torch.optim.optimizer import (
     stream_eligible,
     update_dense_towers,
 )
+from dlrm_yx_tpu_torch.train.capture import GraphStep
 from dlrm_yx_tpu_torch.utils.device import resolve_device
 from dlrm_yx_tpu_torch.utils.profiling import phase_scope
 
 
 @torch.no_grad()
 def apply_gradients(config: DLRMConfig, opt: OptConfig, groups, params: Dict,
-                    opt_state: Dict, batch, g_dense: Dict, g_pooled, lr: float,
-                    raw_rows=None, sr_seed: int = 0) -> None:
+                    opt_state: Dict, batch, g_dense: Dict, g_pooled, lr,
+                    raw_rows=None, sr_seed=0) -> None:
     """Dense updates of the MLPs and sparse row updates of every group
-    store from the pooled cotangent, in place. raw_rows: per-group rows
-    gathered by the forward lookup (L=1 groups, else None); sr_seed: the
-    stochastic rounding's seed (the step)."""
+    store from the pooled cotangent, in place. lr: a float or a 0-dim f32
+    device tensor; raw_rows: per-group rows gathered by the forward lookup
+    (L=1 groups, else None); sr_seed: the stochastic rounding's seed (the
+    step; an int or a 0-dim integer device tensor)."""
     with phase_scope("optimizer"):
         update_dense_towers(opt, params, opt_state, g_dense, lr)
         for gi, g in enumerate(groups):
@@ -101,24 +111,35 @@ def apply_gradients(config: DLRMConfig, opt: OptConfig, groups, params: Dict,
             )
 
 
-def make_train_step(config: DLRMConfig, opt: OptConfig,
-                    lr_fn: Optional[Callable[[int], float]] = None,
-                    device: Optional[Union[str, torch.device]] = None):
-    """Returns step(params, opt_state, batch, iteration) -> (params,
-    opt_state, loss). ``params`` / ``opt_state`` live on ``device`` (the
-    card unless the caller asks for the CPU) and are updated in place;
-    ``batch`` is a ``Batch`` of numpy arrays or tensors; ``loss`` is a
-    0-dim device tensor. lr_fn maps the 0-based iteration to the lr
-    (``optim/lr_policy.LRPolicy``); without it the lr is ``opt.lr`` as
-    float32."""
-    check_supported(config)
-    dev = resolve_device(device)
-    groups = model_groups(config)
-    base_lr = float(np.float32(opt.lr))
+def _dense_grads(config: DLRMConfig, groups, params: Dict, b: Batch, pooled):
+    """(loss, dense grads {"bot", "top"}, pooled grads) of one batch: the
+    dense graph differentiated with respect to the MLPs and the pooled
+    vectors."""
+    pooled = [p.requires_grad_() for p in pooled]
+    dense = {k: [(w.detach().requires_grad_(), c.detach().requires_grad_())
+                 for w, c in params[k]] for k in ("bot", "top")}
+    with torch.enable_grad():
+        logits = forward_from_pooled({**params, **dense}, config, groups, b.dense, pooled)
+        with phase_scope("loss_compute"):
+            loss = loss_fn(logits, b.labels, config.loss, config.loss_threshold,
+                           config.wbce_weights)
+    leaves = [t for k in ("bot", "top") for pair in dense[k] for t in pair]
+    with phase_scope("backward"):
+        grads = torch.autograd.grad(loss, leaves + pooled)
+    it = iter(grads)
+    g_dense = {k: [(next(it), next(it)) for _ in params[k]] for k in ("bot", "top")}
+    return loss.detach(), g_dense, list(it)
 
-    def step(params, opt_state, batch, iteration):
-        lr = lr_fn(iteration) if lr_fn is not None else base_lr
-        b = to_device(batch, dev)
+
+def train_body(config: DLRMConfig, opt: OptConfig):
+    """body(params, opt_state, b, lr, sr_seed) -> loss: one optimizer step
+    on a device batch ``b``; lr a float or 0-dim f32 device tensor, sr_seed
+    an int or 0-dim integer device tensor (the step). The inner step of
+    every train step here."""
+    check_supported(config)
+    groups = model_groups(config)
+
+    def body(params, opt_state, b, lr, sr_seed):
         with torch.no_grad():
             if config.write_only_update:
                 pooled, raw_rows = lookup_all_groups(
@@ -126,45 +147,177 @@ def make_train_step(config: DLRMConfig, opt: OptConfig,
             else:
                 pooled = lookup_all_groups(params, groups, b.indices, b.weights)
                 raw_rows = None
-        pooled = [p.requires_grad_() for p in pooled]
-        dense = {k: [(w.detach().requires_grad_(), c.detach().requires_grad_())
-                     for w, c in params[k]] for k in ("bot", "top")}
-        with torch.enable_grad():
-            logits = forward_from_pooled({**params, **dense}, config, groups,
-                                         b.dense, pooled)
-            with phase_scope("loss_compute"):
-                loss = loss_fn(logits, b.labels, config.loss, config.loss_threshold,
-                               config.wbce_weights)
-        leaves = [t for k in ("bot", "top") for pair in dense[k] for t in pair]
-        with phase_scope("backward"):
-            grads = torch.autograd.grad(loss, leaves + pooled)
-        it = iter(grads)
-        g_dense = {k: [(next(it), next(it)) for _ in params[k]] for k in ("bot", "top")}
-        g_pooled = list(it)
+        loss, g_dense, g_pooled = _dense_grads(config, groups, params, b, pooled)
         apply_gradients(config, opt, groups, params, opt_state, b, g_dense,
-                        g_pooled, lr, raw_rows, sr_seed=iteration)
-        return params, opt_state, loss.detach()
+                        g_pooled, lr, raw_rows, sr_seed=sr_seed)
+        return loss
+
+    return body
+
+
+def _lr_fn(opt: OptConfig, lr_fn):
+    base_lr = float(np.float32(opt.lr))
+    return lr_fn if lr_fn is not None else (lambda _it: base_lr)
+
+
+def _capture_default(capture: Optional[bool], dev: torch.device) -> bool:
+    """Capture on the card unless the caller says otherwise; never on the CPU."""
+    return dev.type == "cuda" if capture is None else capture
+
+
+def make_train_step(config: DLRMConfig, opt: OptConfig,
+                    lr_fn: Optional[Callable[[int], float]] = None,
+                    device: Optional[Union[str, torch.device]] = None):
+    """Returns step(params, opt_state, batch, iteration) -> (params,
+    opt_state, loss), run eagerly. ``params`` / ``opt_state`` live on
+    ``device`` (the card unless the caller asks for the CPU) and are
+    updated in place; ``batch`` is a ``Batch`` of numpy arrays or tensors;
+    ``loss`` is a 0-dim device tensor. lr_fn maps the 0-based iteration to
+    the lr (``optim/lr_policy.LRPolicy``); without it the lr is ``opt.lr``
+    as float32."""
+    body = train_body(config, opt)
+    dev = resolve_device(device)
+    lr_of = _lr_fn(opt, lr_fn)
+
+    def step(params, opt_state, batch, iteration):
+        loss = body(params, opt_state, to_device(batch, dev), lr_of(iteration), iteration)
+        return params, opt_state, loss
 
     return step
 
 
+def scan_multistep(inner, n_steps: int, lr_fn: Callable[[int], float],
+                   device: Optional[Union[str, torch.device]] = None,
+                   capture: Optional[bool] = None):
+    """Wrap an inner step ``inner(params, opt_state, b, lr, sr_seed) ->
+    loss`` into ``n_steps`` sequential full steps a call:
+    step(params, opt_state, batches, iteration) -> (params, opt_state,
+    losses [n_steps]), every ``batches`` field with a leading [n_steps]
+    axis, step i taking ``lr_fn(iteration + i)`` and seed ``iteration + i``
+    from device buffers. ``capture`` (the default on the card; the
+    counterpart of JAX's ``jit``) records the n_steps steps into one CUDA
+    graph; the CPU runs them eagerly."""
+    dev = resolve_device(device)
+
+    def body(params, opt_state, batches, lrs, seeds):
+        return torch.stack([
+            inner(params, opt_state, Batch(*(f[i] for f in batches)), lrs[i], seeds[i])
+            for i in range(n_steps)])
+
+    graph_step = GraphStep(body, n_steps, lr_fn, dev, _capture_default(capture, dev))
+
+    def step(params, opt_state, batches, iteration):
+        return params, opt_state, graph_step(params, opt_state, batches, iteration)
+
+    step.graph_step = graph_step
+    return step
+
+
+def make_multistep_train_step(config: DLRMConfig, opt: OptConfig, n_steps: int,
+                              lr_fn: Optional[Callable[[int], float]] = None,
+                              device: Optional[Union[str, torch.device]] = None,
+                              capture: Optional[bool] = None):
+    """``n_steps`` full optimizer steps a call: the same results as calling
+    ``make_train_step``'s step ``n_steps`` times in sequence (each with its
+    own lr and SR seed), as one replay of a CUDA graph on the card
+    (``capture``, the default there). step(params, opt_state,
+    stacked_batch, iteration): every Batch field has a leading [n_steps]
+    axis; iteration is the index of the first step. Returns (params,
+    opt_state, losses [n_steps])."""
+    return scan_multistep(train_body(config, opt), n_steps, _lr_fn(opt, lr_fn), device,
+                          capture)
+
+
 def make_eval_step(config: DLRMConfig,
-                   device: Optional[Union[str, torch.device]] = None):
+                   device: Optional[Union[str, torch.device]] = None,
+                   capture: Optional[bool] = None):
     """Returns eval(params, batch) -> (predictions [B, 1], loss). ``params``
     is the parameter dict (``models.dlrm``) on ``device`` (the card unless
     the caller asks for the CPU); ``batch`` is a ``Batch`` of numpy arrays
-    or tensors, moved to ``device`` when it is not there."""
+    or tensors. On the card (``capture``, the default there) the step is a
+    replay of a CUDA graph over static batch buffers, one graph for each
+    batch shape, and the outputs are copies."""
     dev = resolve_device(device)
     groups = model_groups(config)
 
-    @torch.inference_mode()
-    def eval_step(params, batch):
-        b = to_device(batch, dev)
-        logits = forward_logits(params, config, groups, b.dense, b.indices,
-                                b.weights)
+    def body(params, _opt_state, b, _lrs, _seeds):
+        logits = forward_logits(params, config, groups, b.dense, b.indices, b.weights)
         preds = predictions_from_logits(logits, config.loss_threshold)
         loss = loss_fn(logits, b.labels, config.loss, config.loss_threshold,
                        config.wbce_weights)
         return preds, loss
 
+    graph_step = GraphStep(body, 0, None, dev, _capture_default(capture, dev),
+                           inference=True)
+
+    def eval_step(params, batch):
+        return graph_step(params, None, batch)
+
+    eval_step.graph_step = graph_step
     return eval_step
+
+
+def make_accum_train_step(config: DLRMConfig, opt: OptConfig, n_accum: int,
+                          lr_fn: Optional[Callable[[int], float]] = None,
+                          device: Optional[Union[str, torch.device]] = None,
+                          capture: Optional[bool] = None):
+    """Gradient accumulation over ``n_accum`` micro-batches with ONE
+    optimizer step (--mlperf-grad-accum-iter: the reference steps the
+    optimizer every N-th mini-batch, so autograd sums the grads across
+    them, dlrm_s_pytorch.py:1925-1932).
+
+    step(params, opt_state, stacked_batch, iteration) -> (params,
+    opt_state, loss): every Batch field has a leading [n_accum] axis. Dense
+    grads are summed over the micro-batches; every micro-batch's row grads
+    (against the stores before the step) are concatenated into one sparse
+    update per group, so the Adagrad-family momenta see the accumulated
+    gradient once. It never takes the sorted-stream route nor the
+    write-only update. The loss is the mean micro-batch loss; the lr is
+    ``lr_fn(iteration)`` and the SR seed ``iteration``. A CUDA-graph replay
+    on the card (``capture``, the default there)."""
+    check_supported(config)
+    dev = resolve_device(device)
+    groups = model_groups(config)
+
+    def body(params, opt_state, batches, lrs, seeds):
+        lr, seed = lrs[0], seeds[0]
+        g_sum = {k: [(torch.zeros_like(w), torch.zeros_like(c)) for w, c in params[k]]
+                 for k in ("bot", "top")}
+        loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
+        fidx_all = [[] for _ in groups]
+        fg_all = [[] for _ in groups]
+        for m in range(n_accum):
+            b = Batch(*(f[m] for f in batches))
+            with torch.no_grad():
+                pooled = lookup_all_groups(params, groups, b.indices, b.weights)
+            loss, g_dense, g_pooled = _dense_grads(config, groups, params, b, pooled)
+            with torch.no_grad():
+                g_sum = {k: [(sw + gw, sc + gc) for (sw, sc), (gw, gc) in zip(g_sum[k], g_dense[k])]
+                         for k in g_sum}
+                loss_sum = loss_sum + loss
+                for gi, g in enumerate(groups):
+                    fidx, fg = flat_row_grads(g, group_indices(g, b.indices),
+                                              group_indices(g, b.weights), g_pooled[gi])
+                    fidx_all[gi].append(fidx)
+                    fg_all[gi].append(fg)
+        with torch.no_grad(), phase_scope("optimizer"):
+            update_dense_towers(opt, params, opt_state, g_sum, lr)
+            for gi, g in enumerate(groups):
+                sparse_update(
+                    opt, params["emb"][gi], opt_state["emb"][gi] if opt.name != "sgd" else None,
+                    torch.cat(fidx_all[gi]), torch.cat(fg_all[gi]), lr, g.total_rows,
+                    impl=config.sparse_update_impl,
+                    stochastic_round=config.stochastic_rounding, sr_seed=seed,
+                    size_class=g.size_class, dim=g.dim,
+                    exact_momentum=config.exact_row_momentum,
+                    density_hint=config.dup_density_hint,
+                )
+        return loss_sum / n_accum
+
+    graph_step = GraphStep(body, 1, _lr_fn(opt, lr_fn), dev, _capture_default(capture, dev))
+
+    def step(params, opt_state, batches, iteration):
+        return params, opt_state, graph_step(params, opt_state, batches, iteration)
+
+    step.graph_step = graph_step
+    return step

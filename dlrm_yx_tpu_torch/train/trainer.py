@@ -8,14 +8,23 @@ accuracy (and the full mlperf metric set when asked), and the MLPerf early
 stop on accuracy / AUC thresholds. Device losses are fetched only at print
 and eval boundaries, so the loop does not wait for the card at every step.
 
-One step per call: multi-step dispatch (``--steps-per-dispatch``), the
-prefetch thread, checkpoints, gradient accumulation and the TensorBoard
-writer are not ported yet.
+Multi-step dispatch (``steps_per_dispatch``: M full optimizer steps a call,
+auto-picked by ``_auto_steps_per_dispatch``), gradient accumulation
+(``grad_accum_iter``, which turns multi-step off, as in JAX) and the
+prefetch thread (``prefetch_depth``) are ported: on the card every train
+step, the tail of fewer than M steps included (one step a call), the
+accumulation step and the eval step run as replays of CUDA graphs
+(``train/capture.py``); the prefetch thread stacks host batches and starts
+their copy to the card on a side stream, which the main stream waits for
+before it fills a graph's inputs. Checkpoints and the TensorBoard writer
+are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import queue
+import threading
 import time
 from typing import Callable, Iterable, List, Optional, Union
 
@@ -23,12 +32,16 @@ import numpy as np
 import torch
 
 from dlrm_yx_tpu_torch.config import DLRMConfig
-from dlrm_yx_tpu_torch.data.batch import Batch
+from dlrm_yx_tpu_torch.data.batch import Batch, stack_batches, stage_batch
 from dlrm_yx_tpu_torch.models.dlrm import DLRM, init_dlrm, model_groups
 from dlrm_yx_tpu_torch.optim.lr_policy import LRPolicy
 from dlrm_yx_tpu_torch.optim.optimizer import OptConfig, init_opt_state
 from dlrm_yx_tpu_torch.train.metrics import StreamingAUC, binary_metrics
-from dlrm_yx_tpu_torch.train.train_step import make_eval_step, make_train_step
+from dlrm_yx_tpu_torch.train.train_step import (
+    make_accum_train_step,
+    make_eval_step,
+    make_multistep_train_step,
+)
 from dlrm_yx_tpu_torch.utils.device import resolve_device
 from dlrm_yx_tpu_torch.utils.logging import EventLogger, rank0_print
 from dlrm_yx_tpu_torch.utils.profiling import StepTimer
@@ -43,6 +56,104 @@ class TrainerConfig:
     mlperf_acc_threshold: float = 0.0
     mlperf_auc_threshold: float = 0.0
     seed: int = 123
+    grad_accum_iter: int = 1         # micro-batches per optimizer step
+                                     # (--mlperf-grad-accum-iter)
+    steps_per_dispatch: int = 0      # full optimizer steps per dispatch (one
+                                     # CUDA-graph replay); 0 = auto-pick the
+                                     # largest of 16/8/4/2/1 dividing
+                                     # print_freq and test_freq. The loss
+                                     # sequence is identical to 1.
+    prefetch_depth: int = 2          # host->device staging queue depth
+                                     # (background thread); 0 = prepare
+                                     # inline (debug)
+
+
+def _auto_steps_per_dispatch(tcfg: "TrainerConfig") -> int:
+    """Largest M in {16,8,4,2} that keeps print/eval boundaries exact
+    (M divides print_freq and test_freq when they are set), else 1.
+    An EXPLICIT steps_per_dispatch is honored, but crossing multiple
+    print/eval boundaries inside one dispatch collapses them into one
+    (eval/early-stop checks run less often) — warn loudly."""
+    if tcfg.steps_per_dispatch > 0:
+        m = tcfg.steps_per_dispatch
+        for name, freq in (("print_freq", tcfg.print_freq),
+                           ("test_freq", tcfg.test_freq)):
+            if freq and freq % m:
+                rank0_print(
+                    f"WARNING: --steps-per-dispatch {m} does not divide "
+                    f"{name} {freq}: boundaries inside one dispatch "
+                    "collapse (eval/print/early-stop fire at most once "
+                    "per dispatch)"
+                )
+        return m
+    for m in (16, 8, 4, 2):
+        if tcfg.print_freq and tcfg.print_freq % m:
+            continue
+        if tcfg.test_freq and tcfg.test_freq % m:
+            continue
+        return m
+    return 1
+
+
+def _prefetch_thread(gen, depth: int):
+    """Run ``gen`` on a background thread into a bounded queue: the host
+    batch stacking and the start of its copy to the card overlap the main
+    thread's step dispatches. A consumer that stops early (break, early
+    stop, exception) ends the thread."""
+    q: "queue.Queue" = queue.Queue(maxsize=depth)
+    stop = threading.Event()
+    end = object()
+    err: List[BaseException] = []
+
+    def worker():
+        try:
+            for x in gen:
+                while not stop.is_set():
+                    try:
+                        q.put(x, timeout=0.5)
+                        break
+                    except queue.Full:
+                        continue
+                if stop.is_set():
+                    return
+        except BaseException as e:  # surfaced on the main thread
+            err.append(e)
+        finally:
+            # the consumer may have stopped early with the queue full: a
+            # blocking put would pin this thread (and every staged batch)
+            while not stop.is_set():
+                try:
+                    q.put(end, timeout=0.5)
+                    break
+                except queue.Full:
+                    continue
+
+    t = threading.Thread(target=worker, daemon=True)
+    t.start()
+    try:
+        while True:
+            x = q.get()
+            if x is end:
+                if err:
+                    raise err[0]
+                return
+            yield x
+    finally:
+        stop.set()
+
+
+def _group_microbatches(it, n):
+    """Stack n consecutive Batches along a new leading axis (feeds
+    make_accum_train_step); a trailing incomplete group is dropped, like
+    the reference only stepping on every n-th mini-batch."""
+    while True:
+        group = []
+        try:
+            for _ in range(n):
+                group.append(next(it))
+        except StopIteration:
+            return
+        yield stack_batches(group)
 
 
 class Trainer:
@@ -62,7 +173,21 @@ class Trainer:
         self.tcfg = tcfg
         self.device = resolve_device(device)
         self.groups = model_groups(config)
-        self.train_step = make_train_step(config, opt, lr_policy, self.device)
+        self.accum = max(1, tcfg.grad_accum_iter)
+        self.msteps = 1
+        self.multi_step = None
+        if self.accum > 1:
+            self.train_step = make_accum_train_step(config, opt, self.accum, lr_policy,
+                                                    self.device)
+        else:
+            # single steps (and the tail of a multi-step epoch) take
+            # batches stacked one deep
+            self.train_step = make_multistep_train_step(config, opt, 1, lr_policy,
+                                                        self.device)
+            self.msteps = _auto_steps_per_dispatch(tcfg)
+            if self.msteps > 1:
+                self.multi_step = make_multistep_train_step(config, opt, self.msteps,
+                                                            lr_policy, self.device)
         self.eval_step = make_eval_step(config, self.device)
         self.model = DLRM(config, init_dlrm(config, seed=tcfg.seed, device=self.device))
         self.params = self.model.as_params()
@@ -110,6 +235,14 @@ class Trainer:
 
     # ----------------------------------------------------------------- train
 
+    def _prepare(self, batch: Batch, stream):
+        """(batch, event) for a dispatch: on the card with a staging stream,
+        a host batch pinned and copied there on it (``stage_batch``); else
+        the batch as it is (the step copies it into its inputs)."""
+        if stream is None:
+            return batch, None
+        return stage_batch(batch, self.device, stream)
+
     def fit(
         self,
         train_batches: Iterable[Batch],
@@ -125,35 +258,72 @@ class Trainer:
             self.events.log_event("seed", tcfg.seed)
             self.events.log_end("init_stop")
             self.events.log_start("run_start")
-        pending: List[torch.Tensor] = []  # device losses, fetched at boundaries
+        staging = (torch.cuda.Stream(self.device)
+                   if self.device.type == "cuda" and tcfg.prefetch_depth > 0 else None)
+        pending: List[torch.Tensor] = []  # copies of device losses, fetched at boundaries
+        pending_n = 0                     # iterations the pending losses cover
         stop = False
         summary = {}
         for epoch in range(tcfg.nepochs):
             epoch_timer = StepTimer(warmup_iters=max(1, tcfg.print_freq))
             if self.events:
                 self.events.log_start("epoch_start", {"epoch_num": epoch})
+            it_source = iter(train_batches)
+            if self.accum > 1:
+                it_source = _group_microbatches(it_source, self.accum)
             span_t0 = 0.0
 
             def drain():
                 """Fetch the pending losses and record their span in the
                 epoch timer (at every print, eval and epoch boundary)."""
-                nonlocal pending
+                nonlocal pending, pending_n
                 if not pending:
                     return []
-                losses = [float(v) for v in torch.stack(pending).cpu()]
+                losses = torch.cat([x.reshape(-1) for x in pending]).cpu().tolist()
                 span = time.perf_counter() - span_t0
-                epoch_timer.times.extend([span / len(pending)] * len(pending))
-                pending = []
+                epoch_timer.times.extend([span / pending_n] * pending_n)
+                pending, pending_n = [], 0
                 return losses
 
-            for batch in train_batches:
+            def dispatch_stream():
+                """Yields (prepared batch, n_iters, use_multi). With a
+                multi-step: M host batches stack into one copy and one
+                dispatch; the tail (<M) runs single steps."""
+                if self.multi_step is not None:
+                    group = []
+                    for nb in it_source:
+                        group.append(nb)
+                        if len(group) == self.msteps:
+                            yield self._prepare(stack_batches(group), staging), self.msteps, True
+                            group = []
+                    for nb in group:
+                        yield self._prepare(stack_batches([nb]), staging), 1, False
+                else:
+                    for nb in it_source:
+                        if self.accum == 1:
+                            nb = stack_batches([nb])
+                        yield self._prepare(nb, staging), 1, False
+
+            stream = dispatch_stream()
+            if tcfg.prefetch_depth > 0:
+                stream = _prefetch_thread(stream, tcfg.prefetch_depth)
+            for (batch, staged), n_it, use_multi in stream:
                 if not pending:
                     span_t0 = time.perf_counter()
-                self.params, self.opt_state, loss = self.train_step(
+                if staged is not None:
+                    # the copy started on the staging stream; its tensors
+                    # are read on this one
+                    current = torch.cuda.current_stream(self.device)
+                    current.wait_event(staged)
+                    for t in batch:
+                        t.record_stream(current)
+                step_fn = self.multi_step if use_multi else self.train_step
+                self.params, self.opt_state, loss = step_fn(
                     self.params, self.opt_state, batch, self.iteration)
                 pending.append(loss)
+                pending_n += n_it
                 prev_it = self.iteration
-                self.iteration += 1
+                self.iteration += n_it
                 if tcfg.print_freq and (
                     self.iteration // tcfg.print_freq > prev_it // tcfg.print_freq
                 ):

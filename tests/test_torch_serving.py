@@ -202,11 +202,12 @@ def test_cli_rejects_unported_flags(extra):
 
 def test_cli_without_inference_only_is_not_ported():
     """Training is ported (tests/test_torch_training.py, with
-    --no-write-only-update and --stochastic-rounding); its options whose
-    parts are not raise."""
+    --no-write-only-update and --stochastic-rounding; multi-step dispatch
+    and gradient accumulation in tests/test_torch_trainer.py); its options
+    whose parts are not (checkpoints) raise."""
     flags = [f for f in CLI_FLAGS if f != "--inference-only"] + ["--device", "cpu"]
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        port_cli.main(flags + ["--steps-per-dispatch", "4"])
+        port_cli.main(flags + ["--save-model", "ckpt"])
 
 
 def test_cuda_asked_for_and_absent_raises(monkeypatch):
