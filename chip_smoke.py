@@ -105,6 +105,31 @@ no result):
      call (bf16 and f32), one K3 call (lr on the device) and one K6 call
      (one kernel each) and one K5 call (at most 5, no sort); the capture
      itself fails on a host synchronisation.
+  u. data: the real-data paths through ``cli.main``, their files written
+     under build/chip_smoke_data (gitignored): (1) bench/run_and_time.sh's
+     command line (the MLPerf binary loader with its shuffle, SGD) on a
+     train.bin of 32 x 2048 records, ids drawn from a power law over the
+     Terabyte raw counts, with --max-ind-range 1000000, no
+     --processed-data-file and --interaction-impl pallas: K1 per step and
+     eval batch, K2 per step; then a file with a short last batch at one
+     step a replay over two epochs, whose train and eval graphs of the
+     short batch must replay; (2) bench/dlrm_tpu_criteo_kaggle.sh's
+     command line on a 7 x 32,768-row TSV from synth_kaggle, preprocessed on
+     first touch, no kernel launched (D=16), and again with --memory-map,
+     equal bit for bit (deterministic algorithms on); (3) the
+     stack-distance trace path (--data-generation synthetic, the shipped
+     input/dist_emb_j.log) at (1)'s flags, SGD and RWSAdagrad, with the
+     distinct rows a table per batch and the density hint; (4) the native
+     parser was built and used. The CLI runs of one model and seed share
+     one host draw of the tables (``SharedInit``);
+  v. checkpoint: on (2), a run with --save-model stopped at its first eval,
+     a run with --load-model (the uninterrupted run's losses and params from
+     the saved iteration on, bit for bit) and --inference-only --load-model
+     (the metrics of the eval that saved it);
+  w. throughput: the captured N=16 L=1 train step of (1)'s flags through
+     ``Trainer.fit`` fed random host batches, the binary loader and trace
+     batches in turns (ms/step, examples/s, the fits' wall time), then one
+     profiler window each (kernels busy, idle share, K2's time a step);
 Then a JSON line of the kernels (launches from the path each kernel serves:
 K1-K3 phase b, K5 phase g, K6 phase h, K4 phase m), nvidia-smi's line, and
 the result line.
@@ -618,16 +643,20 @@ def only(**launched):
     return {name: launched.get(name, 0) for name in launch_counters()}
 
 
-def cli_training_run(phase, what, argv, n_steps, want, big_index):
+def cli_training_run(phase, what, argv, n_steps, want, big_index, n_prints=None, out=None):
     """A CLI training run (``cli.main`` without --inference-only: n_steps
-    steps, then an eval of as many batches), with the launch counts set to
-    0 just before and read just after. Fails unless the kernels launched as
-    ``want`` says, the losses and eval metrics are finite, and the big
-    store changed where it should, bit for bit: every row that a live
+    steps, then an eval), with the launch counts set to 0 just before and
+    read just after. Fails unless the kernels launched as ``want`` says,
+    the ``n_prints`` printed losses (one a step by default) and the eval
+    metrics are finite, and (unless ``big_index`` is None) the big store
+    changed where it should, bit for bit: every row that a live
     (nonzero-weight) lookup of the first batch touched changed, and no row
     that no live lookup touched (once the loss saturates, a later step's
-    samples may have an exactly zero gradient). Returns the launch counts."""
+    samples may have an exactly zero gradient). Returns the launch counts;
+    ``out`` (a dict) also gets the trainer, the printed losses, the output,
+    the metrics and the run's seconds."""
     import contextlib
+    import gc
     import io
     import math
     import re
@@ -637,6 +666,8 @@ def cli_training_run(phase, what, argv, n_steps, want, big_index):
     from dlrm_yx_tpu_torch import cli
 
     made = []
+    gc.collect()  # the graphs of earlier runs go before this one's are counted
+    torch.cuda.empty_cache()
 
     class Recorded(cli.Trainer):
         """The CLI's Trainer, keeping the big store as it was before the
@@ -644,7 +675,8 @@ def cli_training_run(phase, what, argv, n_steps, want, big_index):
 
         def __init__(self, *a, **k):
             super().__init__(*a, **k)
-            self.big_before = self.params["emb"][big_index].clone()
+            if big_index is not None:
+                self.big_before = self.params["emb"][big_index].clone()
             made.append(self)
 
         def fit(self, train, test):
@@ -652,27 +684,28 @@ def cli_training_run(phase, what, argv, n_steps, want, big_index):
             return super().fit(train, test)
 
     counters = launch_counters()
-    out = io.StringIO()
+    printed = io.StringIO()
     cli.Trainer = Recorded
     try:
         for c in counters.values():
             c.launches = 0
         t0 = time.perf_counter()
-        with contextlib.redirect_stdout(out):
+        with contextlib.redirect_stdout(printed):
             metrics = cli.main(argv)
         seconds = time.perf_counter() - t0
         launches = {name: c.launches for name, c in counters.items()}
     finally:
         cli.Trainer = Recorded.__base__
-    text = out.getvalue()
+    text = printed.getvalue()
     losses = [float(x) for x in re.findall(r"loss ([-+.\deE]+|nan|inf)", text)]
     for line in text.splitlines():
         if not line.startswith(":::MLLOG"):
             say(phase, f"  cli: {line}")
     if launches != want:
         fail(f"{what}: launched {launches}, want {want}")
-    if len(losses) != n_steps or not all(map(math.isfinite, losses)):
-        fail(f"{what}: losses {losses}, want {n_steps} finite values")
+    n_prints = n_steps if n_prints is None else n_prints
+    if len(losses) != n_prints or not all(map(math.isfinite, losses)):
+        fail(f"{what}: losses {losses}, want {n_prints} finite values")
     # the eval always gives accuracy and streaming_auc; roc_auc with --mlperf-logging
     keys = ("accuracy", "streaming_auc") + ("roc_auc",) * ("--mlperf-logging" in argv)
     for key in keys:
@@ -680,6 +713,13 @@ def cli_training_run(phase, what, argv, n_steps, want, big_index):
             fail(f"{what}: post-training metric {key} = {metrics.get(key)} is missing or "
                  f"not finite")
     trainer = made[0]
+    if out is not None:
+        out.update(trainer=trainer, losses=losses, text=text, metrics=metrics, seconds=seconds)
+    shown = {k: round(v, 6) for k, v in metrics.items() if isinstance(v, float)}
+    if big_index is None:
+        say(phase, f"{what}: {n_steps} steps and an eval in {seconds:.1f} s (host init and "
+                   f"data included); losses {losses}; eval {shown}; launches {launches}")
+        return launches
     group = trainer.groups[big_index]
     tables = torch.tensor(group.table_ids, device="cuda")
     offs = torch.tensor(group.row_offsets, device="cuda")[:, None, None]
@@ -696,7 +736,6 @@ def cli_training_run(phase, what, argv, n_steps, want, big_index):
              f"{int((changed & ~any_live).sum())} of them untouched by a live lookup; "
              f"{int((first_live & ~changed).sum())} of the first batch's "
              f"{int(first_live.sum())} live rows did not change")
-    shown = {k: round(v, 6) for k, v in metrics.items() if isinstance(v, float)}
     say(phase, f"{what}: {n_steps} steps + {n_steps} eval batches in {seconds:.1f} s "
                f"(host init and data included); losses {losses}; eval {shown}; "
                f"{int(changed.sum())} big-store rows changed, all {int(first_live.sum())} "
@@ -2104,6 +2143,454 @@ def captured_eval_throughput(cfg, params, batch, eager_fn):
     return fns["captured"]
 
 
+# ---------------------------------------- real-data paths and checkpoints
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+DATA_DIR = os.path.join(REPO, "build", "chip_smoke_data")  # gitignored, like the kernels
+MLPERF_BATCHES = 32        # batches of 2048 in phase u's train.bin
+MAX_IND_RANGE = 1_000_000  # the tables' cap (40M rows x 128 x 4 B is 96 GB: beyond the card)
+SHORT_TAIL = 1000          # records past the last whole batch of its second file
+KAGGLE_DAY_ROWS = 32_768   # 7 days: the test split (half of day 6) is one batch of 16,384
+KAGGLE_PRINT, KAGGLE_TEST = 256, 512  # multiples of the 16 steps a dispatch
+TRACE_BATCHES = 8
+W_STEPS = 128              # steps a fit in phase w: 8 dispatches of 16, so that the
+                           # prefetch thread's start (its first group) weighs little
+
+
+def bench_flags(script):
+    """The flags of a bench/ script's ``python -m dlrm_yx_tpu.cli`` line,
+    less those that take a shell variable (the data paths)."""
+    with open(os.path.join(REPO, "bench", script)) as f:
+        body = f.read().split("python -m dlrm_yx_tpu.cli", 1)[1].split('"$@"', 1)[0]
+    return [a for a in body.replace("\\\n", " ").split() if "$" not in a]
+
+
+def with_changes(phase, flags, changes=(), drop=()):
+    """``flags`` (``--name=value`` or ``--name``) less the flags named in
+    ``drop``, with each change in place of the flag of its name; each
+    change is printed."""
+    def name(a):
+        return a.split("=", 1)[0]
+
+    out = [a for a in flags if name(a) not in drop]
+    for flag in drop:
+        say(phase, f"  flag change: {flag} dropped")
+    for change in changes:
+        old = [a for a in out if name(a) == name(change)]
+        out = [a for a in out if name(a) != name(change)] + [change]
+        say(phase, f"  flag change: {old[0] if old else '(not given)'} -> {change}")
+    return out
+
+
+class SharedInit:
+    """Runs of one model and seed share one host draw of the tables: the
+    CLI's Trainer draws them on the host (``init_dlrm``, numpy: about 7M
+    rows x 128 for the Terabyte model); the first run keeps its f32 draw on
+    the card and each run gets a copy made there, cast to its store dtype
+    (the values ``init_dlrm`` gives: it draws in f32 and casts)."""
+
+    def __init__(self):
+        import dlrm_yx_tpu_torch.train.trainer as trainer_mod
+
+        self.mod, self.real = trainer_mod, trainer_mod.init_dlrm
+        self.cache, self.draws, self.copies = {}, 0, 0
+
+    def __enter__(self):
+        import dataclasses
+
+        from dlrm_yx_tpu_torch.models.dlrm import DTYPES
+
+        def init(config, seed=123, device=None):
+            key = (tuple(config.emb_rows), tuple(config.emb_dims), config.emb_split_threshold,
+                   tuple(config.ln_bot), tuple(config.ln_top), seed, str(device))
+            if key not in self.cache:
+                f32 = dataclasses.replace(config, emb_dtype="float32")
+                self.cache[key] = self.real(f32, seed=seed, device=device)
+                self.draws += 1
+            self.copies += 1
+            params = clone_tree(self.cache[key])
+            params["emb"] = [e.to(DTYPES[config.emb_dtype]) for e in params["emb"]]
+            return params
+
+        self.mod.init_dlrm = init
+        return self
+
+    def keep_only(self, emb_rows):
+        for key in [k for k in self.cache if k[0] != tuple(emb_rows)]:
+            del self.cache[key]
+
+    def __exit__(self, *exc):
+        import torch
+
+        self.mod.init_dlrm = self.real
+        self.cache.clear()
+        torch.cuda.empty_cache()
+
+
+def pool_mib(pool):
+    """The memory (MiB) of one CUDA-graph memory pool."""
+    import torch
+
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", (0, 0))) == tuple(pool)) / 2**20
+
+
+def write_mlperf_bin(path, n_records, seed):
+    """``path``: ``n_records`` records of the MLPerf binary format (40
+    int32 a record: label, 13 dense, 26 categorical), ids per table drawn
+    from a seeded power law over the Terabyte raw counts; beside it
+    ``{path}_fea_count.npz`` with those counts."""
+    import numpy as np
+
+    from dlrm_yx_tpu_torch.config import DLRMConfig
+
+    raw = DLRMConfig.terabyte_mlperf(max_ind_range=2**31 - 1).emb_rows
+    rng = np.random.RandomState(seed)
+    rec = np.empty((n_records, 40), np.int32)
+    rec[:, 0] = rng.random_sample(n_records) < 0.25
+    rec[:, 1:14] = rng.poisson(3.0, (n_records, 13))
+    a = 1.15  # Zipf-like: rank r drawn with density ~ r^-a (synth_kaggle's law)
+    for j, m in enumerate(raw):
+        r = (1.0 - rng.random_sample(n_records) * (1.0 - m ** (1.0 - a))) ** (1.0 / (1.0 - a))
+        rec[:, 14 + j] = np.minimum(r.astype(np.int64) - 1, m - 1)
+    rec.tofile(path)
+    np.savez(f"{path}_fea_count.npz", counts=np.asarray(raw, np.int32))
+
+
+def check_graphs(phase, what, graph_step, short_rows):
+    """Each graph (one a batch shape) of ``graph_step``: its replays and its
+    memory pool. The graph of the ``short_rows``-row batch must have
+    replayed."""
+    short = 0
+    for key, slot in graph_step._slots.items():
+        rows = key[0][-2]
+        mib = pool_mib(slot.graph.pool()) if slot.graph is not None else 0.0
+        say(phase, f"  {what}, batch of shape {key[0][:-1]} (dense): {slot.replays} replays, "
+                   f"graph pool {mib:.1f} MiB")
+        if rows == short_rows:
+            short += slot.replays
+    if short < 1:
+        fail(f"{what}: the graph of the {short_rows}-row batch never replayed")
+
+
+def mlperf_bin_main_path(rows):
+    """Phase u.1: bench/run_and_time.sh's command line through the port's
+    CLI on a written train.bin (SGD, binary loader with its shuffle): K1
+    per step and eval batch, K2 per step; then a file with a short last
+    batch at one step a dispatch over two epochs, so that the short batch
+    is warmed up, captured and replayed (train and eval)."""
+    import math
+
+    t0 = time.perf_counter()
+    os.makedirs(DATA_DIR, exist_ok=True)
+    path = os.path.join(DATA_DIR, "train.bin")
+    short = os.path.join(DATA_DIR, "train_short.bin")
+    write_mlperf_bin(path, MLPERF_BATCHES * BATCH, seed=2)
+    write_mlperf_bin(short, MLPERF_BATCHES * BATCH + SHORT_TAIL, seed=2)  # path's, and more
+    say("data", f"wrote {path} ({MLPERF_BATCHES} x {BATCH} records) and {short} "
+                f"({SHORT_TAIL} more) in {time.perf_counter() - t0:.1f} s")
+    flags = with_changes("data", bench_flags("run_and_time.sh"), [
+        f"--max-ind-range={MAX_IND_RANGE}",
+        f"--print-freq={MLPERF_BATCHES // 2}", f"--test-freq={MLPERF_BATCHES}",
+        "--interaction-impl=pallas"])
+    say("data", "  and no --processed-data-file: the JAX CLI hands it to np.load as the "
+                "counts file, which raises (ROADMAP Queue C); eval reads the train file")
+    want = only(fused_interaction=2 * MLPERF_BATCHES, sparse_rows_overwrite=MLPERF_BATCHES)
+    out = {}
+    cli_training_run("data", f"cli bench/run_and_time.sh flags, binary loader + shuffle, 26 "
+                             f"tables <=1M rows x 128, B={BATCH}, L=1, bf16, sgd, pallas",
+                     flags + [f"--raw-data-file={path}"], MLPERF_BATCHES, want, big_index=1,
+                     n_prints=2, out=out)
+    check_graphs("data", "train step", out["trainer"].multi_step.graph_step, BATCH)
+    out = {}
+    n = MLPERF_BATCHES + 1
+    argv = with_changes("data", flags, [f"--raw-data-file={short}", "--steps-per-dispatch=1",
+                                        "--nepochs=2"])
+    # the short batch (1000 rows, not a multiple of 64) takes the plain interaction
+    want = only(fused_interaction=4 * MLPERF_BATCHES, sparse_rows_overwrite=2 * n)
+    cli_training_run("data", f"the same on {n} batches, the last of {SHORT_TAIL} rows, one "
+                             "step a replay, 2 epochs (a new batch order each)",
+                     argv, 2 * n, want, big_index=1, n_prints=2 * n // (MLPERF_BATCHES // 2),
+                     out=out)
+    trainer = out["trainer"]
+    check_graphs("data", "train step (N=1)", trainer.train_step.graph_step, SHORT_TAIL)
+    check_graphs("data", "eval step", trainer.eval_step.graph_step, SHORT_TAIL)
+    if not all(map(math.isfinite, out["losses"])):
+        fail(f"short-batch run: losses {out['losses']}")
+    say("data", f"phase u.1 in {time.perf_counter() - t0:.1f} s")
+
+
+def final_bits(trainer):
+    """The trainer's params and optimizer state on the host, as bits."""
+    return [bits(t.detach()).cpu() for t in leaves((trainer.params, trainer.opt_state))]
+
+
+def kaggle_main_path():
+    """Phase u.2 and v: bench/dlrm_tpu_criteo_kaggle.sh's command line on a
+    written Kaggle TSV (preprocessed on first touch by the native parser),
+    then with --memory-map (the same losses and params, bit for bit), then
+    checkpoints: a run stopped at its first eval saves the best checkpoint,
+    a run resumed from it gives the uninterrupted run's losses and params
+    bit for bit, and --inference-only --load-model serves it with the
+    metrics of the eval that saved it. Deterministic algorithms on."""
+    import contextlib
+    import io
+    import json
+    import shutil
+
+    import torch
+
+    from dlrm_yx_tpu_torch import cli
+    from dlrm_yx_tpu_torch.data import fastparse, synth_kaggle
+    from dlrm_yx_tpu_torch.data.criteo import convert_days_to_memmap
+
+    t0 = time.perf_counter()
+    d = os.path.join(DATA_DIR, "kaggle")
+    shutil.rmtree(d, ignore_errors=True)  # preprocess on first touch, every run
+    os.makedirs(d)
+    txt, prefix = os.path.join(d, "train.txt"), os.path.join(d, "kaggle")
+    stats = synth_kaggle.generate(txt, 7 * KAGGLE_DAY_ROWS, seed=0)
+    say("data", f"synth_kaggle: {stats['rows']} rows, ctr {stats['ctr']:.4f}, in "
+                f"{stats['gen_seconds']:.1f} s; vocabularies scaled down (at most "
+                f"{max(synth_kaggle.VOCAB_SIZES):,} rows a table; Kaggle's run to 10M)")
+    flags = with_changes("data", bench_flags("dlrm_tpu_criteo_kaggle.sh"), [
+        f"--print-freq={KAGGLE_PRINT}", f"--test-freq={KAGGLE_TEST}",
+        "--mlperf-acc-threshold=0",  # no early stop: the resume check needs the whole run
+        f"--raw-data-file={txt}", f"--processed-data-file={prefix}"])
+    steps = 6 * KAGGLE_DAY_ROWS // 128
+    n_prints = steps // KAGGLE_PRINT
+    what = (f"cli bench/dlrm_tpu_criteo_kaggle.sh flags, Kaggle TSV -> npz, 26 tables x 16, "
+            f"B=128, test batch 16384, sgd, xla (no kernel: D=16)")
+    parsed = fastparse.calls["parse_raw_tsv"]
+    runs = {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for name, extra, n, k in (("first", [], steps, n_prints),
+                                  ("memory-map", ["--memory-map"], steps, n_prints)):
+            if name == "memory-map":
+                convert_days_to_memmap(prefix, 7)
+            out = {}
+            cli_training_run("data", f"{what}, {name} run", flags + extra, n, only(), None,
+                             n_prints=k, out=out)
+            runs[name] = (out["losses"], out["metrics"], final_bits(out["trainer"]),
+                          out["text"])
+            if name == "first":  # the graphs of the B=128 steps and the 16,384-row eval
+                check_graphs("data", "train step", out["trainer"].multi_step.graph_step, 128)
+                check_graphs("data", "eval step", out["trainer"].eval_step.graph_step, 16_384)
+                if fastparse.calls["parse_raw_tsv"] != parsed + 7 or "preprocessing" not in \
+                        out["text"]:
+                    fail("the Kaggle run did not preprocess with the native parser: "
+                         f"{fastparse.calls['parse_raw_tsv'] - parsed} native parses")
+                say("data", f"  preprocessed on first touch: "
+                            f"{[l for l in out['text'].splitlines() if 'stage seconds' in l]}")
+            del out
+        same_run("memory-map run against the first", runs["memory-map"], runs["first"])
+        say("data", f"phase u.2 in {time.perf_counter() - t0:.1f} s")
+
+        t1 = time.perf_counter()
+        ckpt = os.path.join(d, "ckpt")
+        out = {}
+        cli_training_run("checkpoint", f"{what}, saving the best checkpoint and stopping at "
+                                       "the first eval", flags + [
+                             f"--save-model={ckpt}", "--mlperf-acc-threshold=1e-9"],
+                         KAGGLE_TEST, only(), None, n_prints=KAGGLE_TEST // KAGGLE_PRINT,
+                         out=out)
+        with open(os.path.join(ckpt, "meta.json")) as f:
+            meta = json.load(f)
+        if meta["iteration"] != KAGGLE_TEST or out["losses"] != runs["first"][0][:2]:
+            fail(f"checkpoint at iteration {meta['iteration']} (want {KAGGLE_TEST}); losses "
+                 f"{out['losses']} against the first run's {runs['first'][0][:2]}")
+        out = {}
+        cli_training_run("checkpoint", f"{what}, resumed from it", flags + [
+                             f"--load-model={ckpt}"], steps - KAGGLE_TEST, only(), None,
+                         n_prints=n_prints - KAGGLE_TEST // KAGGLE_PRINT, out=out)
+        if f"Resumed checkpoint at epoch 0 iteration {KAGGLE_TEST}" not in out["text"]:
+            fail("the resumed run did not resume at the saved iteration")
+        resumed = (out["losses"], out["metrics"], final_bits(out["trainer"]), out["text"])
+        first = runs["first"]
+        same_run("resumed run against the uninterrupted run from the saved iteration on",
+                 resumed, (first[0][KAGGLE_TEST // KAGGLE_PRINT:],) + first[1:])
+        del out
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            served = cli.main(flags + [f"--load-model={ckpt}", "--inference-only"])
+        if served != meta["metrics"]:
+            fail(f"--inference-only --load-model: {served}, the saving eval {meta['metrics']}")
+        say("checkpoint", f"--inference-only --load-model: metrics {served}, equal to those "
+                          "of the eval that saved the checkpoint")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    say("checkpoint", f"phase v in {time.perf_counter() - t1:.1f} s")
+
+
+def same_run(what, got, want):
+    """Two runs' (losses, metrics, final params bits, output): equal."""
+    import torch
+
+    differ = [i for i, (a, b) in enumerate(zip(got[2], want[2])) if not torch.equal(a, b)]
+    if got[0] != want[0] or got[1] != want[1] or differ or len(got[2]) != len(want[2]):
+        fail(f"{what}: losses {got[0]} against {want[0]}, metrics {got[1]} against "
+             f"{want[1]}, {len(differ)} tensors differ")
+    say("checkpoint" if "resumed" in what else "data",
+        f"  {what}: losses {got[0]}, eval metrics and all {len(got[2])} params and optimizer "
+        "tensors equal bit for bit")
+
+
+def trace_main_path(rows):
+    """Phase u.3: --data-generation synthetic on the shipped stack-distance
+    files at item 1's flags (run_and_time.sh's, SGD, L=1, 1M-capped tables),
+    then with RWSAdagrad (the density measured on the first batch makes it
+    coalesce first: K2 sees unique rows, K3 finishes the small tables).
+    Returns the trace batches."""
+    import re
+
+    import numpy as np
+
+    from dlrm_yx_tpu_torch import cli
+
+    t0 = time.perf_counter()
+    made = {}
+    real = cli.make_trace_batches
+
+    def cached(*a, **k):  # one draw for both runs (and phase w): same seed, same batches
+        key = repr((a, sorted(k.items())))
+        if key not in made:
+            t = time.perf_counter()
+            made[key] = real(*a, **k)
+            say("data", f"  make_trace_batches: {len(made[key])} batches in "
+                        f"{time.perf_counter() - t:.1f} s (host)")
+        return made[key]
+
+    cli.make_trace_batches = cached
+    try:
+        for optimizer, want in (
+                ("sgd", only(fused_interaction=2 * TRACE_BATCHES,
+                             sparse_rows_overwrite=TRACE_BATCHES)),
+                ("rwsadagrad", only(fused_interaction=2 * TRACE_BATCHES,
+                                    sparse_rows_overwrite=TRACE_BATCHES,
+                                    rwsadagrad_dense_finish=TRACE_BATCHES))):
+            flags = with_changes("data", bench_flags("run_and_time.sh"), [
+                "--data-generation=synthetic", f"--arch-embedding-size={'-'.join(map(str, rows))}",
+                f"--data-trace-file={os.path.join(REPO, 'input', 'dist_emb_j.log')}",
+                f"--num-batches={TRACE_BATCHES}", "--num-indices-per-lookup=1",
+                "--print-freq=4", f"--test-freq={TRACE_BATCHES}", "--interaction-impl=pallas",
+                f"--optimizer={optimizer}", f"--max-ind-range={MAX_IND_RANGE}"],
+                drop=("--data-set", "--mlperf-bin-loader", "--mlperf-bin-shuffle"))
+            out = {}
+            cli_training_run("data", f"cli trace path (stack-distance files "
+                                     f"input/dist_emb_{{0,1,2}}.log over 26 tables <=1M rows x "
+                                     f"128), B={BATCH}, L=1, bf16, {optimizer}, pallas", flags,
+                             TRACE_BATCHES, want, big_index=1, n_prints=TRACE_BATCHES // 4,
+                             out=out)
+            hint = re.findall(r"duplicate-density hint from first batch: ([.\d]+)", out["text"])
+            say("data", f"  density hint the CLI measured on the first batch: {hint}")
+            del out
+    finally:
+        cli.make_trace_batches = real
+    (batches,) = made.values()
+    distinct = np.array([[len(np.unique(b.indices[t])) for t in range(len(rows))]
+                         for b in batches])  # [batch, table]
+    say("data", f"  distinct rows a table in a batch of {BATCH}: min {distinct.min()}, median "
+                f"{int(np.median(distinct))}, max {distinct.max()}; per table (mean over the "
+                f"batches) {distinct.mean(0).round(1).tolist()}")
+    say("data", f"phase u.3 in {time.perf_counter() - t0:.1f} s")
+    return batches
+
+
+def check_native_parser():
+    """Phase u.4: the native data-path library was built and ran."""
+    from dlrm_yx_tpu_torch.data import fastparse
+
+    so = fastparse.lib_path()
+    if not fastparse.available() or not so.exists() or not fastparse.calls["parse_raw_tsv"] \
+            or not fastparse.calls["read_bin_batch"]:
+        fail(f"native data path: built {so.exists()}, calls {fastparse.calls}")
+    say("data", f"native parser {os.path.relpath(so, REPO)} built with g++ and used: "
+                f"{fastparse.calls}")
+
+
+def real_data_feeds(rows, trace_batches):
+    """Phase w: the captured N=16 L=1 train step of item 1's flags (SGD lr
+    1.0 with run_and_time.sh's LR policy, bf16, pallas, pallas
+    interaction) through ``Trainer.fit`` with the prefetch thread, fed in
+    turns with random host batches, the binary loader (a file of W_STEPS
+    batches written like phase u.1's) and trace batches (phase u.3's,
+    repeated), W_STEPS steps a fit; CUDA events are not used: the fit's
+    wall time (it fetches its losses at the end) over its steps. Returns
+    (fit, feeds) for the profiles."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from dlrm_yx_tpu_torch.config import DLRMConfig
+    from dlrm_yx_tpu_torch.data.batch import Batch
+    from dlrm_yx_tpu_torch.data.criteo_bin import CriteoBinLoader
+    from dlrm_yx_tpu_torch.optim.lr_policy import LRPolicy
+    from dlrm_yx_tpu_torch.optim.optimizer import OptConfig
+    from dlrm_yx_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = DLRMConfig.build(
+        emb_rows=rows, ln_bot=(13, 512, 256, 128), ln_top=(1024, 1024, 512, 256, 1),
+        loss="bce", compute_dtype="bfloat16", sparse_update_impl="pallas",
+        interaction_impl="pallas")
+    policy = LRPolicy(base_lr=1.0, num_warmup_steps=2750, decay_start_step=49315,
+                      num_decay_steps=27772)
+    trainer = Trainer(cfg, OptConfig("sgd", 1.0), TrainerConfig(
+        print_freq=0, steps_per_dispatch=N_DISPATCH, prefetch_depth=2), policy)
+    rng = np.random.RandomState(7)
+    n_rows = np.asarray(rows, np.float64)[:, None, None]
+    bin_path = os.path.join(DATA_DIR, "feed.bin")
+    write_mlperf_bin(bin_path, W_STEPS * BATCH, seed=3)
+    feeds = {
+        "random host batches": [Batch(
+            rng.random_sample((BATCH, 13)).astype(np.float32),
+            (rng.random_sample((len(rows), BATCH, 1)) * n_rows).astype(np.int32),
+            np.ones((len(rows), BATCH, 1), np.float32),
+            (rng.random_sample((BATCH, 1)) < 0.25).astype(np.float32)) for _ in range(W_STEPS)],
+        "binary loader": CriteoBinLoader(bin_path, batch_size=BATCH,
+                                         max_ind_range=MAX_IND_RANGE, shuffle_seed=123),
+        "trace batches": list(trace_batches) * (W_STEPS // len(trace_batches)),
+    }
+
+    def fit(feed):
+        with contextlib.redirect_stdout(io.StringIO()):
+            trainer.fit(feed)
+
+    for _ in range(2):  # eager warm-up dispatch, capture, then replays
+        for feed in feeds.values():
+            fit(feed)
+    times = {name: [] for name in feeds}
+    for name in list(feeds) + list(reversed(feeds)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fit(feeds[name])
+        torch.cuda.synchronize()
+        times[name].append((time.perf_counter() - t0) * 1e3)
+    for t in leaves(trainer.params):
+        if not bool(torch.isfinite(t).all()):
+            fail("phase w: a parameter is not finite after the fits")
+    for name, ts in times.items():
+        ms = statistics.mean(ts) / len(feeds[name])
+        say("throughput", f"L=1 train step (sgd lr 1.0 + run_and_time.sh's LR policy, bf16, "
+                          f"pallas, captured N={N_DISPATCH}, prefetch 2) fed {name}: "
+                          f"{ms:.4f} ms/step ({BATCH / ms * 1e3:.0f} examples/s); fit wall "
+                          f"for {len(feeds[name])} steps {ts} ms")
+    return fit, feeds
+
+
+def profile_real_data(fit, feeds):
+    """Phase w's profiles: one window per feed (10 fits of W_STEPS steps),
+    with K2's device time a step."""
+    for name, feed in feeds.items():
+        per_kernel = profile_step(lambda: fit(feed), f"L=1 sgd train (captured N={N_DISPATCH}, "
+                                  f"Trainer.fit fed {name})", (), steps=len(feed))
+        k2 = sum(v for k, v in per_kernel.items() if "row_plan" in k)
+        profile_by_kind(per_kernel, L1_KINDS)
+        say("profile", f"  K2 (row plan) device time fed {name}: {k2:.5f} ms/step")
+
+
 def main():
     import re
 
@@ -2153,11 +2640,24 @@ def main():
     # benchmark (K5), its batch-4096 RWSAdagrad run (K6) and training on
     # bf16 stores with stochastic rounding (K4)
     rows = DLRMConfig.terabyte_mlperf(max_ind_range=1_000_000).emb_rows
-    serve_main_path(rows)
-    launches = train_main_path(rows, big_index=1)
-    l100_launches = benchmark_main_path()
-    big_launches = big_batch_main_path()
-    bf16_launches = train_bf16_sr_main_path(rows, big_index=1)
+    with SharedInit() as shared:
+        serve_main_path(rows)
+        launches = train_main_path(rows, big_index=1)
+        l100_launches = benchmark_main_path()
+        big_launches = big_batch_main_path()
+        bf16_launches = train_bf16_sr_main_path(rows, big_index=1)
+
+        # u, v. the real-data paths (MLPerf binary file, Kaggle TSV -> npz,
+        # stack-distance traces) and checkpoints; w. their feeds' throughput,
+        # timed here, before any profiler session
+        mlperf_bin_main_path(rows)
+        kaggle_main_path()
+        trace_batches = trace_main_path(rows)
+        check_native_parser()
+        shared.keep_only(rows)
+        fit, feeds = real_data_feeds(rows, trace_batches)
+        say("data", f"CLI runs and phase w drew the tables on the host {shared.draws} times "
+                    f"for {shared.copies} models")
 
     # 5, c, i, o. the eval and train steps against the CPU on a small input
     check_against_cpu()
@@ -2223,6 +2723,8 @@ def main():
         elif name.startswith("capacity"):
             profile_by_kind(per_kernel, CAPACITY_KINDS)
     del captured
+    profile_real_data(fit, feeds)
+    del fit, feeds
 
     # q. device operations per wrapper call
     count_device_ops(big, cap_big)

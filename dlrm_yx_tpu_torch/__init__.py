@@ -10,10 +10,12 @@ hand-written CUDA kernel under ``csrc/``, built at first use by
 
 Ported so far: the single-device training path (``cli`` ->
 ``Trainer.fit`` -> ``make_train_step``, with the optimizers and their
-sparse-update routing in ``optim/``) and the serving path (``cli
---inference-only`` -> ``Trainer.evaluate`` -> ``make_eval_step``), with
-three kernels: the fused dot interaction, the write-only sparse row update
-and the fused RWSAdagrad finish. Entry points run on ``cuda`` unless the
-caller passes ``device="cpu"``. The package imports nothing of JAX or
+sparse-update routing in ``optim/``, its steps replayed from CUDA graphs
+in ``train/capture.py``) and the serving path (``cli --inference-only``
+-> ``Trainer.evaluate`` -> ``make_eval_step``), on random, trace-driven
+(``data/trace.py``) or Criteo data (``data/criteo.py``,
+``data/criteo_bin.py``), with checkpoints (``train/checkpoint.py``), and
+all six kernels (K1–K6). Entry points run on ``cuda`` unless the caller
+passes ``device="cpu"``. The package imports nothing of JAX or
 ``dlrm_yx_tpu``.
 """

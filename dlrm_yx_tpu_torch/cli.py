@@ -1,7 +1,16 @@
-"""Command-line entry point: train or serve a DLRM over random data.
+"""Command-line entry point: train or serve a DLRM.
 
 The port of the single-device training and ``--inference-only`` paths of
-``dlrm_yx_tpu/cli.py``. The flags keep the JAX package's names, defaults
+``dlrm_yx_tpu/cli.py``, on random data (``--data-generation random`` or
+``random-device``), stack-distance trace data (``synthetic``, from
+``--data-trace-file``) or a Criteo dataset (``dataset``: the Kaggle /
+Terabyte TSV preprocessed on first touch into day npz files, read by
+``CriteoNpzLoader`` with ``--memory-map`` optional, or the MLPerf binary
+file with ``--mlperf-bin-loader [--mlperf-bin-shuffle]``). In dataset mode
+the table rows come from ``{prefix}_fea_count.npz``, capped by
+``--max-ind-range``. ``--save-model`` saves the best checkpoint at each
+eval, ``--load-model`` resumes from one (or serves it with
+``--inference-only``). The flags keep the JAX package's names, defaults
 and meaning; one flag is new, ``--device`` (``cuda`` by default; ``cpu``
 for the tests). Flags of parts not yet ported are still recognised, and
 giving any of them raises ``NotImplementedError`` instead of being
@@ -28,16 +37,26 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
+import sys
+import time
 
 import numpy as np
 import torch
 
 from dlrm_yx_tpu_torch.config import DLRMConfig, parse_int_list
+from dlrm_yx_tpu_torch.data.criteo import (
+    CriteoNpzLoader,
+    preprocess_criteo,
+    split_kaggle_train_txt,
+)
+from dlrm_yx_tpu_torch.data.criteo_bin import CriteoBinLoader
 from dlrm_yx_tpu_torch.data.synthetic import (
     RandomDataConfig,
     make_device_random_batches,
     make_random_batches,
 )
+from dlrm_yx_tpu_torch.data.trace import make_trace_batches
 from dlrm_yx_tpu_torch.optim.lr_policy import LRPolicy
 from dlrm_yx_tpu_torch.optim.optimizer import OptConfig
 from dlrm_yx_tpu_torch.train.trainer import Trainer, TrainerConfig
@@ -48,20 +67,16 @@ from dlrm_yx_tpu_torch.utils.logging import rank0_print
 UNPORTED_FLAGS = (
     "weighted-pooling", "md-flag", "md-threshold", "md-temperature",
     "md-round-dims", "qr-flag", "qr-threshold", "qr-operation",
-    "qr-collisions", "data-trace-file", "data-set",
-    "raw-data-file", "processed-data-file", "load-processed",
-    "data-randomize", "data-trace-enable-padding",
-    "data-sub-sample-rate", "memory-map", "mlperf-bin-loader",
-    "mlperf-bin-shuffle", "print-precision",
-    "dataset-multiprocessing", "force-cpu-devices",
-    "distributed", "mesh-data", "mesh-model", "shard-mode",
-    "sharder", "allocation", "debug-mode",
+    "qr-collisions", "load-processed", "print-precision",
+    "force-cpu-devices", "distributed", "mesh-data", "mesh-model",
+    "shard-mode", "sharder", "allocation", "debug-mode",
     "enable-profiling", "profile-out-dir", "plot-compute-graph",
-    "tensor-board-filename", "save-model", "load-model", "ckpt-backend",
-    "save-onnx", "quantize-mlp-with-bit",
-    "quantize-emb-with-bit", "collect-execution-graph",
-    "test-mini-batch-size", "print-wall-time",
+    "save-onnx", "quantize-mlp-with-bit", "quantize-emb-with-bit",
+    "collect-execution-graph",
 )
+# --data-generation values ported; "processed" (--load-processed) waits for
+# per-table dims (mixed-dimension embeddings)
+DATA_GENERATIONS = ("random", "random-device", "synthetic", "dataset")
 
 
 def add_noop_flags(p: argparse.ArgumentParser) -> None:
@@ -101,12 +116,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--loss-weights", type=str, default="1.0-1.0")  # for wbce
     p.add_argument("--loss-threshold", type=float, default=0.0)
     p.add_argument("--round-targets", type=bool, default=False)
-    # data (random only)
+    # data
     p.add_argument("--data-size", type=int, default=1)
     p.add_argument("--num-batches", type=int, default=0)
     p.add_argument("--data-generation", type=str, default="random",
-                   help="random (numpy, on the host) or random-device (drawn on "
-                        "the device)")
+                   help="random (numpy, on the host) | random-device (drawn on "
+                        "the device) | synthetic (stack-distance traces) | "
+                        "dataset (Criteo)")
     p.add_argument("--rand-data-dist", type=str, default="uniform")  # or gaussian
     p.add_argument("--rand-data-min", type=float, default=0)
     p.add_argument("--rand-data-max", type=float, default=1)
@@ -114,7 +130,22 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--rand-data-sigma", type=float, default=1)
     p.add_argument("--num-indices-per-lookup", type=int, default=10)
     p.add_argument("--num-indices-per-lookup-fixed", type=bool, default=False)
+    p.add_argument("--data-trace-file", type=str, default="./input/dist_emb_j.log",
+                   help="synthetic: per-table stack-distance files, 'j' = the "
+                        "table id (wrapped over the files present)")
+    p.add_argument("--data-trace-enable-padding", type=bool, default=False)
+    p.add_argument("--data-set", type=str, default="kaggle")  # or terabyte
+    p.add_argument("--raw-data-file", type=str, default="")
+    p.add_argument("--processed-data-file", type=str, default="")
+    p.add_argument("--data-randomize", type=str, default="total")  # none, day or total
+    p.add_argument("--data-sub-sample-rate", type=float, default=0.0)
+    p.add_argument("--memory-map", action="store_true", default=False)
+    p.add_argument("--mlperf-bin-loader", action="store_true", default=False)
+    p.add_argument("--mlperf-bin-shuffle", action="store_true", default=False)
+    p.add_argument("--dataset-multiprocessing", action="store_true", default=False,
+                   help="parse the raw day files in parallel processes")
     p.add_argument("--mini-batch-size", type=int, default=1)
+    p.add_argument("--test-mini-batch-size", type=int, default=-1)
     p.add_argument("--numpy-rand-seed", type=int, default=123)
     # execution
     p.add_argument("--lookup-impl", type=str, default="xla", choices=["xla", "pallas"],
@@ -138,8 +169,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default; raises when absent) or cpu")
     p.add_argument("--max-ind-range", type=int, default=-1,
-                   help="caps table rows in dataset mode, as in the JAX CLI; "
-                        "random data takes --arch-embedding-size as it is")
+                   help="caps table rows in dataset mode (ids taken mod it), as "
+                        "in the JAX CLI; random and trace data take "
+                        "--arch-embedding-size as it is")
     # training
     p.add_argument("--nepochs", type=int, default=1)
     p.add_argument("--learning-rate", type=float, default=0.01)
@@ -165,6 +197,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--print-freq", type=int, default=1)
     p.add_argument("--print-time", action="store_true", default=False,
                    help="accepted for parity with the JAX CLI; no effect")
+    p.add_argument("--print-wall-time", action="store_true", default=False)
+    # store/load model, scalars
+    p.add_argument("--save-model", type=str, default="")
+    p.add_argument("--load-model", type=str, default="")
+    p.add_argument("--ckpt-backend", type=str, default="npz", choices=["npz", "orbax"],
+                   help="npz (the port's only backend; orbax is a JAX library "
+                        "and raises)")
+    p.add_argument("--tensor-board-filename", type=str, default="")
     p.add_argument("--test-freq", type=int, default=-1)
     # mlperf
     p.add_argument("--inference-only", action="store_true", default=False)
@@ -194,16 +234,44 @@ def check_ported(args) -> None:
             raise NotImplementedError(
                 f"--{flag} is not yet ported to dlrm_yx_tpu_torch"
             )
-    if args.data_generation not in ("random", "random-device"):
+    if args.data_generation not in DATA_GENERATIONS:
         raise NotImplementedError(
             f"--data-generation={args.data_generation} is not yet ported "
-            "(random and random-device only)"
+            f"({', '.join(DATA_GENERATIONS)} only)"
         )
 
 
-def config_from_args(args) -> DLRMConfig:
+def dataset_prefix(args) -> str:
+    """The day-file prefix of dataset mode (a bin run's ``--raw-data-file``
+    is its ``train.bin``; its counts npz, when present, sits at that
+    prefix)."""
+    return args.processed_data_file or args.raw_data_file
+
+
+def config_from_args(args, argv=None) -> DLRMConfig:
+    rows = parse_int_list(args.arch_embedding_size)
+    if args.data_generation == "dataset":
+        # dataset mode derives table sizes from the preprocessed feature
+        # counts, clamped to --max-ind-range, not from --arch-embedding-size
+        # (dlrm_s_pytorch.py:1388-1400). Preprocesses raw data on first
+        # touch so the counts exist; takes the arch flag only when no
+        # dataset files are reachable.
+        if not args.mlperf_bin_loader:
+            ensure_preprocessed(args)
+        prefix = dataset_prefix(args)
+        cf = f"{prefix}_fea_count.npz" if prefix else ""
+        if cf and os.path.exists(cf):
+            flag_rows = rows
+            with np.load(cf) as d:
+                rows = [int(n) for n in d["counts"]]
+            if args.max_ind_range > 0:
+                rows = [min(n, args.max_ind_range) for n in rows]
+            if flag_rows not in ([], rows) and "--arch-embedding-size" in (
+                    sys.argv if argv is None else argv):
+                rank0_print(f"note: dataset feature counts override "
+                            f"--arch-embedding-size ({len(rows)} tables from {cf})")
     return DLRMConfig.build(
-        emb_rows=parse_int_list(args.arch_embedding_size),
+        emb_rows=rows,
         ln_bot=parse_int_list(args.arch_mlp_bot),
         ln_top=parse_int_list(args.arch_mlp_top),
         interaction=args.arch_interaction_op,
@@ -223,11 +291,64 @@ def config_from_args(args) -> DLRMConfig:
     )
 
 
+def ensure_preprocessed(args) -> None:
+    """Preprocess the raw Criteo TSV on first touch, like the reference
+    (CriteoDataset.__init__ -> getCriteoAdData). Idempotent; called before
+    the model is built so the feature counts exist for the table rows."""
+    prefix = dataset_prefix(args)
+    if not prefix or os.path.exists(f"{prefix}_day_count.npz"):
+        return
+    if not args.raw_data_file or not os.path.exists(args.raw_data_file):
+        return
+    days = 7 if args.data_set == "kaggle" else 24
+    rank0_print(f"preprocessing {args.raw_data_file} -> {prefix} ...")
+    day_files = split_kaggle_train_txt(args.raw_data_file, days)
+    info = preprocess_criteo(
+        day_files, prefix,
+        max_ind_range=args.max_ind_range,
+        sub_sample_rate=args.data_sub_sample_rate,
+        randomize=args.data_randomize,
+        seed=args.numpy_rand_seed,
+        nprocs=(os.cpu_count() or 1) if args.dataset_multiprocessing else 1,
+    )
+    rank0_print(f"preprocess stage seconds: {info['stage_seconds']}")
+
+
 def make_data(args, cfg: DLRMConfig, train: bool = True):
-    """The JAX CLI's random batches: (train, test), test drawn with
-    seed + 1; without ``train`` only the test batches are drawn (train is
-    None). ``random-device`` batches are drawn on ``--device``."""
+    """(train, test) as the JAX CLI makes them. Random batches: test drawn
+    with seed + 1; without ``train`` only the test batches are drawn (train
+    is None); ``random-device`` batches are drawn on ``--device``. Trace
+    batches (``synthetic``) and the binary loader serve as their own test
+    set. Dataset mode: ``CriteoNpzLoader`` train and test splits (test at
+    ``--test-mini-batch-size``), or ``CriteoBinLoader`` over
+    ``--raw-data-file`` with ``--processed-data-file`` as its counts file,
+    as in the JAX CLI (which makes the reference's MLPerf command line fail
+    there: ROADMAP Queue C)."""
     nb = args.num_batches or int(np.ceil(args.data_size / args.mini_batch_size))
+    if args.data_generation == "synthetic":
+        batches = make_trace_batches(
+            args.data_trace_file, cfg.emb_rows, cfg.ln_bot[0], args.mini_batch_size, nb,
+            args.num_indices_per_lookup, args.num_indices_per_lookup_fixed,
+            seed=args.numpy_rand_seed, enable_padding=args.data_trace_enable_padding)
+        return batches, batches
+    if args.data_generation == "dataset":
+        if args.mlperf_bin_loader:
+            loader = CriteoBinLoader(
+                args.raw_data_file, args.processed_data_file or None,
+                batch_size=args.mini_batch_size, max_ind_range=args.max_ind_range,
+                shuffle_seed=args.numpy_rand_seed if args.mlperf_bin_shuffle else None)
+            return loader, loader
+        days = 7 if args.data_set == "kaggle" else 24
+        prefix = dataset_prefix(args)
+        ensure_preprocessed(args)
+        tb = args.test_mini_batch_size if args.test_mini_batch_size > 0 else args.mini_batch_size
+        test = CriteoNpzLoader(prefix, days, tb, split="test", max_ind_range=args.max_ind_range,
+                               memory_map=args.memory_map)
+        if not train:
+            return None, test
+        return CriteoNpzLoader(prefix, days, args.mini_batch_size, split="train",
+                               max_ind_range=args.max_ind_range,
+                               memory_map=args.memory_map), test
     if args.data_generation == "random-device":
         def device_batches(seed):
             return make_device_random_batches(
@@ -254,11 +375,18 @@ def make_data(args, cfg: DLRMConfig, train: bool = True):
 def _measure_dup_density(cfg: DLRMConfig, train):
     """Unique rows per occurrence of the big (kernel-eligible) tables on
     the first batch: the measured statistic behind the dense-vs-kernel
-    routing (``config.dup_density_hint``). None when there is no big table
-    or no batch. A batch drawn on the device is copied to the host once."""
-    if not train:
+    routing (``config.dup_density_hint``). The first batch is ``train[0]``
+    where the source has ``__getitem__`` (a list, or the binary loader,
+    through its shuffle order), else the first one it iterates. None when
+    there is no big table or no batch. A batch drawn on the device is
+    copied to the host once."""
+    if train is None:
         return None
-    idx = torch.as_tensor(train[0].indices).cpu().numpy()  # [T, B, L]
+    try:
+        b0 = train[0] if hasattr(train, "__getitem__") else next(iter(train))
+    except (IndexError, StopIteration):  # no batch
+        return None
+    idx = torch.as_tensor(b0.indices).cpu().numpy()  # [T, B, L]
     thr = cfg.emb_split_threshold or 0
     big = [t for t, n in enumerate(cfg.emb_rows) if not thr or n > thr]
     if not big:
@@ -275,7 +403,7 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     check_ported(args)
     np.random.seed(args.numpy_rand_seed)
-    cfg = config_from_args(args)
+    cfg = config_from_args(args, argv)
     opt = OptConfig(name=args.optimizer, lr=args.learning_rate)
     lr_policy = None
     if args.lr_num_warmup_steps or args.lr_num_decay_steps:
@@ -292,6 +420,10 @@ def main(argv=None):
         mlperf_logging=args.mlperf_logging,
         mlperf_acc_threshold=args.mlperf_acc_threshold,
         mlperf_auc_threshold=args.mlperf_auc_threshold,
+        save_path=args.save_model,
+        load_path=args.load_model,
+        ckpt_backend=args.ckpt_backend,
+        tb_logdir=args.tensor_board_filename,
         seed=args.numpy_rand_seed,
         grad_accum_iter=args.mlperf_grad_accum_iter,
         steps_per_dispatch=args.steps_per_dispatch,
@@ -312,7 +444,11 @@ def main(argv=None):
         metrics = trainer.evaluate(test)
         rank0_print("inference metrics:", metrics)
         return metrics
-    return trainer.fit(train, lambda: test)
+    t0 = time.time()
+    summary = trainer.fit(train, lambda: test)
+    if args.print_wall_time:
+        rank0_print(f"Total wall time: {time.time() - t0:.2f} s")
+    return summary
 
 
 if __name__ == "__main__":

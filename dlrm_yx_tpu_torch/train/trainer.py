@@ -16,13 +16,24 @@ step, the tail of fewer than M steps included (one step a call), the
 accumulation step and the eval step run as replays of CUDA graphs
 (``train/capture.py``); the prefetch thread stacks host batches and starts
 their copy to the card on a side stream, which the main stream waits for
-before it fills a graph's inputs. Checkpoints and the TensorBoard writer
-are not ported yet.
+before it fills a graph's inputs.
+
+Checkpoints (``train/checkpoint.py``, the JAX package's npz format): with
+``load_path`` the Trainer restores params, optimizer state and counters in
+``__init__``, copying into its own tensors before any step, and ``fit``
+skips forward to the saved position; with ``save_path`` each eval that
+beats the best accuracy saves one (save-on-best). A train source is a
+sequence, a loader (iterable, with ``__len__`` for the skip and
+``reshuffle(epoch)`` for a new batch order each epoch) or a zero-argument
+factory of an iterable. ``tb_logdir`` writes the JAX trainer's scalars
+(``utils/logging.ScalarWriter``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 import queue
 import threading
 import time
@@ -36,6 +47,7 @@ from dlrm_yx_tpu_torch.data.batch import Batch, stack_batches, stage_batch
 from dlrm_yx_tpu_torch.models.dlrm import DLRM, init_dlrm, model_groups
 from dlrm_yx_tpu_torch.optim.lr_policy import LRPolicy
 from dlrm_yx_tpu_torch.optim.optimizer import OptConfig, init_opt_state
+from dlrm_yx_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint, skip_position
 from dlrm_yx_tpu_torch.train.metrics import StreamingAUC, binary_metrics
 from dlrm_yx_tpu_torch.train.train_step import (
     make_accum_train_step,
@@ -43,7 +55,7 @@ from dlrm_yx_tpu_torch.train.train_step import (
     make_multistep_train_step,
 )
 from dlrm_yx_tpu_torch.utils.device import resolve_device
-from dlrm_yx_tpu_torch.utils.logging import EventLogger, rank0_print
+from dlrm_yx_tpu_torch.utils.logging import EventLogger, ScalarWriter, rank0_print
 from dlrm_yx_tpu_torch.utils.profiling import StepTimer
 
 
@@ -55,7 +67,11 @@ class TrainerConfig:
     mlperf_logging: bool = False     # full metric set + mllog events
     mlperf_acc_threshold: float = 0.0
     mlperf_auc_threshold: float = 0.0
+    save_path: str = ""              # checkpoint dir ("" = no saving)
+    load_path: str = ""              # resume checkpoint dir
+    tb_logdir: str = ""              # TensorBoard/JSONL scalars
     seed: int = 123
+    ckpt_backend: str = "npz"        # npz only: orbax is a JAX library
     grad_accum_iter: int = 1         # micro-batches per optimizer step
                                      # (--mlperf-grad-accum-iter)
     steps_per_dispatch: int = 0      # full optimizer steps per dispatch (one
@@ -99,7 +115,10 @@ def _prefetch_thread(gen, depth: int):
     """Run ``gen`` on a background thread into a bounded queue: the host
     batch stacking and the start of its copy to the card overlap the main
     thread's step dispatches. A consumer that stops early (break, early
-    stop, exception) ends the thread."""
+    stop, exception) closes the generator, which ends the thread and joins
+    it: no staging (pinned buffers, copies on the staging stream) and no
+    last reference to the Trainer outlives the epoch on another thread
+    while the next run captures its graphs."""
     q: "queue.Queue" = queue.Queue(maxsize=depth)
     stop = threading.Event()
     end = object()
@@ -140,6 +159,7 @@ def _prefetch_thread(gen, depth: int):
             yield x
     finally:
         stop.set()
+        t.join()
 
 
 def _group_microbatches(it, n):
@@ -193,9 +213,39 @@ class Trainer:
         self.params = self.model.as_params()
         self.opt_state = init_opt_state(opt, self.params, self.groups)
         self.events = EventLogger() if tcfg.mlperf_logging else None
+        self.writer = ScalarWriter(tcfg.tb_logdir) if tcfg.tb_logdir else None
         self.best_acc = 0.0
         self.best_auc = 0.0
         self.iteration = 0
+        self.start_epoch = 0
+        self.skip_batches = 0
+        if tcfg.ckpt_backend != "npz":
+            raise NotImplementedError(
+                f"--ckpt-backend {tcfg.ckpt_backend} is not ported: Orbax is a JAX "
+                "library; the port writes and reads npz checkpoints")
+        if tcfg.load_path:
+            self._load(tcfg.load_path)
+
+    def _load(self, path: str) -> None:
+        """Restore a checkpoint into the Trainer's own tensors, in place."""
+        # validate the optimizer first: a cross-optimizer resume would fail
+        # as an opaque leaf-count error, or misread the accumulators
+        meta_path = os.path.join(path, "meta.json")
+        if os.path.exists(meta_path):
+            with open(meta_path) as f:
+                ck_opt = json.load(f).get("optimizer")
+            if ck_opt is not None and ck_opt != self.opt.name:
+                raise ValueError(
+                    f"checkpoint {path!r} carries {ck_opt} optimizer state but the run is "
+                    f"configured with --optimizer {self.opt.name} — pass --optimizer "
+                    f"{ck_opt} (resuming across optimizers would silently misread the "
+                    "accumulators)")
+        _, _, meta = load_checkpoint(path, self.params, self.opt_state)
+        self.best_acc = meta["metrics"].get("accuracy", 0.0)
+        self.iteration = meta["iteration"]
+        self._resume_meta = meta
+        rank0_print(f"Resumed checkpoint at epoch {meta['epoch']} "
+                    f"iteration {meta['iteration']}")
 
     # ------------------------------------------------------------------ eval
 
@@ -245,33 +295,59 @@ class Trainer:
 
     def fit(
         self,
-        train_batches: Iterable[Batch],
+        train_batches,
         test_batches: Optional[Callable[[], Iterable[Batch]]] = None,
     ) -> dict:
-        """train_batches: a sequence of Batch (iterated once per epoch).
-        test_batches: zero-arg callable returning an eval iterable. Returns
-        the last eval's metrics; stops early when an mlperf threshold is
-        passed (dlrm_s_pytorch.py:2053-2083)."""
+        """train_batches: a sequence or loader of Batch (iterated once per
+        epoch), or a zero-arg factory of an iterable. test_batches: zero-arg
+        callable returning an eval iterable. Returns the last eval's
+        metrics; stops early when an mlperf threshold is passed
+        (dlrm_s_pytorch.py:2053-2083). After a resume, the saved epoch's
+        first batches up to the saved iteration are skipped (when the
+        source has a length), and dispatch groups start from there: a
+        resume at an iteration that is not a multiple of the steps a
+        dispatch shifts the print and eval boundaries, as in the JAX
+        package (its trainer.py:395)."""
         tcfg = self.tcfg
+        nbatches = len(train_batches) if hasattr(train_batches, "__len__") else 0
+        if tcfg.load_path and nbatches:
+            self.start_epoch, self.skip_batches = skip_position(self._resume_meta, nbatches)
         if self.events:
             self.events.log_start("init_start")
             self.events.log_event("seed", tcfg.seed)
             self.events.log_end("init_stop")
             self.events.log_start("run_start")
-        staging = (torch.cuda.Stream(self.device)
+        # the prefetch thread copies on this stream while the main thread may
+        # capture a graph. Streams of default priority come round-robin from
+        # the pool that torch.cuda.graph's capture stream is drawn from, so
+        # one of them is that stream: work the thread put on it would join
+        # the capture (and a pinned buffer's event recorded there would be
+        # a captured node, which the host allocator later fails to query).
+        # A high-priority stream comes from another pool.
+        staging = (torch.cuda.Stream(self.device, priority=-1)
                    if self.device.type == "cuda" and tcfg.prefetch_depth > 0 else None)
         pending: List[torch.Tensor] = []  # copies of device losses, fetched at boundaries
         pending_n = 0                     # iterations the pending losses cover
         stop = False
         summary = {}
-        for epoch in range(tcfg.nepochs):
+        for epoch in range(self.start_epoch, tcfg.nepochs):
             epoch_timer = StepTimer(warmup_iters=max(1, tcfg.print_freq))
             if self.events:
                 self.events.log_start("epoch_start", {"epoch_num": epoch})
-            it_source = iter(train_batches)
+            if epoch > 0 and hasattr(train_batches, "reshuffle"):
+                # --mlperf-bin-shuffle: a new batch order each epoch
+                # (dlrm_data_pytorch.py:383-398)
+                train_batches.reshuffle(epoch)
+            it_source = iter(train_batches() if callable(train_batches) else train_batches)
             if self.accum > 1:
                 it_source = _group_microbatches(it_source, self.accum)
             span_t0 = 0.0
+
+            def host_stream():
+                for j, nb in enumerate(it_source):
+                    if epoch == self.start_epoch and j < self.skip_batches:
+                        continue
+                    yield nb
 
             def drain():
                 """Fetch the pending losses and record their span in the
@@ -289,9 +365,10 @@ class Trainer:
                 """Yields (prepared batch, n_iters, use_multi). With a
                 multi-step: M host batches stack into one copy and one
                 dispatch; the tail (<M) runs single steps."""
+                src = host_stream()
                 if self.multi_step is not None:
                     group = []
-                    for nb in it_source:
+                    for nb in src:
                         group.append(nb)
                         if len(group) == self.msteps:
                             yield self._prepare(stack_batches(group), staging), self.msteps, True
@@ -299,7 +376,7 @@ class Trainer:
                     for nb in group:
                         yield self._prepare(stack_batches([nb]), staging), 1, False
                 else:
-                    for nb in it_source:
+                    for nb in src:
                         if self.accum == 1:
                             nb = stack_batches([nb])
                         yield self._prepare(nb, staging), 1, False
@@ -332,6 +409,8 @@ class Trainer:
                     avg_loss = sum(losses) / max(len(losses), 1)
                     rank0_print(f"Finished training it {self.iteration} of epoch "
                                 f"{epoch}, {ms:.2f} ms/it, loss {avg_loss:.6f}")
+                    if self.writer:
+                        self.writer.add_scalar("Train/Loss", avg_loss, self.iteration)
                 if (
                     test_batches is not None
                     and tcfg.test_freq
@@ -341,6 +420,7 @@ class Trainer:
                     stop, summary = self._run_eval(test_batches, epoch)
                     if stop:
                         break
+            stream.close()  # after an early stop: ends and joins the prefetch thread
             drain()
             if epoch_timer.times:
                 rank0_print(f"Epoch {epoch} average: {epoch_timer.mean_ms():.2f} "
@@ -361,11 +441,25 @@ class Trainer:
         metrics = self.evaluate(test_batches())
         acc = metrics.get("accuracy", 0.0)
         auc = metrics.get("roc_auc", metrics.get("streaming_auc", 0.0))
-        if acc > self.best_acc:
+        is_best = acc > self.best_acc
+        if is_best:
             self.best_acc = acc
         self.best_auc = max(self.best_auc, auc if np.isfinite(auc) else 0.0)
         rank0_print(f"Testing at it {self.iteration} of epoch {epoch}: "
                     f"accuracy {100 * acc:.3f}%, best {100 * self.best_acc:.3f}%")
+        if self.writer:
+            self.writer.add_scalar("Test/Acc", acc, self.iteration)
+            for k, v in metrics.items():
+                if k != "accuracy" and np.isfinite(v):
+                    self.writer.add_scalar(f"mlperf-metrics-test/{k}", v, self.iteration)
+        if is_best and self.tcfg.save_path:
+            if self.device.type == "cuda":
+                # the params are read after every queued replay has run
+                torch.cuda.synchronize(self.device)
+            save_checkpoint(self.tcfg.save_path, self.params, self.opt_state, self.config,
+                            epoch=epoch, iteration=self.iteration, metrics=metrics,
+                            optimizer=self.opt.name)
+            rank0_print(f"Saved best checkpoint to {self.tcfg.save_path}")
         stop = False
         if 0 < self.tcfg.mlperf_acc_threshold < self.best_acc:
             rank0_print(f"MLPerf testing accuracy threshold "

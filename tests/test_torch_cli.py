@@ -93,7 +93,7 @@ def test_cli_training_with_every_noop_flag_matches_jax_cli():
     assert got == plain
 
 
-@pytest.mark.parametrize("extra", [["--save-model", "ckpt"], ["--md-flag"]])
+@pytest.mark.parametrize("extra", [["--enable-profiling"], ["--md-flag"]])
 def test_unported_flags_still_raise_beside_noop_flags(extra):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         port_cli.main(SERVE + ["--use-gpu", "--pin-memory"] + extra + ["--device", "cpu"])

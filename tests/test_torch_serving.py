@@ -193,7 +193,7 @@ def test_cli_inference_matches_jax_cli(mlperf):
 @pytest.mark.parametrize(
     "extra",
     [["--mesh-data", "2"], ["--qr-flag"], ["--quantize-emb-with-bit", "8"],
-     ["--data-generation", "dataset"]],
+     ["--data-generation", "processed"]],
 )
 def test_cli_rejects_unported_flags(extra):
     with pytest.raises(NotImplementedError, match="not yet ported"):
@@ -203,11 +203,12 @@ def test_cli_rejects_unported_flags(extra):
 def test_cli_without_inference_only_is_not_ported():
     """Training is ported (tests/test_torch_training.py, with
     --no-write-only-update and --stochastic-rounding; multi-step dispatch
-    and gradient accumulation in tests/test_torch_trainer.py); its options
-    whose parts are not (checkpoints) raise."""
+    and gradient accumulation in tests/test_torch_trainer.py; checkpoints
+    in tests/test_torch_checkpoint.py); its options whose parts are not
+    (the exported model) raise."""
     flags = [f for f in CLI_FLAGS if f != "--inference-only"] + ["--device", "cpu"]
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        port_cli.main(flags + ["--save-model", "ckpt"])
+        port_cli.main(flags + ["--save-onnx"])
 
 
 def test_cuda_asked_for_and_absent_raises(monkeypatch):
