@@ -23,8 +23,9 @@ no result):
      numbers and, for K6, ``index_add_``'s; then K5 on the same batch with
      every weight-0 id on its table's row 0 (as host batches pad), with
      every weight 0, with non-finite grad rows under weight-0 items only
-     (the NaN rows must match), and on a store with -0.0 elements (the
-     elements that keep -0.0 are counted, not failed); and one K5 call
+     (the NaN rows must match), on a store with -0.0 elements (the
+     elements that keep -0.0 are counted, not failed), and with learned
+     pooling's weights w * v_W[row] (v_W 0, negative and random); and one K5 call
      captured in a CUDA graph and replayed on a fresh stream, against the
      eager call bit for bit;
   4. serve: ``dlrm_yx_tpu_torch.cli.main --inference-only`` on the full-width
@@ -60,7 +61,10 @@ no result):
      step (N=4: K1, K2, K3), the eval step (K1), gradient accumulation over
      2 micro-batches (K1, K4, K3), the bf16 store with SR (N=4: K4, K3), the
      L=100 SGD step (N=4: K5) and the B=4096 RWSAdagrad stream step (N=2:
-     K6), each with the eager steps' launch counts;
+     K6), the mixed-dimension L=1 step (N=4: K1, K2, K3), the QR L=1 step
+     (N=4: K1, K3, K4) and the L=100 step with learned pooling weights (N=4:
+     K5; v_W 0, negative and random), each with the eager steps' launch
+     counts;
   6. throughput: the eager eval step at full width, CUDA-event timed, with
      the fused kernel and with the plain interaction, in turns;
   d. throughput: the eager train step at full width, CUDA-event timed over
@@ -70,7 +74,9 @@ no result):
   s. throughput: the captured steps at N=1 and N=16 steps a replay against
      the eager step, in turns (eager, N=1, N=16, N=16, N=1, eager), for the
      L=1 train, L=100 SGD and capacity (SR off) steps, and the captured eval
-     step (one batch a replay) against the eager one;
+     step (one batch a replay) against the eager one; then the captured N=16
+     L=1 step of the mixed-dimension and QR models against the plain one,
+     in turns;
   7. profile: a torch.profiler window over the eager serving step: device
      busy share and the kernels that take the time;
   e. profile: a torch.profiler window over the eager train step;
@@ -97,8 +103,9 @@ no result):
      model with both K4 gates at 0: a bf16 store with SR off and on, f32
      with write_only_update off, and Adagrad on the kernel route;
   p. profile: the capacity step, with the device time by kind of kernel;
-  t. profile: the captured eval, L=1, L=100 and capacity steps (16 steps a
-     replay), kernels busy and the idle share per step;
+  t. profile: the captured eval, L=1, L=100 and capacity steps and the
+     mixed-dimension and QR L=1 steps (16 steps a replay), kernels busy and
+     the idle share per step;
   q. ops: the device operations (kernels, memsets, copies) of one K2 and
      one K4 wrapper call at each main-path shape, read as the nodes of a
      CUDA graph that captures the call (at most 5, no sort), and of one K1
@@ -130,6 +137,35 @@ no result):
      ``Trainer.fit`` fed random host batches, the binary loader and trace
      batches in turns (ms/step, examples/s, the fits' wall time), then one
      profiler window each (kernels busy, idle share, K2's time a step);
+  x. kernel: the kernels on the shapes of the embedding variants: K2 at row
+     widths 1, 2 and 4 (the Kaggle mixed-dimension big group [33.7M, 1] with
+     one batch's ids, the Terabyte one's rows at widths 2 and 4), each also
+     with a hot row on half of K, bit for bit against the plain version run
+     on the CPU; K4 on a QR quotient table [250,000, 128] f32 (no sentinel
+     rows) with a coalesced batch that updates its last row, bit for bit,
+     the last row kept and its update on the row before (the JAX kernel's
+     clip); K3 on every small group of both mixed-dimension models (dims 1
+     to 128) and on every group of the processed model (dims 64 to 512,
+     one batch of pooled ids from the dataset the port's generator writes
+     under build/chip_smoke_data: 12 tables, rows 500-10,000, pooling 1-32,
+     10 batches of 2048, m_den 512); each with its time, the plain version's, index_add_'s (K2, K4)
+     and its bound;
+  y. variants: through ``cli.main``, launch counts set to 0 just before and
+     read just after: Terabyte-MLPerf (1M cap) with --md-flag
+     --md-round-dims (K2 once a step on the dim-4 big group, K3 four times,
+     K1 per step and eval batch; no big-store row that no live lookup
+     touched changed), Kaggle's model with --md-flag --md-round-dims (SGD,
+     B=128: K2 once a step on the dim-1 big group), Terabyte-MLPerf with
+     --qr-flag (K4 on the 7 quotient tables of 64 MiB or more, K3 on the
+     small group and the other 29 QR sub-tables, K1) and served again with
+     --inference-only, the L=100 benchmark with --weighted-pooling learned
+     (K5 once a step and nothing else; v_W moved only on looked-up rows),
+     and phase x's processed dataset, trained (RWSAdagrad: K3 once a dim
+     group a step) and served with --load-processed;
+  z. reference: small mixed-dimension (K2 at widths 1 and 2, K3, K4 on the
+     momenta), QR (K4, K3, K1) and learned-pooling L=100 (K5, v_W 0 and
+     negative on some rows) models, an eval step and three train steps on
+     the card against the CPU with the kernel gates at 0;
 Then a JSON line of the kernels (launches from the path each kernel serves:
 K1-K3 phase b, K5 phase g, K6 phase h, K4 phase m), nvidia-smi's line, and
 the result line.
@@ -556,38 +592,48 @@ def check_finish_kernel(small):
     2048 uniform ids); returns the f32 row (the training path's store)."""
     import torch
 
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    return finish_case("the Terabyte small group", small, batch_rows(small, gen, repeats=False),
+                       gen, (torch.float32, torch.bfloat16), acc_tol=1e-6)
+
+
+def finish_case(what, group, ids, gen, dtypes=None, acc_tol=None):
+    """K3 on a group's store (f32, or each of ``dtypes``), its padded
+    accumulator and the coalesced gradient of the global row ids ``ids`` (a
+    random gradient row each): against the plain version, the accumulator's
+    padding kept, timed; returns the first dtype's row of the kernels line.
+    Both sum g*g in f32 in other orders: the accumulators agree to
+    ``acc_tol``, by default 1e-6 of the largest (pooled ids sum many rows)."""
+    import torch
+
     from dlrm_yx_tpu_torch.ops.dense_finish import (
         rwsadagrad_dense_finish,
         rwsadagrad_dense_finish_reference,
     )
     from dlrm_yx_tpu_torch.optim.optimizer import acc_len
 
-    gen = torch.Generator(device="cuda").manual_seed(12)
-    r, w = small.total_rows, small.dim
-    offs = torch.tensor(small.row_offsets, device="cuda")[:, None]
-    n = torch.tensor(small.rows, device="cuda", dtype=torch.float32)[:, None]
-    ids = (offs + (torch.rand(small.num_tables, BATCH, device="cuda", generator=gen)
-                   * n).long()).reshape(-1)
+    r, w = group.total_rows, group.dim
+    ids = ids.long()
     dense_g = torch.zeros(r, w, device="cuda")
     dense_g.index_add_(0, ids, torch.randn(ids.numel(), w, device="cuda", generator=gen))
     touched = int((dense_g != 0).any(dim=1).sum().item())
     acc = torch.rand(acc_len(r), device="cuda", generator=gen)
     row = None
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in dtypes or (torch.float32,):
         store = (torch.rand(r, w, device="cuda", generator=gen) - 0.5).to(dtype)
         got_s, got_a = rwsadagrad_dense_finish(store.clone(), acc.clone(), dense_g, LR, w,
                                                1e-10)
         want_s, want_a = rwsadagrad_dense_finish_reference(store.clone(), acc.clone(),
                                                            dense_g, LR, w, 1e-10)
         torch.cuda.synchronize()
-        # both sum g*g in f32 in other orders; a bf16 store may then round
-        # one ulp apart (2^-8 of the value)
+        # a bf16 store may then round one ulp apart (2^-8 of the value)
         tol = 1e-6 if dtype == torch.float32 else 2.0 ** -8
+        atol = acc_tol if acc_tol is not None else 1e-6 * max(1.0, want_a.abs().max().item())
         err = (got_s.float() - want_s.float()).abs().max().item()
         aerr = (got_a - want_a).abs().max().item()
-        if not (err <= tol and aerr <= 1e-6 and torch.equal(got_a[r:], acc[r:])):
-            fail(f"rwsadagrad_dense_finish {dtype}: store err {err} > {tol} or acc err "
-                 f"{aerr} > 1e-6, or the accumulator's padding changed")
+        if not (err <= tol and aerr <= atol and torch.equal(got_a[r:], acc[r:])):
+            fail(f"rwsadagrad_dense_finish {what} {dtype}: store err {err} > {tol} or acc err "
+                 f"{aerr} > {atol}, or the accumulator's padding changed")
         # the lr on the card, as the train step passes it (a float would add a fill a call)
         lr = torch.full((), LR, device="cuda")
         ms = device_time_ms(lambda: rwsadagrad_dense_finish(store, acc, dense_g, lr, w, 1e-10))
@@ -598,10 +644,11 @@ def check_finish_kernel(small):
         esize = store.element_size()
         nbytes = 4 * r * w + touched * (2 * esize * w + 8)
         bound, by = bound_ms(nbytes, touched * 5 * w)
-        say("kernel", f"rwsadagrad_dense_finish store [{r}, {w}] {dtype}, acc "
-                      f"{acc.numel()}, {touched} rows touched: max_abs_err {err:.3e} "
-                      f"(tol {tol:.3e}), acc err {aerr:.3e}, kernel {ms:.5f} ms, plain "
-                      f"{plain_ms:.5f} ms, bound {bound:.5f} ms ({by}, {nbytes} B)")
+        say("kernel", f"rwsadagrad_dense_finish {what}: store [{r}, {w}] {dtype}, acc "
+                      f"{acc.numel()}, {touched} rows touched by {ids.numel()} ids: max_abs_err "
+                      f"{err:.3e} (tol {tol:.3e}), acc err {aerr:.3e} (tol {atol:.3e}); kernel "
+                      f"{ms:.5f} ms, plain {plain_ms:.5f} ms, bound {bound:.5f} ms ({by}, "
+                      f"{nbytes} B)")
         if row is None:
             row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                    "bound_ms": bound, "bound_by": by,
@@ -1088,7 +1135,9 @@ def check_stream_apply_traffic(group, store, b, gidx, gtab, compare):
     weight 0; (iii) a grad row holding inf and one holding NaN, referenced
     only by weight-0 items: 0 * inf is NaN, and the NaN rows must match;
     (iv) a store with -0.0 elements: the elements that keep -0.0 where the
-    plain version's +0.0 add makes +0.0 are counted, not failed."""
+    plain version's +0.0 add makes +0.0 are counted, not failed; (v)
+    learned pooling's weights w * v_W[row] (the train step's w_eff), v_W 0
+    on a tenth of the rows, negative on a tenth and random elsewhere."""
     import torch
 
     from dlrm_yx_tpu_torch.ops.stream_update import (
@@ -1168,6 +1217,18 @@ def check_stream_apply_traffic(group, store, b, gidx, gtab, compare):
                   f"plain version (and the JAX kernel) add +0.0 from a weight-0 item and make "
                   f"+0.0 (recorded, not a fault: ROADMAP Queue C); the plain version keeps "
                   f"{plain_kept}")
+    del got, want, neg
+
+    # (v) w * v_W[row], v_W as learning may leave it: 0, negative, random
+    u = torch.rand(store.shape[0], device="cuda", generator=gen)
+    vw = torch.where(u < 0.1, 0.0, torch.where(u < 0.2, -u, 2 * u))
+    w_vw = w_eff * vw[pos.long()]
+    vw_rows = int(torch.unique_consecutive(pos[w_vw != 0]).numel())
+    err, rel, ms, plain_ms = timed("w * v_W", w_vw, gtab, vw_rows)
+    say("kernel", f"sorted_stream_apply, learned pooling's weights w * v_W[row] (v_W 0 on "
+                  f"{int((vw == 0).sum())} rows, negative on {int((vw < 0).sum())}, random "
+                  f"elsewhere): max_abs_err {err:.3e} (relative {rel:.3e}), {vw_rows} rows "
+                  f"changed, kernel {ms:.5f} ms, plain {plain_ms:.5f} ms")
 
 
 def check_stream_apply_capture(store, pos, seg, w_eff, gtab):
@@ -2039,7 +2100,7 @@ def check_capture(rows):
     import torch
 
     from dlrm_yx_tpu_torch.config import DLRMConfig
-    from dlrm_yx_tpu_torch.models.dlrm import init_dlrm_on_device, model_groups
+    from dlrm_yx_tpu_torch.models.dlrm import init_dlrm, init_dlrm_on_device, model_groups
     from dlrm_yx_tpu_torch.optim.optimizer import (
         OptConfig,
         init_opt_state,
@@ -2088,6 +2149,32 @@ def check_capture(rows):
         capture_parity(f"L={L100}, B={BIG_BATCH}, rwsadagrad, sparse-update stream (K6)",
                        stream, rws, 2, params, state, seed=36, batch=BIG_BATCH, lookups=L100)
         del params, state
+        torch.cuda.empty_cache()
+        # the variants; MD and QR tables are drawn on the host (device init
+        # takes plain tables only, as in the JAX package)
+        for name, argv, kernels in (("mixed-dimension", md_terabyte_argv(rows), "K1, K2, K3"),
+                                    ("QR", qr_terabyte_argv(rows), "K1, K3, K4")):
+            cfg = config_of(argv)
+            cfg = dataclasses.replace(cfg, dup_density_hint=uniform_stream_density(
+                cfg.emb_rows, cfg.emb_split_threshold, BATCH))
+            params = init_dlrm(cfg, seed=5, device="cuda")
+            state = init_opt_state(rws, params, model_groups(cfg))
+            capture_parity(f"L=1 train, Terabyte-MLPerf <=1M rows with {name} tables, B={BATCH}, "
+                           f"bf16, rwsadagrad, sparse-update pallas ({kernels})", cfg, rws,
+                           N_CAPTURE, params, state, seed=37)
+            del params, state
+            torch.cuda.empty_cache()
+        weighted = dataclasses.replace(bench, weighted_pooling="learned")
+        params = init_dlrm_on_device(weighted, seed=5)
+        gen = torch.Generator(device="cuda").manual_seed(39)
+        for v in params["vw"]:  # v_W as learning may leave it; padding rows stay 0
+            u = torch.rand(v.shape, device="cuda", generator=gen)
+            v.mul_(torch.where(u < 0.1, 0.0, torch.where(u < 0.2, -u, 2 * u)))
+        capture_parity(f"L={L100} benchmark train with learned pooling weights (v_W 0 on a "
+                       "tenth of the rows, negative on a tenth, random elsewhere), sgd, "
+                       "sparse-update pallas (K5 on w * v_W)", weighted, sgd, N_CAPTURE, params,
+                       {}, seed=38, lookups=L100)
+        del params
         torch.cuda.empty_cache()
     finally:
         torch.use_deterministic_algorithms(False)
@@ -2198,18 +2285,22 @@ class SharedInit:
     def __enter__(self):
         import dataclasses
 
-        from dlrm_yx_tpu_torch.models.dlrm import DTYPES
+        from dlrm_yx_tpu_torch.models.dlrm import DTYPES, _ones_vw, model_groups
 
         def init(config, seed=123, device=None):
+            # v_W is no draw (ones), so runs with and without it share one
             key = (tuple(config.emb_rows), tuple(config.emb_dims), config.emb_split_threshold,
-                   tuple(config.ln_bot), tuple(config.ln_top), seed, str(device))
+                   tuple(config.ln_bot), tuple(config.ln_top), config.qr_table_ids,
+                   config.qr_collisions, config.qr_operation, config.md_table_ids, seed,
+                   str(device))
             if key not in self.cache:
-                f32 = dataclasses.replace(config, emb_dtype="float32")
+                f32 = dataclasses.replace(config, emb_dtype="float32", weighted_pooling=None)
                 self.cache[key] = self.real(f32, seed=seed, device=device)
                 self.draws += 1
             self.copies += 1
             params = clone_tree(self.cache[key])
             params["emb"] = [e.to(DTYPES[config.emb_dtype]) for e in params["emb"]]
+            params["vw"] = _ones_vw(model_groups(config), config, params["emb"][0].device)
             return params
 
         self.mod.init_dlrm = init
@@ -2591,6 +2682,497 @@ def profile_real_data(fit, feeds):
         say("profile", f"  K2 (row plan) device time fed {name}: {k2:.5f} ms/step")
 
 
+# ------------------------- the embedding variants and the processed dataset
+
+N_VARIANT_STEPS = 4  # each variant CLI run's steps; its eval takes as many batches
+KAGGLE_BATCH = 128   # bench/dlrm_tpu_criteo_kaggle.sh's mini-batch
+PROCESSED_FLAGS = [  # the port's generator, at its table_configs ranges' defaults
+    "--T", "12", "--m-den", "512", "--num-batches", "10", "--mini-batch-size", str(BATCH),
+    "--row-range", "500,10000", "--dim-range", "64,128,256,512",
+    "--pooling-factor-range", "1,32", "--seed", "123"]
+
+
+def md_terabyte_argv(rows):
+    """Phase b's Terabyte-MLPerf flags (1M cap) with mixed dims."""
+    return terabyte_argv(rows) + ["--md-flag", "--md-round-dims", "--optimizer", "rwsadagrad",
+                                  "--learning-rate", str(LR), "--sparse-update-impl", "pallas"]
+
+
+def qr_terabyte_argv(rows):
+    """Phase b's Terabyte-MLPerf flags (1M cap) with QR tables (threshold
+    200, 4 collisions, mult: the flags' defaults)."""
+    return terabyte_argv(rows) + ["--qr-flag", "--optimizer", "rwsadagrad",
+                                  "--learning-rate", str(LR), "--sparse-update-impl", "pallas"]
+
+
+def kaggle_md_argv():
+    """bench/dlrm_tpu_criteo_kaggle.sh's model (Kaggle's table counts, D=16,
+    SGD lr 0.1, B=128) on random data, with mixed dims."""
+    from dlrm_yx_tpu_torch.config import DLRMConfig
+
+    return [
+        "--arch-embedding-size", "-".join(map(str, DLRMConfig.kaggle().emb_rows)),
+        "--arch-sparse-feature-size", "16", "--arch-mlp-bot", "13-512-256-64-16",
+        "--arch-mlp-top", "512-256-1", "--data-generation", "random",
+        "--mini-batch-size", str(KAGGLE_BATCH), "--num-indices-per-lookup", "1",
+        "--loss-function", "bce", "--round-targets", "True", "--learning-rate", "0.1",
+        "--md-flag", "--md-round-dims", "--sparse-update-impl", "pallas",
+    ]
+
+
+PROCESSED_DIR = os.path.join(DATA_DIR, "processed")
+
+
+def write_processed_dataset():
+    """Phase x: the port's generator writes the processed dataset under
+    build/chip_smoke_data; returns its first batch."""
+    from dlrm_yx_tpu_torch.data import processed
+
+    t0 = time.perf_counter()
+    processed.main(PROCESSED_FLAGS + ["--out-dir", PROCESSED_DIR])
+    tables, batches = processed.load_processed(PROCESSED_DIR)
+    tables = tables["tables"]
+    say("kernel", f"processed dataset: 12 tables (rows {min(t['row'] for t in tables)}.."
+                  f"{max(t['row'] for t in tables)}, dims {sorted({t['dim'] for t in tables})}, "
+                  f"pooling {min(t['pooling_factor'] for t in tables)}.."
+                  f"{max(t['pooling_factor'] for t in tables)}), {len(batches)} batches of "
+                  f"{BATCH}, m_den 512, written and read in {time.perf_counter() - t0:.1f} s")
+    return batches[0]
+
+
+def processed_argv():
+    """Phase y's training line on the processed dataset (bot 512-512-64)."""
+    return ["--load-processed", PROCESSED_DIR, "--arch-mlp-bot", "512-512-64",
+            "--arch-sparse-feature-size", "64", "--arch-mlp-top", "512-256-1",
+            "--loss-function", "bce", "--optimizer", "rwsadagrad", "--learning-rate", str(LR),
+            "--sparse-update-impl", "pallas", "--print-freq", "1"]
+
+
+def config_of(argv):
+    from dlrm_yx_tpu_torch import cli
+
+    return cli.config_from_args(cli.build_parser().parse_args(argv))
+
+
+def overwrite_case(what, store, ids, active, gen, tol):
+    """K2 on ``store`` with the items (ids, active): the kernel against its
+    plain version run on the CPU (bit for bit), no row that no item names
+    changed; the wrapper, the plain version on the card and index_add_
+    timed; returns the kernels line's numbers."""
+    import torch
+
+    from dlrm_yx_tpu_torch.ops.sparse_rows_overwrite import (
+        sparse_rows_overwrite,
+        sparse_rows_overwrite_reference,
+    )
+
+    r, w = store.shape
+    k = ids.numel()
+    delta = torch.randn(k, w, device="cuda", generator=gen) * 1e-2
+    new_vals = store[ids.long()] + delta
+    got = sparse_rows_overwrite(store.clone(), ids, new_vals, delta, active)
+    torch.cuda.synchronize()
+    rows, want = overwrite_plain_on_cpu(store, ids, new_vals, delta, active)
+    err = (got[rows] - want).abs().max().item()
+    equal = torch.equal(bits(got[rows]), bits(want))
+    named = torch.zeros(r, dtype=torch.bool, device="cuda")
+    named[rows] = True
+    stray = int(((got != store).any(dim=1) & ~named).sum().item())
+    del got
+    if not equal or not err <= tol or stray:
+        fail(f"sparse_rows_overwrite {what}: not bit-equal to the plain version on the CPU "
+             f"(max abs err {err}), or {stray} rows that no item names changed")
+    ms = device_time_ms(lambda: sparse_rows_overwrite(store, ids, new_vals, delta, active),
+                        reps=TRAFFIC_REPS, samples=TRAFFIC_REPS)
+    plain_ms = device_time_ms(
+        lambda: sparse_rows_overwrite_reference(store, ids, new_vals, delta, active),
+        reps=TRAFFIC_REPS, samples=TRAFFIC_REPS)
+    masked, ids64 = delta * active[:, None], ids.long()
+    library_ms = device_time_ms(lambda: store.index_add_(0, ids64, masked),
+                                reps=TRAFFIC_REPS, samples=TRAFFIC_REPS)
+    live = ids[active > 0].long()
+    _, counts = torch.unique(live, return_counts=True)
+    n_once, n_dup_rows = int((counts == 1).sum()), int((counts > 1).sum())
+    n_dup_items = int(counts[counts > 1].sum())
+    row = 4 * w
+    nbytes = 8 * k + 2 * row * n_once + row * n_dup_items + 2 * row * n_dup_rows
+    bound, by = bound_ms(nbytes, w * n_dup_items)
+    say("kernel", f"sparse_rows_overwrite {what} [{r}, {w}] f32, K={k} ({n_once} unique live "
+                  f"rows, {n_dup_items} items on {n_dup_rows} duplicated rows): bit-equal to "
+                  f"the plain version on the CPU; wrapper {ms:.5f} ms, plain {plain_ms:.5f} ms, "
+                  f"index_add_ {library_ms:.5f} ms, bound {bound:.5f} ms ({by}, {nbytes} B)")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by, "library_ms": library_ms}
+
+
+def check_variant_kernels(rows):
+    """Phase x: the kernels on the shapes the variants give them. K2 at
+    widths 1, 2 and 4 (the Kaggle MD big group [R, 1] with one batch's ids,
+    the Terabyte MD big group's rows at W=2 and W=4), each also with a hot
+    row on half of K, bit for bit against the plain version on the CPU; K4
+    on a quotient table [250,000, 128] f32 (no sentinel tail) with a
+    coalesced batch that updates row 249,999, bit for bit, the last row
+    kept and its update on the row before (the JAX kernel's clip); K3 on
+    every small group of both MD models (dims 1 to 128) and on every group
+    of the processed model (dims 64 to 512: the kernel's loop over a row's
+    columns runs more than once) with the dataset's first batch of pooled
+    ids."""
+    import torch
+
+    from dlrm_yx_tpu_torch.models.dlrm import model_groups
+    from dlrm_yx_tpu_torch.ops.coalesce import coalesce_rows
+    from dlrm_yx_tpu_torch.ops.embedding import global_row_ids
+    from dlrm_yx_tpu_torch.ops.sparse_rows_add import sparse_rows_add, sparse_rows_add_reference
+
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    md_tb, md_kg = config_of(md_terabyte_argv(rows)), config_of(kaggle_md_argv())
+    tb_big = next(g for g in model_groups(md_tb) if g.size_class == 1)
+    kg_big = next(g for g in model_groups(md_kg) if g.size_class == 1)
+    for what, group, w, batch in (("Kaggle MD big group", kg_big, 1, KAGGLE_BATCH),
+                                  ("Terabyte MD big group's rows", tb_big, 2, BATCH),
+                                  ("Terabyte MD big group", tb_big, 4, BATCH)):
+        assert group.dim == w or what.endswith("rows"), (what, group.dim)
+        store = torch.rand(group.total_rows, w, device="cuda", generator=gen) - 0.5
+        for case in ("one batch", "a hot row on half of K"):
+            ids = batch_rows(group, gen, batch)
+            if case != "one batch":
+                ids[::2] = ids[0]
+            active = torch.ones(ids.numel(), dtype=torch.int32, device="cuda")
+            overwrite_case(f"W={w}, {what}, {case}", store, ids, active, gen, 1e-6)
+        del store
+        torch.cuda.empty_cache()
+
+    # K4 on a quotient table: the RWSAdagrad route coalesces first
+    q_rows = 250_000
+    store = torch.rand(q_rows, 128, device="cuda", generator=gen) - 0.5
+    ids = torch.randint(0, q_rows, (BATCH,), device="cuda", generator=gen, dtype=torch.int32)
+    ids[7] = q_rows - 1
+    g = torch.randn(BATCH, 128, device="cuda", generator=gen) * 1e-2
+    uniq, upd = coalesce_rows(ids, g, q_rows)
+    active = (uniq < q_rows).int()
+    got = sparse_rows_add(store.clone(), uniq, upd, active)
+    want = sparse_rows_add_reference(store.clone(), uniq, upd, active)
+    torch.cuda.synchronize()
+    equal, err = same_bits(got, want)
+    kept = torch.equal(bits(got[-1]), bits(store[-1]))
+    moved = not torch.equal(bits(got[-2]), bits(store[-2]))
+    del got, want
+    if not equal or not kept or not moved:
+        fail(f"sparse_rows_add on a quotient table: bit-equal {equal} (max abs err {err}), "
+             f"last row kept {kept}, the row before it moved {moved}")
+    ms = device_time_ms(lambda: sparse_rows_add(store, uniq, upd, active))
+    plain_ms = events_ms(lambda: sparse_rows_add_reference(store, uniq, upd, active), 10)[0]
+    masked, ids64 = upd * active[:, None], uniq.long().clamp(max=q_rows - 1)
+    library_ms = device_time_ms(lambda: store.index_add_(0, ids64, masked))
+    n = int(active.sum())
+    nbytes = 8 * BATCH + 4 * 128 * BATCH + 2 * 4 * 128 * n
+    bound, by = bound_ms(nbytes, 128 * n)
+    say("kernel", f"sparse_rows_add quotient table [{q_rows}, 128] f32 (no sentinel rows), "
+                  f"K={BATCH} coalesced to {n} rows, one on row {q_rows - 1}: bit-equal to the "
+                  f"plain version, row {q_rows - 1} kept and row {q_rows - 2} moved (the JAX "
+                  f"clip, ROADMAP Queue C); wrapper {ms:.5f} ms, plain {plain_ms:.5f} ms, "
+                  f"index_add_ {library_ms:.5f} ms, bound {bound:.5f} ms ({by}, {nbytes} B)")
+    del store, masked
+    torch.cuda.empty_cache()
+
+    for name, cfg, batch in (("Terabyte MD", md_tb, BATCH), ("Kaggle MD", md_kg, KAGGLE_BATCH)):
+        for group in model_groups(cfg):
+            if group.size_class == 0:
+                finish_case(f"{name} small group dim {group.dim}", group,
+                            batch_rows(group, gen, batch, repeats=False), gen)
+    first = write_processed_dataset()
+    for group in model_groups(config_of(processed_argv())):
+        t = list(group.table_ids)
+        idx = torch.as_tensor(first.indices[t], device="cuda").long()
+        live = torch.as_tensor(first.weights[t], device="cuda") != 0
+        n = group.num_tables
+        finish_case(f"processed group dim {group.dim} ({n} table{'s' * (n > 1)}, one batch of "
+                    "pooled ids)", group, global_row_ids(group, idx)[live], gen)
+
+
+def variant_main_paths(rows):
+    """Phase y: the variants and the processed dataset through ``cli.main``,
+    each with the launch counts set to 0 just before and read just after:
+    Terabyte-MLPerf with mixed dims (K2 once a step on the dim-4 big group,
+    K3 on the four small groups, K1 per step and eval batch; no row of the
+    big store that no live lookup touched moved), Kaggle's model with mixed
+    dims (K2 once a step on the dim-1 big group), Terabyte-MLPerf with QR
+    tables (K4 on the seven quotient tables of 64 MiB or more, K3 on the
+    small group and the other QR sub-tables, K1) and served again with
+    --inference-only (K1), the L=100 benchmark with learned pooling weights
+    (K5 once a step and nothing else; v_W moved only on rows a live lookup
+    touched), and a processed dataset written by the port's generator,
+    trained (K3 once a dim group a step) and served with --load-processed.
+    Returns the launch counts by run."""
+    import torch
+
+    from dlrm_yx_tpu_torch.data import processed
+    from dlrm_yx_tpu_torch.models.dlrm import model_groups
+
+    n = N_VARIANT_STEPS
+    launched = {}
+    md = config_of(md_terabyte_argv(rows))
+    n_small = sum(g.size_class == 0 for g in model_groups(md))
+    if n_small != 4:
+        fail(f"the Terabyte MD model has {n_small} small groups, want 4 (dims 8, 16, 32, 128)")
+    launched["md"] = cli_training_run(
+        "variants", f"cli Terabyte-MLPerf (<=1M rows) with --md-flag --md-round-dims (dims "
+                    f"{sorted(set(md.emb_dims))}), B={BATCH}, L=1, bf16, rwsadagrad, "
+                    "sparse-update pallas, pallas interaction",
+        md_terabyte_argv(rows) + ["--num-batches", str(n), "--print-freq", "1"], n,
+        only(fused_interaction=2 * n, sparse_rows_overwrite=n, rwsadagrad_dense_finish=4 * n),
+        big_index=0)
+    kg = config_of(kaggle_md_argv())
+    groups = model_groups(kg)
+    big = next(i for i, g in enumerate(groups) if g.size_class == 1)
+    launched["kaggle md"] = cli_training_run(
+        "variants", f"cli Kaggle model (D=16) with --md-flag --md-round-dims, big group "
+                    f"[{groups[big].total_rows}, {groups[big].dim}], B={KAGGLE_BATCH}, L=1, sgd, "
+                    "sparse-update pallas",
+        kaggle_md_argv() + ["--num-batches", str(n), "--print-freq", "1"], n,
+        only(sparse_rows_overwrite=n), big_index=big)
+    qr = config_of(qr_terabyte_argv(rows))
+    launched["qr"] = cli_training_run(
+        "variants", f"cli Terabyte-MLPerf (<=1M rows) with --qr-flag ({len(qr.qr_table_ids)} "
+                    "QR tables: 7 quotient tables on K4; the other 29 QR sub-tables and the "
+                    f"small group on K3), B={BATCH}, L=1, bf16, rwsadagrad, sparse-update "
+                    "pallas, pallas interaction",
+        qr_terabyte_argv(rows) + ["--num-batches", str(n), "--print-freq", "1"], n,
+        only(fused_interaction=2 * n, sparse_rows_add=7 * n, rwsadagrad_dense_finish=30 * n),
+        big_index=None)
+    launched["qr serve"] = serve_run(
+        "variants", "cli --inference-only, the same QR model",
+        qr_terabyte_argv(rows) + ["--num-batches", str(n), "--inference-only"],
+        only(fused_interaction=n))
+    out = {}
+    launched["weighted"] = cli_training_run(
+        "variants", f"cli bench/dlrm_tpu_benchmark.sh flags with --weighted-pooling learned, "
+                    f"8 x 1M x 64, B={BATCH}, L={L100}, bf16, sgd, sparse-update pallas",
+        benchmark_argv() + ["--weighted-pooling", "learned", "--num-batches", str(n),
+                            "--print-freq", "1"], n,
+        only(sorted_stream_apply=n), big_index=0, out=out)
+    check_vw_moved_only_where_looked_up(out["trainer"])
+    del out
+    dims = sorted({t["dim"] for t in processed.load_table_configs(PROCESSED_DIR)["tables"]})
+    argv = processed_argv()
+    launched["processed"] = cli_training_run(
+        "variants", f"cli --load-processed (12 tables, dims {dims}: {len(dims)} small groups), "
+                    "rwsadagrad, sparse-update pallas", argv, 10,
+        only(rwsadagrad_dense_finish=10 * len(dims)), big_index=None)
+    launched["processed serve"] = serve_run(
+        "variants", "cli --load-processed --inference-only", argv + ["--inference-only"], only())
+    torch.cuda.empty_cache()
+    return launched
+
+
+def serve_run(phase, what, argv, want):
+    """A CLI serving run with the launch counts set to 0 just before and
+    read just after; fails unless they are ``want`` and the metrics finite."""
+    import contextlib
+    import io
+    import math
+
+    from dlrm_yx_tpu_torch import cli
+
+    counters = launch_counters()
+    for c in counters.values():
+        c.launches = 0
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        metrics = cli.main(argv)
+    seconds = time.perf_counter() - t0
+    launches = {name: c.launches for name, c in counters.items()}
+    if launches != want:
+        fail(f"{what}: launched {launches}, want {want}")
+    for key in ("accuracy", "streaming_auc"):
+        if not math.isfinite(metrics.get(key, math.nan)):
+            fail(f"{what}: metric {key} = {metrics.get(key)} is missing or not finite")
+    shown = {k: round(v, 6) for k, v in metrics.items() if isinstance(v, float)}
+    say(phase, f"{what}: served in {seconds:.1f} s (host init and data included); {shown}; "
+               f"launches {launches}")
+    return launches
+
+
+def check_vw_moved_only_where_looked_up(trainer):
+    """Learned v_W after a CLI run: no entry moved on a row that no live
+    (nonzero-weight) lookup touched. At full width an update can be below
+    half an ulp of 1.0 (rows ~1e-3, a mean loss over 2048 samples), so v_W
+    may keep every value: phase z shows v_W learning on the card."""
+    import torch
+
+    g = trainer.groups[0]
+    offs = torch.tensor(g.row_offsets, device="cuda")[:, None, None]
+    live = torch.zeros(g.total_rows, dtype=torch.bool, device="cuda")
+    for b in trainer.trained_on:
+        idx = torch.as_tensor(b.indices, device="cuda").long() + offs
+        live[idx[torch.as_tensor(b.weights, device="cuda") != 0]] = True
+    vw = trainer.params["vw"][0]
+    ones = torch.zeros_like(vw)
+    for n, off in zip(g.rows, g.row_offsets):
+        ones[off:off + n] = 1.0
+    moved = bits(vw) != bits(ones)
+    if (moved & ~live).any():
+        fail(f"learned v_W: {int(moved.sum())} entries moved, "
+             f"{int((moved & ~live).sum())} of them on rows no live lookup touched")
+    say("variants", f"  learned v_W moved on {int(moved.sum())} rows (max |change| "
+                    f"{(vw - ones).abs().max().item():.3e}), none that no live lookup touched "
+                    f"({int(live.sum())} rows were looked up); at this width v_W may keep "
+                    "every value, so this check can catch only a stray move: phases f and r "
+                    "drive K5 on w * v_W with v_W 0, negative and random")
+
+
+def card_vs_cpu(what, cfg, opt, batches, want, mutate=None, learns=()):
+    """Three train steps (and an eval step) on the card against the CPU (the
+    kernels' plain versions) from the same state, with the kernel gates at
+    0: losses and every params and optimizer-state tensor within rtol 1e-4
+    / atol 1e-6 (the card sums in other orders); the card's launches must
+    be ``want``; each params key in ``learns`` must have moved on the
+    card."""
+    import numpy as np
+    import torch
+
+    import dlrm_yx_tpu_torch.optim.optimizer as optimizer
+    from dlrm_yx_tpu_torch.models.dlrm import init_dlrm, model_groups
+    from dlrm_yx_tpu_torch.train.train_step import make_eval_step, make_train_step
+
+    counters = launch_counters()
+    out = []  # the CPU's run, then the card's
+    saved = optimizer.PALLAS_MIN_STORE_BYTES, optimizer.ACC_KERNEL_MIN_BYTES
+    optimizer.PALLAS_MIN_STORE_BYTES = optimizer.ACC_KERNEL_MIN_BYTES = 0
+    try:
+        for dev in ("cpu", "cuda"):
+            params = init_dlrm(cfg, seed=7, device=dev)
+            if mutate is not None:
+                mutate(params)
+            start = {k: clone_tree(params[k]) for k in learns}
+            state = optimizer.init_opt_state(opt, params, model_groups(cfg))
+            for t in leaves(state):
+                t.fill_(0.01)
+            before = {n: c.launches for n, c in counters.items()}
+            step = make_train_step(cfg, opt, device=dev)
+            preds, _ = make_eval_step(cfg, dev, capture=False)(params, batches[0])
+            losses = [preds.float().mean().item()]
+            for i, b in enumerate(batches):
+                params, state, loss = step(params, state, b, i)
+                losses.append(float(loss))
+            ran = {n: c.launches - before[n] for n, c in counters.items()}
+            out.append((np.array(losses), params, state, ran))
+    finally:
+        optimizer.PALLAS_MIN_STORE_BYTES, optimizer.ACC_KERNEL_MIN_BYTES = saved
+    (lc, pc, sc, _), (lg, pg, sg, ran) = out
+    if ran != want:
+        fail(f"{what} on the card launched {ran}, want {want}")
+    for k in learns:
+        if all(torch.equal(a, b) for a, b in zip(leaves(start[k]), leaves(pg[k]))):
+            fail(f"{what}: {k} did not move on the card")
+    rtol, atol = 1e-4, 1e-6
+    pairs = [("losses", torch.from_numpy(lc), torch.from_numpy(lg))] + [
+        (f"tensor {i}", a.detach().float(), b.detach().float().cpu())
+        for i, (a, b) in enumerate(zip(leaves((pc, sc)), leaves((pg, sg))))]
+    for name, a, b in pairs:
+        if not torch.allclose(b, a, rtol=rtol, atol=atol):
+            fail(f"{what} card vs CPU: {name} differs beyond rtol {rtol} atol {atol}: max "
+                 f"{(a - b).abs().max().item()}")
+    worst = max((a - b).abs().max().item() for _, a, b in pairs)
+    say("reference", f"{what}: eval + 3 train steps card vs CPU, losses {lg[1:].tolist()}; "
+                     f"max |diff| over the mean prediction, losses and all {len(pairs) - 1} "
+                     f"params and state tensors {worst:.3e} (rtol {rtol}, atol {atol}); "
+                     f"launches { {k: v for k, v in want.items() if v} }")
+
+
+def check_variants_against_cpu():
+    """Phase z: small MD, QR and learned-pooling models, three train steps
+    each on the card against the CPU with the kernel gates at 0: MD at D=16
+    (big groups of widths 1 and 2: K2; small groups: K3), QR at D=128
+    (quotient tables: K4; remainder tables and the small group: K3; K1),
+    and learned pooling at L=100 on the stream route (K5) with v_W 0 and
+    negative on some rows."""
+    from dlrm_yx_tpu_torch.config import DLRMConfig
+    from dlrm_yx_tpu_torch.data.synthetic import RandomDataConfig, make_random_batches
+    from dlrm_yx_tpu_torch.ops.md_embedding import md_solver
+    from dlrm_yx_tpu_torch.optim.optimizer import OptConfig
+
+    def batches(cfg, m_den, lookups):
+        return make_random_batches(RandomDataConfig(
+            emb_rows=cfg.emb_rows, m_den=m_den, mini_batch_size=64, num_batches=3,
+            num_indices_per_lookup=lookups, num_indices_per_lookup_fixed=False, seed=8))
+
+    rows = (50, 300, 100_000, 1_000_000)
+    dims = tuple(int(d) if n > 200 else 16 for d, n in
+                 zip(md_solver(rows, 0.3, d0=16, round_dim=True), rows))
+    md = DLRMConfig.build(emb_rows=rows, emb_dims=dims, ln_bot=(4, 32, 16), ln_top=(32, 1),
+                          emb_split_threshold=100, loss="bce", md_flag=True,
+                          sparse_update_impl="pallas")
+    rws = OptConfig("rwsadagrad", 0.05)
+    # K4 on the big groups' 1-D momenta (ACC_KERNEL_MIN_BYTES at 0)
+    card_vs_cpu(f"MD dims {dims}, rwsadagrad", md, rws, batches(md, 4, 1),
+                only(sparse_rows_overwrite=6, rwsadagrad_dense_finish=6, sparse_rows_add=6),
+                learns=("md_proj",))
+    qr = DLRMConfig.build(emb_rows=(3000, 40, 60, 5000), ln_bot=(4, 64, 128), ln_top=(64, 1),
+                          emb_split_threshold=100, loss="bce", interaction_impl="pallas",
+                          qr_flag=True, sparse_update_impl="pallas")
+    card_vs_cpu("QR mult, rwsadagrad", qr, rws, batches(qr, 4, 1),
+                only(fused_interaction=4, sparse_rows_add=6, rwsadagrad_dense_finish=9),
+                learns=("qr",))
+
+    def zero_some(params):
+        for v in params["vw"]:
+            v[:40] = 0.0
+            v[40:60] = -0.5
+
+    wp = DLRMConfig.build(emb_rows=(3000, 4000), ln_bot=(16, 64, 64), ln_top=(64, 1),
+                          emb_split_threshold=0, loss="bce", weighted_pooling="learned",
+                          sparse_update_impl="pallas")
+    card_vs_cpu(f"learned pooling, L={L100}, sgd (stream route)", wp, OptConfig("sgd", 0.05),
+                batches(wp, 16, L100), only(sorted_stream_apply=3), mutate=zero_some,
+                learns=("vw",))
+
+
+# kernels of the variants' L=1 steps by what they do (K2 on MD's big group,
+# K4 on QR's quotient tables: both the row plan's kernels)
+VARIANT_KINDS = {
+    "K1 fused_interaction": "fused_interaction",
+    "K2 / K4 (row_plan)": "row_plan",
+    "K3 rwsadagrad_dense_finish": "dense_finish",
+    "sort (cub radix)": "radix|sort",
+    "gather (index_select)": "indexselect|index_select|gather",
+    "scatter (index_add_, index_put_)": "indexfunc|index_add|scatter|index_put|indexing_backward",
+    "GEMM": "gemm|nvjet|xmma|cutlass|cublas",
+    "elementwise and reductions": "elementwise|reduce",
+}
+
+
+def variant_throughput(plain_fn, rows):
+    """Phase s, the variants: the captured N=16 L=1 train step of the MD
+    and QR Terabyte models against the plain one (``plain_fn``), in turns.
+    Returns the MD and QR dispatches as functions of nothing (phase t
+    profiles them)."""
+    from dlrm_yx_tpu_torch.data.batch import stack_batches
+    from dlrm_yx_tpu_torch.models.dlrm import init_dlrm, model_groups
+    from dlrm_yx_tpu_torch.optim.optimizer import OptConfig, init_opt_state
+    from dlrm_yx_tpu_torch.train.train_step import make_multistep_train_step
+
+    rws = OptConfig("rwsadagrad", LR)
+    fns = {"plain": plain_fn}
+    for name, argv in (("MD", md_terabyte_argv(rows)), ("QR", qr_terabyte_argv(rows))):
+        cfg = config_of(argv)
+        params = init_dlrm(cfg, seed=0, device="cuda")
+        state = init_opt_state(rws, params, model_groups(cfg))
+        batch = drawn_batches(cfg, 1, seed=4)[0]
+        step = make_multistep_train_step(cfg, rws, N_DISPATCH)
+        fns[name] = train_step_fn(step, params, state, stack_batches([batch] * N_DISPATCH))
+    times = time_in_turns(fns, check_loss)
+    plain_ms = statistics.mean(times["plain"]) / N_DISPATCH
+    for name, ts in times.items():
+        ms = statistics.mean(ts) / N_DISPATCH
+        say("throughput", f"captured N={N_DISPATCH} L=1 train step, Terabyte-MLPerf <=1M rows, "
+                          f"B={BATCH}, bf16, rwsadagrad, sparse-update pallas, {name} tables: "
+                          f"{ms:.4f} ms/step ({BATCH / ms * 1e3:.0f} examples/s; "
+                          f"{ms / plain_ms:.2f}x plain; ms a call {ts})")
+    return {name: fn for name, fn in fns.items() if name != "plain"}
+
+
 def main():
     import re
 
@@ -2635,17 +3217,21 @@ def main():
 
     _, cap_big = model_groups(capacity_config())
     k4 = check_rows_add_kernel(cap_big, big)
+    rows = DLRMConfig.terabyte_mlperf(max_ind_range=1_000_000).emb_rows
+    # x. the kernels on the variants' shapes (and the processed dataset)
+    check_variant_kernels(rows)
 
     # 4, b, g, h, m. the main paths: serving, training at L=1, the L=100
     # benchmark (K5), its batch-4096 RWSAdagrad run (K6) and training on
     # bf16 stores with stochastic rounding (K4)
-    rows = DLRMConfig.terabyte_mlperf(max_ind_range=1_000_000).emb_rows
     with SharedInit() as shared:
         serve_main_path(rows)
         launches = train_main_path(rows, big_index=1)
         l100_launches = benchmark_main_path()
         big_launches = big_batch_main_path()
         bf16_launches = train_bf16_sr_main_path(rows, big_index=1)
+        # y. the embedding variants and the processed dataset
+        variant_main_paths(rows)
 
         # u, v. the real-data paths (MLPerf binary file, Kaggle TSV -> npz,
         # stack-distance traces) and checkpoints; w. their feeds' throughput,
@@ -2664,6 +3250,8 @@ def main():
     check_train_against_cpu()
     check_stream_train_against_cpu()
     check_k4_train_against_cpu()
+    # z. the variants' train steps against the CPU
+    check_variants_against_cpu()
 
     # r. every captured path against its eager steps, bit for bit
     check_capture(rows)
@@ -2694,6 +3282,8 @@ def main():
             "rwsadagrad, sparse-update pallas), sr off", *cap_parts, cap_steps["sr off"]),
             N_DISPATCH),
     }
+    for name, fn in variant_throughput(captured["L=1 train"][0], rows).items():
+        captured[f"L=1 train, {name} tables"] = (fn, N_DISPATCH)
     profile_step(lambda: step(params, batch), "serving (eager)",
                  ("embedding_lookup", "bottom_mlp", "interaction", "top_mlp"))
     train_phases = ("embedding_lookup", "bottom_mlp", "interaction", "top_mlp",
@@ -2718,6 +3308,8 @@ def main():
                                   (), steps=n)
         if name.startswith(f"L={L100}"):
             profile_by_kind(per_kernel)
+        elif name.endswith(" tables"):
+            profile_by_kind(per_kernel, VARIANT_KINDS)
         elif name.startswith("L=1 "):
             profile_by_kind(per_kernel, L1_KINDS)
         elif name.startswith("capacity"):

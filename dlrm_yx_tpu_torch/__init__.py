@@ -13,9 +13,11 @@ Ported so far: the single-device training path (``cli`` ->
 sparse-update routing in ``optim/``, its steps replayed from CUDA graphs
 in ``train/capture.py``) and the serving path (``cli --inference-only``
 -> ``Trainer.evaluate`` -> ``make_eval_step``), on random, trace-driven
-(``data/trace.py``) or Criteo data (``data/criteo.py``,
-``data/criteo_bin.py``), with checkpoints (``train/checkpoint.py``), and
-all six kernels (K1–K6). Entry points run on ``cuda`` unless the caller
+(``data/trace.py``), Criteo (``data/criteo.py``, ``data/criteo_bin.py``)
+or processed data (``data/processed.py``), with checkpoints
+(``train/checkpoint.py``), the embedding variants (QR tables,
+``ops/qr_embedding.py``; mixed dims, ``ops/md_embedding.py``; weighted
+pooling), and all six kernels (K1–K6). Entry points run on ``cuda`` unless the caller
 passes ``device="cpu"``. The package imports nothing of JAX or
 ``dlrm_yx_tpu``.
 """

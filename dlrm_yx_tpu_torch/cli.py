@@ -10,7 +10,14 @@ file with ``--mlperf-bin-loader [--mlperf-bin-shuffle]``). In dataset mode
 the table rows come from ``{prefix}_fea_count.npz``, capped by
 ``--max-ind-range``. ``--save-model`` saves the best checkpoint at each
 eval, ``--load-model`` resumes from one (or serves it with
-``--inference-only``). The flags keep the JAX package's names, defaults
+``--inference-only``). The embedding variants: ``--qr-flag`` (QR
+tables, ``--qr-threshold`` / ``--qr-collisions`` / ``--qr-operation``),
+``--md-flag`` (mixed dims from ``md_solver`` at ``--md-temperature``,
+``--md-round-dims``, for tables over ``--md-threshold``) and
+``--weighted-pooling fixed|learned``. ``--load-processed DIR`` trains on a
+processed dataset written by ``python -m dlrm_yx_tpu_torch.data.processed``
+(its tables' rows and dims from ``DIR/table_configs.json``, its batches
+from ``DIR/data.npz``). The flags keep the JAX package's names, defaults
 and meaning; one flag is new, ``--device`` (``cuda`` by default; ``cpu``
 for the tests). Flags of parts not yet ported are still recognised, and
 giving any of them raises ``NotImplementedError`` instead of being
@@ -51,12 +58,14 @@ from dlrm_yx_tpu_torch.data.criteo import (
     split_kaggle_train_txt,
 )
 from dlrm_yx_tpu_torch.data.criteo_bin import CriteoBinLoader
+from dlrm_yx_tpu_torch.data.processed import load_processed, load_table_configs
 from dlrm_yx_tpu_torch.data.synthetic import (
     RandomDataConfig,
     make_device_random_batches,
     make_random_batches,
 )
 from dlrm_yx_tpu_torch.data.trace import make_trace_batches
+from dlrm_yx_tpu_torch.ops.md_embedding import md_solver
 from dlrm_yx_tpu_torch.optim.lr_policy import LRPolicy
 from dlrm_yx_tpu_torch.optim.optimizer import OptConfig
 from dlrm_yx_tpu_torch.train.trainer import Trainer, TrainerConfig
@@ -65,18 +74,14 @@ from dlrm_yx_tpu_torch.utils.logging import rank0_print
 
 # flags of dlrm_yx_tpu/cli.py whose parts are not ported yet
 UNPORTED_FLAGS = (
-    "weighted-pooling", "md-flag", "md-threshold", "md-temperature",
-    "md-round-dims", "qr-flag", "qr-threshold", "qr-operation",
-    "qr-collisions", "load-processed", "print-precision",
-    "force-cpu-devices", "distributed", "mesh-data", "mesh-model",
+    "print-precision", "force-cpu-devices", "distributed", "mesh-data", "mesh-model",
     "shard-mode", "sharder", "allocation", "debug-mode",
     "enable-profiling", "profile-out-dir", "plot-compute-graph",
     "save-onnx", "quantize-mlp-with-bit", "quantize-emb-with-bit",
     "collect-execution-graph",
 )
-# --data-generation values ported; "processed" (--load-processed) waits for
-# per-table dims (mixed-dimension embeddings)
-DATA_GENERATIONS = ("random", "random-device", "synthetic", "dataset")
+# --data-generation values ported (all of the JAX CLI's)
+DATA_GENERATIONS = ("random", "random-device", "synthetic", "dataset", "processed")
 
 
 def add_noop_flags(p: argparse.ArgumentParser) -> None:
@@ -111,6 +116,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--arch-mlp-top", type=str, default="4-2-1")
     p.add_argument("--arch-interaction-op", type=str, choices=["dot", "cat"], default="dot")
     p.add_argument("--arch-interaction-itself", action="store_true", default=False)
+    p.add_argument("--weighted-pooling", type=str, default=None,
+                   help="fixed | learned: per-row pooling weights v_W")
+    # embedding compression
+    p.add_argument("--md-flag", action="store_true", default=False)
+    p.add_argument("--md-threshold", type=int, default=200)
+    p.add_argument("--md-temperature", type=float, default=0.3)
+    p.add_argument("--md-round-dims", action="store_true", default=False)
+    p.add_argument("--qr-flag", action="store_true", default=False)
+    p.add_argument("--qr-threshold", type=int, default=200)
+    p.add_argument("--qr-operation", type=str, default="mult")
+    p.add_argument("--qr-collisions", type=int, default=4)
     # loss
     p.add_argument("--loss-function", type=str, default="mse")  # or bce or wbce
     p.add_argument("--loss-weights", type=str, default="1.0-1.0")  # for wbce
@@ -122,7 +138,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--data-generation", type=str, default="random",
                    help="random (numpy, on the host) | random-device (drawn on "
                         "the device) | synthetic (stack-distance traces) | "
-                        "dataset (Criteo)")
+                        "dataset (Criteo) | processed (--load-processed)")
     p.add_argument("--rand-data-dist", type=str, default="uniform")  # or gaussian
     p.add_argument("--rand-data-min", type=float, default=0)
     p.add_argument("--rand-data-max", type=float, default=1)
@@ -137,6 +153,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--data-set", type=str, default="kaggle")  # or terabyte
     p.add_argument("--raw-data-file", type=str, default="")
     p.add_argument("--processed-data-file", type=str, default="")
+    p.add_argument("--load-processed", type=str, default="",
+                   help="a processed dataset's directory (table_configs.json, "
+                        "data.npz): the model's tables and the batches")
     p.add_argument("--data-randomize", type=str, default="total")  # none, day or total
     p.add_argument("--data-sub-sample-rate", type=float, default=0.0)
     p.add_argument("--memory-map", action="store_true", default=False)
@@ -249,6 +268,38 @@ def dataset_prefix(args) -> str:
 
 
 def config_from_args(args, argv=None) -> DLRMConfig:
+    kw = dict(
+        ln_bot=parse_int_list(args.arch_mlp_bot),
+        ln_top=parse_int_list(args.arch_mlp_top),
+        qr_flag=args.qr_flag,
+        qr_threshold=args.qr_threshold,
+        qr_collisions=args.qr_collisions,
+        qr_operation=args.qr_operation,
+        md_flag=args.md_flag,
+        md_threshold=args.md_threshold,
+        weighted_pooling=args.weighted_pooling,
+        interaction=args.arch_interaction_op,
+        interact_itself=args.arch_interaction_itself,
+        loss=args.loss_function,
+        loss_threshold=args.loss_threshold,
+        wbce_weights=tuple(float(x) for x in args.loss_weights.split("-")),
+        compute_dtype=args.compute_dtype,
+        emb_dtype=args.emb_dtype,
+        stochastic_rounding=args.stochastic_rounding,
+        lookup_impl=args.lookup_impl,
+        interaction_impl=args.interaction_impl,
+        sparse_update_impl=args.sparse_update_impl,
+        exact_row_momentum=args.exact_row_momentum,
+        emb_split_threshold=args.emb_split_threshold,
+    )
+    if args.load_processed:
+        # the dataset's table_configs.json gives the rows and per-table dims
+        # (k*D through the split trick; sub-D dims through the MD
+        # up-projection with --md-flag), as in the JAX CLI, whose branch
+        # also leaves --no-write-only-update out
+        tcs = load_table_configs(args.load_processed)["tables"]
+        return DLRMConfig.build(emb_rows=[int(tc["row"]) for tc in tcs],
+                                emb_dims=tuple(int(tc["dim"]) for tc in tcs), **kw)
     rows = parse_int_list(args.arch_embedding_size)
     if args.data_generation == "dataset":
         # dataset mode derives table sizes from the preprocessed feature
@@ -270,25 +321,17 @@ def config_from_args(args, argv=None) -> DLRMConfig:
                     sys.argv if argv is None else argv):
                 rank0_print(f"note: dataset feature counts override "
                             f"--arch-embedding-size ({len(rows)} tables from {cf})")
-    return DLRMConfig.build(
-        emb_rows=rows,
-        ln_bot=parse_int_list(args.arch_mlp_bot),
-        ln_top=parse_int_list(args.arch_mlp_top),
-        interaction=args.arch_interaction_op,
-        interact_itself=args.arch_interaction_itself,
-        loss=args.loss_function,
-        loss_threshold=args.loss_threshold,
-        wbce_weights=tuple(float(x) for x in args.loss_weights.split("-")),
-        compute_dtype=args.compute_dtype,
-        emb_dtype=args.emb_dtype,
-        stochastic_rounding=args.stochastic_rounding,
-        write_only_update=not args.no_write_only_update,
-        lookup_impl=args.lookup_impl,
-        interaction_impl=args.interaction_impl,
-        sparse_update_impl=args.sparse_update_impl,
-        exact_row_momentum=args.exact_row_momentum,
-        emb_split_threshold=args.emb_split_threshold,
-    )
+    emb_dims = ()
+    if args.md_flag:
+        md_dims = md_solver(np.array(rows), args.md_temperature,
+                            d0=args.arch_sparse_feature_size,
+                            round_dim=args.md_round_dims).tolist()
+        # MD dims apply only above the threshold; smaller tables keep the
+        # base dim (dlrm_s_pytorch.py:291-293)
+        emb_dims = tuple(int(md_dims[i]) if rows[i] > args.md_threshold
+                         else args.arch_sparse_feature_size for i in range(len(rows)))
+    return DLRMConfig.build(emb_rows=rows, emb_dims=emb_dims,
+                            write_only_update=not args.no_write_only_update, **kw)
 
 
 def ensure_preprocessed(args) -> None:
@@ -323,7 +366,30 @@ def make_data(args, cfg: DLRMConfig, train: bool = True):
     ``--test-mini-batch-size``), or ``CriteoBinLoader`` over
     ``--raw-data-file`` with ``--processed-data-file`` as its counts file,
     as in the JAX CLI (which makes the reference's MLPerf command line fail
-    there: ROADMAP Queue C)."""
+    there: ROADMAP Queue C). A processed dataset (``--load-processed`` or
+    ``--data-generation processed``) serves its saved batches as both, and
+    exits, as the JAX CLI does, when its files disagree with each other or
+    with the model's rows."""
+    if args.data_generation == "processed" or args.load_processed:
+        # --load-processed overrides --data-generation: the saved batches
+        # are the dataset, train and test alike (dlrm_s_pytorch.py:1405-1414)
+        tc, batches = load_processed(args.load_processed)
+        if batches and batches[0].indices.shape[0] != cfg.num_tables:
+            sys.exit(
+                f"ERROR: processed data has {batches[0].indices.shape[0]} "
+                f"tables but the model was built with {cfg.num_tables} "
+                "(table_configs.json and data.npz disagree)"
+            )
+        tc_rows = tuple(int(t["row"]) for t in tc["tables"])
+        if tuple(cfg.emb_rows) != tc_rows:
+            sys.exit(
+                f"ERROR: model table rows {tuple(cfg.emb_rows)} != "
+                f"table_configs.json rows {tc_rows} — a stale or "
+                "hand-specified --arch-embedding-size would silently clamp "
+                "out-of-range indices; rebuild the arch from the dataset "
+                "(omit --arch-embedding-size with --load-processed)"
+            )
+        return (batches if train else None), batches
     nb = args.num_batches or int(np.ceil(args.data_size / args.mini_batch_size))
     if args.data_generation == "synthetic":
         batches = make_trace_batches(

@@ -6,13 +6,17 @@ the port, both ways.
 and returns the port's parameter dict on ``device``. Packed stores (dims
 below 128 that divide it) are unpacked to logical ``[total_rows, dim]``
 rows with ``unpack_store``, a row-major reshape. The port keeps the group
-layout, so the stores carry over element by element.
+layout, so the stores carry over element by element. The variants' leaves
+carry over as they are: ``vw`` (per group ``[total_rows]``, or None),
+``qr`` (per QR table its quotient and remainder tables, natural layout)
+and ``md_proj`` (per MD table ``[dim, base_dim]``).
 
 ``opt_state_from_jax`` does the same for the optimizer state of
 ``dlrm_yx_tpu.optim.optimizer.init_opt_state``: the dense Adagrad
 accumulators, and per group either Adagrad's per-element accumulator
 (unpacked like its store) or RWSAdagrad's 1-D per-row momentum, whose
-``acc_len`` padding the port keeps.
+``acc_len`` padding the port keeps; and, where the model has them, the
+accumulators of ``vw``, ``qr`` and ``md_proj``, as they are.
 
 ``params_to_jax`` and ``opt_state_to_jax`` go the other way: numpy trees in
 the JAX package's layout, the stores packed again with ``pack_store`` (the
@@ -30,7 +34,7 @@ import numpy as np
 import torch
 
 from dlrm_yx_tpu_torch.config import DLRMConfig
-from dlrm_yx_tpu_torch.models.dlrm import check_supported, model_groups
+from dlrm_yx_tpu_torch.models.dlrm import model_groups
 from dlrm_yx_tpu_torch.ops.embedding import pack_store, unpack_store
 from dlrm_yx_tpu_torch.optim.optimizer import OptConfig, acc_len
 from dlrm_yx_tpu_torch.utils.device import resolve_device
@@ -55,13 +59,20 @@ def _array(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
+def _variant_leaves(tree: Dict, conv) -> Dict:
+    """``vw``, ``qr`` and ``md_proj`` of a JAX or port tree, each leaf
+    through ``conv``; ``vw`` None when absent, the others only when
+    present (the JAX package's keys)."""
+    out = {"vw": None if tree.get("vw") is None else [conv(v) for v in tree["vw"]]}
+    if "qr" in tree:
+        out["qr"] = [(conv(q), conv(r)) for q, r in tree["qr"]]
+    if "md_proj" in tree:
+        out["md_proj"] = [conv(w) for w in tree["md_proj"]]
+    return out
+
+
 def params_from_jax(np_params: Dict, cfg: DLRMConfig,
                     device: Optional[Union[str, torch.device]] = None) -> Dict:
-    check_supported(cfg)
-    if np_params.get("vw") is not None or "qr" in np_params or "md_proj" in np_params:
-        raise NotImplementedError(
-            "weighted pooling, QR and MD parameters are not yet ported"
-        )
     dev = resolve_device(device)
     groups = model_groups(cfg)
     if len(np_params["emb"]) != len(groups):
@@ -75,6 +86,7 @@ def params_from_jax(np_params: Dict, cfg: DLRMConfig,
             _tensor(unpack_store(np.asarray(s), g), dev)
             for s, g in zip(np_params["emb"], groups)
         ],
+        **_variant_leaves(np_params, lambda a: _tensor(a, dev)),
     }
 
 
@@ -82,10 +94,6 @@ def opt_state_from_jax(np_state: Dict, opt: OptConfig, cfg: DLRMConfig,
                        device: Optional[Union[str, torch.device]] = None) -> Dict:
     if opt.name == "sgd":
         return {}
-    if any(k in np_state for k in ("vw", "qr", "md_proj")):
-        raise NotImplementedError(
-            "weighted pooling, QR and MD optimizer state is not yet ported"
-        )
     dev = resolve_device(device)
     groups = model_groups(cfg)
     dense = {
@@ -102,14 +110,18 @@ def opt_state_from_jax(np_state: Dict, opt: OptConfig, cfg: DLRMConfig,
                              f"{g.total_rows} rows")
         else:
             emb.append(_tensor(a, dev))
-    return {"dense": dense, "emb": emb}
+    state = {"dense": dense, "emb": emb,
+             **_variant_leaves(np_state, lambda a: _tensor(a, dev))}
+    if state["vw"] is None:
+        del state["vw"]
+    return state
 
 
 def params_to_jax(params: Dict, cfg: DLRMConfig) -> Dict:
     """The port's parameter dict as the JAX package's numpy pytree: ``bot``
     / ``top`` lists of ``(W [in, out], b)``, ``emb`` physical (packed)
-    stores per group, and ``vw`` None (weighted pooling is not ported)."""
-    check_supported(cfg)
+    stores per group, ``vw`` (None without weighted pooling) and, where the
+    model has them, ``qr`` and ``md_proj``."""
     groups = model_groups(cfg)
     if len(params["emb"]) != len(groups):
         raise ValueError(f"{len(params['emb'])} stores for {len(groups)} table groups")
@@ -117,15 +129,16 @@ def params_to_jax(params: Dict, cfg: DLRMConfig) -> Dict:
         "bot": [(_array(w), _array(b)) for w, b in params["bot"]],
         "top": [(_array(w), _array(b)) for w, b in params["top"]],
         "emb": [pack_store(_array(s), g) for s, g in zip(params["emb"], groups)],
-        "vw": None,
+        **_variant_leaves(params, _array),
     }
 
 
 def opt_state_to_jax(state: Dict, cfg: DLRMConfig) -> Dict:
     """The port's optimizer state as the JAX package's numpy pytree: ``{}``
-    for SGD; else the dense accumulators and per group Adagrad's
+    for SGD; else the dense accumulators, per group Adagrad's
     per-element accumulator (packed like its store) or RWSAdagrad's 1-D row
-    momentum (``acc_len`` long, as it is)."""
+    momentum (``acc_len`` long, as it is), and the accumulators of ``vw``,
+    ``qr`` and ``md_proj`` where the state has them."""
     if not state:
         return {}
     groups = model_groups(cfg)
@@ -133,4 +146,7 @@ def opt_state_to_jax(state: Dict, cfg: DLRMConfig) -> Dict:
              for k in ("bot", "top")}
     emb = [pack_store(_array(a), g) if a.dim() == 2 else _array(a)
            for a, g in zip(state["emb"], groups)]
-    return {"dense": dense, "emb": emb}
+    out = {"dense": dense, "emb": emb, **_variant_leaves(state, _array)}
+    if out["vw"] is None:
+        del out["vw"]
+    return out

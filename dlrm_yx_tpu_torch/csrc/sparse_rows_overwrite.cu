@@ -19,7 +19,9 @@
 // Design: the row plan of row_plan.cuh, in three launches and with no
 // sort of the items. The plan counts each row's active occurrences in a hash
 // table; an item whose row occurs once copies its new_vals row to the
-// store with 16-byte loads and stores, a warp per item; the items of
+// store with 16-byte loads and stores (a group of up to 32 lanes per item),
+// or, when W % 4 != 0 (the packed mixed-dimension groups of widths 1 and
+// 2), with one f32 a lane: row_plan::launch picks V = 4 or V = 1; the items of
 // duplicated rows are sorted by (row, k) in a one-block tail kernel,
 // which adds each run's delta rows to its row in ascending k, without
 // atomics on the store: no sort of all K items, and no torch op around
@@ -64,8 +66,8 @@ extern "C" long long sparse_rows_overwrite_scratch_bytes(long long K) {
 
 // Launches the plan, apply and tail kernels on `stream` (a cudaStream_t) on
 // device `device` and returns cudaGetLastError(): 0 on success. store
-// [R, W] (R < 2^30), new_vals and delta [K, W] are contiguous f32 with
-// W % 4 == 0 and 16-byte aligned bases; idx [K] int32 (idx64 = 0) or
+// [R, W] (R < 2^30), new_vals and delta [K, W] are contiguous f32, with
+// 16-byte aligned bases when W % 4 == 0 (any W > 0); idx [K] int32 (idx64 = 0) or
 // int64; active [K] int32; scratch: sparse_rows_overwrite_scratch_bytes(K)
 // bytes, zero before the first call, which every call leaves zero.
 extern "C" int sparse_rows_overwrite(float* store, const void* idx, int idx64,

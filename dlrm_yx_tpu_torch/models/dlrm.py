@@ -4,15 +4,24 @@ The port of ``dlrm_yx_tpu/models/dlrm.py``. The functions keep the JAX
 package's shape: parameters are a dict
 
     {"bot": [(W [in, out], b), ...], "top": [(W, b), ...],
-     "emb": [store [total_rows, dim] per group, ...]}
+     "emb": [store [total_rows, dim] per group, ...],
+     "vw": [pooling weights [total_rows] per group, ...] or None,
+     "qr": [(Q [q_rows, dim], R [collisions, dim]) per QR table]  (QR only),
+     "md_proj": [W [dim_t, base_dim] per MD table]                (MD only)}
 
 and the forward is split at the pooled-embedding boundary
 (``forward_from_pooled``) as it is there. ``DLRM`` is the ``nn.Module``
 that owns such a dict as registered parameters (so ``state_dict``,
 ``parameters`` and ``to`` work) and runs ``forward_logits``.
 
-Not yet ported: QR and MD embeddings and weighted pooling; a config that
-asks for them raises ``NotImplementedError``.
+The embedding variants, as in the JAX package: QR tables (rows >
+``qr_threshold`` with ``qr_flag``) leave the groups for their own
+quotient and remainder stores (``ops/qr_embedding.py``); a mixed-dimension
+table (``md_table_ids``) sits in the group of its own dim and its pooled
+vector is up-projected to the base dim by ``md_proj``; weighted pooling
+weighs each looked-up row by ``vw`` (ones at init). The JAX package
+refuses learned pooling with QR tables, and QR or MD tables in
+``init_dlrm_on_device``; the port refuses them too.
 """
 
 from __future__ import annotations
@@ -32,7 +41,9 @@ from dlrm_yx_tpu_torch.ops.embedding import (
 )
 from dlrm_yx_tpu_torch.ops.interaction import interact_features
 from dlrm_yx_tpu_torch.ops.losses import predictions_from_logits
+from dlrm_yx_tpu_torch.ops.md_embedding import init_md_projection
 from dlrm_yx_tpu_torch.ops.mlp import apply_mlp, init_mlp
+from dlrm_yx_tpu_torch.ops.qr_embedding import QRSpec, init_qr, qr_lookup
 from dlrm_yx_tpu_torch.utils.device import resolve_device
 from dlrm_yx_tpu_torch.utils.profiling import phase_scope
 
@@ -53,13 +64,31 @@ def model_groups(config: DLRMConfig) -> List[TableGroup]:
     )
 
 
-def check_supported(config: DLRMConfig) -> None:
-    if config.qr_flag:
-        raise NotImplementedError("QR embeddings are not yet ported")
-    if config.md_table_ids:
-        raise NotImplementedError("mixed-dimension embeddings are not yet ported")
-    if config.weighted_pooling is not None:
-        raise NotImplementedError("weighted pooling is not yet ported")
+def qr_specs(config: DLRMConfig) -> List[QRSpec]:
+    return [
+        QRSpec(
+            table_id=t,
+            rows=config.emb_rows[t],
+            dim=config.emb_dims[t],
+            collisions=config.qr_collisions,
+            operation=config.qr_operation,
+        )
+        for t in config.qr_table_ids
+    ]
+
+
+def _ones_vw(groups: Sequence[TableGroup], config: DLRMConfig, device: torch.device):
+    """v_W = ones(n) per table, zero on padding rows, flat per group
+    (dlrm_s_pytorch.py:313-316); None without weighted pooling."""
+    if config.weighted_pooling is None:
+        return None
+    vw = []
+    for g in groups:
+        v = torch.zeros(g.total_rows, dtype=torch.float32, device=device)
+        for n, off in zip(g.rows, g.row_offsets):
+            v[off : off + n] = 1.0
+        vw.append(v)
+    return vw
 
 
 def _dense_params(rng: np.random.RandomState, config: DLRMConfig,
@@ -76,21 +105,28 @@ def init_dlrm(config: DLRMConfig, seed: int = 123,
               device: Optional[Union[str, torch.device]] = None) -> Dict:
     """All parameters from one numpy RandomState, in the JAX package's draw
     order: embedding tables in canonical table order (U(-1/sqrt n, 1/sqrt n),
-    padding rows zero), then the bottom MLP, then the top MLP. The values
-    equal ``dlrm_yx_tpu.models.dlrm.init_dlrm``'s for the same seed. Each
-    table is drawn straight into its group store's row block, so the host
-    holds the stores once."""
-    check_supported(config)
+    padding rows zero; a QR table draws its quotient then its remainder
+    table), then the MD projections in table order, then the bottom MLP,
+    then the top MLP. The values equal ``dlrm_yx_tpu.models.dlrm.init_dlrm``'s
+    for the same seed. Each table is drawn straight into its group store's
+    row block, so the host holds the stores once."""
+    if config.weighted_pooling == "learned" and config.qr_table_ids:
+        raise NotImplementedError("learned weighted pooling with QR tables")
     dev = resolve_device(device)
     rng = np.random.RandomState(seed)
     groups = model_groups(config)
+    specs = {s.table_id: s for s in qr_specs(config)}
     stores = [np.zeros((g.total_rows, g.dim), dtype=np.float32) for g in groups]
     where = {
         t: (gi, off)
         for gi, g in enumerate(groups)
         for t, off in zip(g.table_ids, g.row_offsets)
     }
+    qr = {}
     for t, (n, d) in enumerate(zip(config.emb_rows, config.emb_dims)):
+        if t in specs:
+            qr[t] = tuple(torch.from_numpy(a).to(dev) for a in init_qr(rng, specs[t]))
+            continue
         gi, off = where[t]
         bound = np.sqrt(1.0 / n)
         for r0 in range(0, n, _INIT_CHUNK_ROWS):
@@ -98,10 +134,20 @@ def init_dlrm(config: DLRMConfig, seed: int = 123,
             stores[gi][off + r0 : off + r1] = rng.uniform(
                 -bound, bound, size=(r1 - r0, d)
             ).astype(np.float32)
+    md_proj = [
+        torch.from_numpy(init_md_projection(rng, config.emb_dims[t], config.base_dim)).to(dev)
+        for t in config.md_table_ids
+    ]
     edt = DTYPES[config.emb_dtype]
     emb = [torch.from_numpy(s).to(dev).to(edt) for s in stores]
     del stores
-    return {**_dense_params(rng, config, dev), "emb": emb}
+    params = {**_dense_params(rng, config, dev), "emb": emb,
+              "vw": _ones_vw(groups, config, dev)}
+    if specs:
+        params["qr"] = [qr[t] for t in config.qr_table_ids]
+    if md_proj:
+        params["md_proj"] = md_proj
+    return params
 
 
 def init_dlrm_on_device(config: DLRMConfig, seed: int = 123,
@@ -113,12 +159,16 @@ def init_dlrm_on_device(config: DLRMConfig, seed: int = 123,
     Each table is drawn in f32 blocks of ``_DEVICE_CHUNK_ROWS`` rows cast
     into the store, so the device holds the store and one block (a bf16
     store of 13.8 GB never has an f32 twin). The dense params take the
-    numpy draws that the JAX package's ``init_dlrm_on_device`` takes."""
-    check_supported(config)
+    numpy draws that the JAX package's ``init_dlrm_on_device`` takes;
+    weighted pooling's ``vw`` starts at ones. Plain tables only: QR and MD
+    tables raise, as in the JAX package."""
+    if config.qr_table_ids or config.md_table_ids:
+        raise NotImplementedError("device init supports plain tables only")
     dev = resolve_device(device)
     edt = DTYPES[config.emb_dtype]
+    groups = model_groups(config)
     emb = []
-    for gi, g in enumerate(model_groups(config)):
+    for gi, g in enumerate(groups):
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed + gi)
         store = torch.zeros((g.total_rows, g.dim), dtype=edt, device=dev)
@@ -129,7 +179,8 @@ def init_dlrm_on_device(config: DLRMConfig, seed: int = 123,
                 block = torch.rand((r1 - r0, g.dim), generator=gen, device=dev)
                 store[off + r0 : off + r1] = block.mul_(2.0).sub_(1.0).mul_(bound)
         emb.append(store)
-    return {**_dense_params(np.random.RandomState(seed), config, dev), "emb": emb}
+    return {**_dense_params(np.random.RandomState(seed), config, dev), "emb": emb,
+            "vw": _ones_vw(groups, config, dev)}
 
 
 class DLRM(nn.Module):
@@ -145,17 +196,29 @@ class DLRM(nn.Module):
         self.bot_b = nn.ParameterList([b for _, b in params["bot"]])
         self.top_w = nn.ParameterList([w for w, _ in params["top"]])
         self.top_b = nn.ParameterList([b for _, b in params["top"]])
-        # the stores are updated row-sparsely by hand, never by autograd
-        self.emb = nn.ParameterList(
-            [nn.Parameter(s, requires_grad=False) for s in params["emb"]]
-        )
+        # the stores (and QR sub-tables, pooling weights) are updated
+        # row-sparsely by hand, never by autograd
+        def sparse(ts):
+            return nn.ParameterList([nn.Parameter(t, requires_grad=False) for t in ts])
+
+        self.emb = sparse(params["emb"])
+        self.vw = None if params.get("vw") is None else sparse(params["vw"])
+        self.qr_q = sparse([q for q, _ in params.get("qr", ())])
+        self.qr_r = sparse([r for _, r in params.get("qr", ())])
+        self.md_proj = nn.ParameterList(params.get("md_proj", ()))
 
     def as_params(self) -> Dict:
-        return {
+        params = {
             "bot": list(zip(self.bot_w, self.bot_b)),
             "top": list(zip(self.top_w, self.top_b)),
             "emb": list(self.emb),
+            "vw": None if self.vw is None else list(self.vw),
         }
+        if len(self.qr_q):
+            params["qr"] = list(zip(self.qr_q, self.qr_r))
+        if len(self.md_proj):
+            params["md_proj"] = list(self.md_proj)
+        return params
 
     def forward(self, dense_x, indices, weights):
         return forward_logits(
@@ -181,32 +244,49 @@ def lookup_all_groups(
     """Pooled lookups for every group: [pooled_g [T_g, B, dim_g]]. With
     ``want_rows`` also the gathered rows per group ([T_g, B, dim_g] f32
     for an L=1 group, else None), which the write-only sparse update
-    reuses."""
+    reuses. Weighted pooling weighs each row by the group's ``vw``."""
+    vw = params.get("vw")
     pooled, rows = [], []
     with phase_scope("embedding_lookup"):
         for gi, g in enumerate(groups):
             idx_g = group_indices(g, indices)
             rows_ok = want_rows and idx_g.shape[2] == 1
-            res = lookup_group(params["emb"][gi], g, idx_g,
-                               group_indices(g, weights), return_rows=rows_ok)
+            res = lookup_group(params["emb"][gi], g, idx_g, group_indices(g, weights),
+                               None if vw is None else vw[gi], return_rows=rows_ok)
             pooled.append(res[0] if rows_ok else res)
             rows.append(res[1] if rows_ok else None)
     return (pooled, rows) if want_rows else pooled
+
+
+def qr_lookup_all(params: Dict, config: DLRMConfig, indices: torch.Tensor,
+                  weights: torch.Tensor) -> List[torch.Tensor]:
+    """Pooled lookups of the QR tables: [pooled [B, out_dim]] in
+    ``qr_table_ids`` order."""
+    out = []
+    with phase_scope("embedding_lookup"):
+        for (q, r), spec in zip(params["qr"], qr_specs(config)):
+            out.append(qr_lookup(q, r, spec, indices[spec.table_id], weights[spec.table_id]))
+    return out
 
 
 def assemble_slots(
     pooled_list: Sequence[torch.Tensor],
     groups: Sequence[TableGroup],
     config: DLRMConfig,
+    qr_pooled: Sequence[torch.Tensor] = (),
+    md_proj: Optional[Sequence[torch.Tensor]] = None,
 ) -> torch.Tensor:
-    """Reassemble group pooled outputs into [B, S, D] canonical slot order,
-    applying the split trick (dim k*D -> k slots of D;
-    dlrm_s_pytorch.py:579-585). When every table is one slot of dim D (the
+    """Reassemble group and QR pooled outputs into [B, S, D] canonical slot
+    order, applying the split trick (dim k*D -> k slots of D;
+    dlrm_s_pytorch.py:579-585; a QR concat table gives 2 slots) and the MD
+    up-projections (``pooled @ md_proj``, an f32 product: TF32 is off on
+    the card). When every table is one slot of dim D in a group (the
     Criteo configs) it is one concat and one row gather (none for a single
     group), returned as a transposed view that the fused interaction reads
     without a copy; the backward is then one scatter, not one per table."""
     d = config.base_dim
-    if all(g.dim == d for g in groups) and all(k == 1 for k in config.slots_per_table):
+    if (not qr_pooled and all(g.dim == d for g in groups)
+            and all(k == 1 for k in config.slots_per_table)):
         order = [t for g in groups for t in g.table_ids]
         t = pooled_list[0] if len(groups) == 1 else torch.cat(list(pooled_list), 0)
         if order != sorted(order):
@@ -218,10 +298,15 @@ def assemble_slots(
     for g, pooled in zip(groups, pooled_list):
         for i, tid in enumerate(g.table_ids):
             per_table[tid] = pooled[i]  # [B, dim_g]
+    for tid, pooled in zip(config.qr_table_ids, qr_pooled):
+        per_table[tid] = pooled
+    md_ids = {tid: i for i, tid in enumerate(config.md_table_ids)}
     slots = []
     for t in range(config.num_tables):
         y = per_table[t]
-        if config.slots_per_table[t] == 1:
+        if t in md_ids:
+            slots.append(y @ md_proj[md_ids[t]])  # up-projected to the base dim
+        elif config.slots_per_table[t] == 1:
             slots.append(y)
         else:
             slots.extend(torch.split(y, d, dim=1))
@@ -234,14 +319,16 @@ def forward_from_pooled(
     groups: Sequence[TableGroup],
     dense_x: torch.Tensor,
     pooled_list: Sequence[torch.Tensor],
+    qr_pooled: Sequence[torch.Tensor] = (),
 ) -> torch.Tensor:
-    """bottom MLP + interaction + top MLP from pooled embeddings -> logits.
-    Differentiable with respect to the dense params and the pooled
-    tensors; the stores are reached only through the sparse update."""
+    """bottom MLP + interaction + top MLP from pooled embeddings (groups'
+    and QR tables') -> logits. Differentiable with respect to the dense
+    params (the MD projections among them) and the pooled tensors; the
+    stores are reached only through the sparse update."""
     cdt = DTYPES[config.compute_dtype]
     with phase_scope("bottom_mlp"):
         x = apply_mlp(dense_x, params["bot"], config.sigmoid_bot, cdt)
-    ly = assemble_slots(pooled_list, groups, config)
+    ly = assemble_slots(pooled_list, groups, config, qr_pooled, params.get("md_proj"))
     with phase_scope("interaction"):
         z = interact_features(
             x, ly, config.interaction, config.interact_itself, cdt,
@@ -263,7 +350,8 @@ def forward_logits(
     weights: torch.Tensor,
 ) -> torch.Tensor:
     pooled = lookup_all_groups(params, groups, indices, weights)
-    return forward_from_pooled(params, config, groups, dense_x, pooled)
+    qr_pooled = qr_lookup_all(params, config, indices, weights) if config.qr_table_ids else ()
+    return forward_from_pooled(params, config, groups, dense_x, pooled, qr_pooled)
 
 
 def forward(

@@ -1,12 +1,17 @@
 """Table-batched embedding storage, pooled lookup (EmbeddingBag sum) and
 its row gradients.
 
-The port of ``dlrm_yx_tpu/ops/embedding.py`` (weighted pooling's
-``vw_row_grads`` is not ported yet). Tables are grouped by (dim, size
-class); each group is one flat store with static row offsets, so a
+The port of ``dlrm_yx_tpu/ops/embedding.py``. Tables are grouped by (dim,
+size class); each group is one flat store with static row offsets, so a
 multi-table lookup is one gather. The stores take no autograd gradient:
 ``flat_row_grads`` expands the pooled cotangent into per-row updates that
 the optimizer applies sparsely.
+
+Weighted pooling (the reference's per-row pooling weights v_W,
+``dlrm_s_pytorch.py:308-316,545-548``): a group's ``vw`` is a 1-D
+``[total_rows]`` vector, and a lookup weighs row ``i`` by ``w * vw[i]``,
+in the lookup and in its row gradients; ``vw_row_grads`` gives the
+gradient of a learned ``vw``.
 
 Stores: the JAX package keeps sub-128 dims in a packed physical layout
 ``[total_rows/pack, 128]``, which is a pure row-major reshape of the logical
@@ -144,28 +149,38 @@ def gather_rows(store: torch.Tensor, flat_gidx: torch.Tensor) -> torch.Tensor:
     return store.index_select(0, flat_gidx)
 
 
+def _vw_weights(w: torch.Tensor, vw: Optional[torch.Tensor], gidx: torch.Tensor):
+    """w [T, B, L] times the pooling weights of the rows ``gidx`` looks up."""
+    if vw is None:
+        return w
+    return w * vw.index_select(0, gidx.reshape(-1)).reshape(gidx.shape)
+
+
 def lookup_group(
     store: torch.Tensor,
     group: TableGroup,
     indices: torch.Tensor,
     weights: torch.Tensor,
+    vw: Optional[torch.Tensor] = None,
     return_rows: bool = False,
 ):
     """Pooled-sum lookup: store [total_rows, dim]; indices / weights
-    [T, B, L] (weight 0 = padding). Returns pooled [T, B, dim] f32 =
-    sum_l w * store[idx], pooled in f32 as the reference does.
+    [T, B, L] (weight 0 = padding); vw: the group's [total_rows] pooling
+    weights, or None. Returns pooled [T, B, dim] f32 =
+    sum_l w * vw[idx] * store[idx], pooled in f32 as the reference does.
 
     With ``return_rows`` at L=1 it also returns the gathered rows
     [T, B, dim] f32: the rows the optimizer will update, which lets the
     write-only update skip reading them again."""
     t, b, l = indices.shape
-    gidx = global_row_ids(group, indices).reshape(-1)
-    rows = gather_rows(store, gidx).float().reshape(t, b, l, group.dim)
+    gidx = global_row_ids(group, indices)
+    w = _vw_weights(weights, vw, gidx)
+    rows = gather_rows(store, gidx.reshape(-1)).float().reshape(t, b, l, group.dim)
     if l == 1:
         r1 = rows[:, :, 0, :]
-        pooled = r1 * weights[:, :, 0, None]
+        pooled = r1 * w[:, :, 0, None]
         return (pooled, r1) if return_rows else pooled
-    return (weights[..., None] * rows).sum(dim=2)
+    return (w[..., None] * rows).sum(dim=2)
 
 
 def _pad_l_sublane(gidx: torch.Tensor, w: torch.Tensor, fill_idx: int):
@@ -187,19 +202,40 @@ def flat_row_grads(
     indices: torch.Tensor,
     weights: torch.Tensor,
     g_pooled: torch.Tensor,
+    vw: Optional[torch.Tensor] = None,
 ):
     """Expand the pooled-output cotangent into per-row gradient
-    contributions: d loss / d store[idx[t,b,l]] += w[t,b,l] * g_pooled[t,b]
-    (duplicates not yet coalesced).
+    contributions: d loss / d store[idx[t,b,l]] += w[t,b,l] * vw[idx] *
+    g_pooled[t,b] (vw 1 without weighted pooling; duplicates not yet
+    coalesced).
 
     Returns (flat_idx [K] global row ids, flat_g [K, dim] f32 logical
     rows). Padded entries (weight 0) keep their row id and contribute zero;
     a packed group pads L to a multiple of 8 with the sentinel id
     ``total_rows`` (see ``_pad_l_sublane``)."""
     gidx = global_row_ids(group, indices)
-    w = weights
+    w = _vw_weights(weights, vw, gidx)
     if group.pack > 1:
         gidx, w = _pad_l_sublane(gidx, w, group.total_rows)
     t, b, l = gidx.shape
     flat_g = (w[..., None] * g_pooled[:, :, None, :]).reshape(t * b * l, group.dim)
     return gidx.reshape(-1), flat_g
+
+
+def vw_row_grads(
+    group: TableGroup,
+    store: torch.Tensor,
+    indices: torch.Tensor,
+    weights: torch.Tensor,
+    g_pooled: torch.Tensor,
+):
+    """Gradient contributions for learned pooling weights v_W:
+    d loss / d vw[idx[t,b,l]] += w[t,b,l] * <g_pooled[t,b], store[idx]>.
+    Reads the store as it is, so its in-place update comes after.
+
+    Returns (flat_idx [T*B*L] global row ids, flat_g [T*B*L] f32)."""
+    gidx = global_row_ids(group, indices)
+    t, b, l = gidx.shape
+    rows = gather_rows(store, gidx.reshape(-1)).float().reshape(t, b, l, group.dim)
+    g = (rows * g_pooled[:, :, None, :]).sum(dim=-1) * weights
+    return gidx.reshape(-1), g.reshape(-1)

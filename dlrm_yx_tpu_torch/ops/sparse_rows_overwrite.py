@@ -20,7 +20,9 @@ On a CUDA tensor the wrapper launches ``csrc/sparse_rows_overwrite.cu``:
 the row plan of ``csrc/row_plan.cuh``, three launches with no sort of the
 items and no host sync (a plan kernel counts each row's active
 occurrences; an apply kernel copies the rows that occur once; a one-block
-tail sorts and walks only the duplicated ones). On a CPU tensor it runs
+tail sorts and walks only the duplicated ones), at any row width: 16-byte
+vectors when W % 4 == 0, else one f32 a lane (the mixed-dimension groups'
+widths 1 and 2). On a CPU tensor it runs
 ``sparse_rows_overwrite_reference``, the plain PyTorch version, which
 finds duplicates by counting. There is no fallback from one to the other.
 """
@@ -42,8 +44,6 @@ def _check(store, idx, new_vals, delta, active):
         raise TypeError(f"want a 2-D f32 store, got {store.dtype} {tuple(store.shape)}")
     r, w = store.shape
     k = idx.shape[0]
-    if w % 4:
-        raise ValueError(f"row width {w} is not a multiple of 4")
     if r <= CLIP_MARGIN + 1:
         raise ValueError(f"a store of {r} rows has no room for its sentinel rows")
     if idx.dim() != 1 or active.shape != (k,):
@@ -94,9 +94,8 @@ def sparse_rows_overwrite(
     delta: torch.Tensor,
     active: torch.Tensor,
 ) -> torch.Tensor:
-    """store [R, W] f32 (W % 4 == 0), idx [K] int, new_vals and delta
-    [K, W] f32, active [K] (0 = skip). Updates ``store`` in place and
-    returns it.
+    """store [R, W] f32 (any W), idx [K] int, new_vals and delta [K, W]
+    f32, active [K] (0 = skip). Updates ``store`` in place and returns it.
 
     A CUDA call launches the kernels on the current stream and adds one to
     ``sparse_rows_overwrite.launches``; a CPU call runs the plain version."""
@@ -105,10 +104,13 @@ def sparse_rows_overwrite(
         return sparse_rows_overwrite_reference(store, idx, new_vals, delta, active)
     if store.device.type != "cuda":
         raise ValueError(f"unsupported device {store.device}")
-    tensors = (store, new_vals, delta)
-    if any(not t.is_contiguous() or t.data_ptr() % 16 for t in tensors):
-        raise ValueError("store, new_vals and delta must be contiguous and 16-byte aligned")
     r, w = store.shape
+    tensors = (store, new_vals, delta)
+    if any(not t.is_contiguous() for t in tensors):
+        raise ValueError("store, new_vals and delta must be contiguous")
+    if w % 4 == 0 and any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("the kernel's 16-byte vectors need 16-byte aligned store, new_vals "
+                         "and delta")
     if r >= 2**30:
         raise ValueError(f"a store of {r} rows: the kernel keys row * 2 in 31 bits")
     idx, active = kernel_ids(idx, active)

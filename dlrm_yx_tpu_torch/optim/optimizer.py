@@ -87,8 +87,10 @@ def acc_len(total_rows: int) -> int:
 
 def init_opt_state(opt: OptConfig, params: Dict, groups: Sequence[TableGroup]) -> Dict:
     """SGD: empty. Adagrad: per-element sums everywhere. RWSAdagrad:
-    per-element sums for the MLPs, one per row (``acc_len`` long) for the
-    stores. Zeros on the params' device."""
+    per-element sums for the MLPs and MD projections, one per row
+    (``acc_len`` long) for the stores, one per row (unpadded) for each QR
+    sub-table. Learned or fixed pooling weights ``vw`` get per-entry sums.
+    Zeros on the params' device, with the JAX package's keys."""
     if opt.name == "sgd":
         return {}
     if len(groups) != len(params["emb"]):
@@ -103,7 +105,19 @@ def init_opt_state(opt: OptConfig, params: Dict, groups: Sequence[TableGroup]) -
     else:
         emb = [torch.zeros(acc_len(g.total_rows), dtype=torch.float32, device=e.device)
                for g, e in zip(groups, params["emb"])]
-    return {"dense": dense, "emb": emb}
+    state = {"dense": dense, "emb": emb}
+    if params.get("vw") is not None:
+        state["vw"] = [torch.zeros_like(v) for v in params["vw"]]
+    if "qr" in params:
+        if opt.name == "adagrad":
+            state["qr"] = [(torch.zeros_like(q), torch.zeros_like(r)) for q, r in params["qr"]]
+        else:
+            state["qr"] = [(q.new_zeros(q.shape[0], dtype=torch.float32),
+                            r.new_zeros(r.shape[0], dtype=torch.float32))
+                           for q, r in params["qr"]]
+    if "md_proj" in params:
+        state["md_proj"] = [torch.zeros_like(w) for w in params["md_proj"]]
+    return state
 
 
 @torch.no_grad()
@@ -127,12 +141,19 @@ def dense_update(opt: OptConfig, ps: List[torch.Tensor], gs: List[torch.Tensor],
 
 def update_dense_towers(opt: OptConfig, params: Dict, opt_state: Dict, g_dense: Dict,
                         lr: Scalar) -> None:
-    """``dense_update`` of the bottom and top MLPs, in place."""
+    """``dense_update`` of the bottom and top MLPs and, where ``g_dense``
+    has them, the MD projections (dense params too: the reference's
+    ``PrEmbeddingBag`` Linear), in place."""
     def flat(tree):
         return [t for k in ("bot", "top") for pair in tree[k] for t in pair]
 
+    ps, gs = flat(params), flat(g_dense)
     accs = flat(opt_state["dense"]) if opt.name != "sgd" else None
-    dense_update(opt, flat(params), flat(g_dense), accs, lr)
+    if "md_proj" in g_dense:
+        ps, gs = ps + list(params["md_proj"]), gs + list(g_dense["md_proj"])
+        if accs is not None:
+            accs = accs + list(opt_state["md_proj"])
+    dense_update(opt, ps, gs, accs, lr)
 
 
 def uniform_stream_density(emb_rows, emb_split_threshold: int, n_draws: int,
@@ -259,6 +280,7 @@ def sparse_update(
     exact_momentum: bool = False,
     old_rows=None,
     density_hint: float = -1.0,
+    packed: bool = True,
 ):
     """Sparse row update of one group store, in place; returns (store, acc).
 
@@ -269,13 +291,18 @@ def sparse_update(
     store rows gathered by the forward lookup (L=1), which enable the
     write-only update; stochastic_round and sr_seed (the step) apply to a
     bf16 store on the kernel route; size_class: 0 for a small-table group,
-    which always takes the dense branch. See the module docstring for the
+    which always takes the dense branch; packed: whether the JAX package
+    packs ``128 // dim`` rows of this store to a physical row below 128 (a
+    group store; the gates read the physical layout), False for a store it
+    keeps in its natural layout (a QR sub-table: a width that is not a
+    multiple of 128 never takes a kernel). See the module docstring for the
     routes.
     """
     d = store.shape[1]
     if dim is not None and dim != d:
         raise ValueError(f"dim {dim} != store width {d} (the port's stores are logical rows)")
-    pack = dim_pack(d)  # logical rows per physical row of the JAX package's store
+    # logical rows per physical row of the JAX package's store
+    pack = dim_pack(d) if packed else 1
     r_phys = store.shape[0] // pack
     store_bytes = store.numel() * store.element_size()
     layout_ok = d % 128 == 0 or pack > 1
@@ -344,6 +371,23 @@ def sparse_update(
     denom = _take_fill(acc, uniq, 1.0, sentinel).sqrt() + opt.eps
     _add_at(store, uniq, (-lr * sg / denom[:, None]).to(store.dtype), sentinel)
     return store, acc
+
+
+def sparse_update_1d(opt: OptConfig, vec: torch.Tensor, acc, flat_idx: torch.Tensor,
+                     flat_g: torch.Tensor, lr: Scalar, sentinel: int):
+    """Sparse update of a 1-D per-row parameter (learned pooling weights
+    v_W), in place; returns (vec, acc). The reference's dense update of
+    v_W: an entry with zero gradient is a no-op in every optimizer here,
+    so the sparse form is exact. SGD adds every occurrence; Adagrad and
+    RWSAdagrad (whose dense part is Adagrad) coalesce first."""
+    if opt.name == "sgd":
+        _add_at(vec, flat_idx, -lr * flat_g, sentinel)
+        return vec, acc
+    uniq, sg = coalesce_rows(flat_idx, flat_g, sentinel)
+    _add_at(acc, uniq, sg * sg, sentinel)
+    denom = _take_fill(acc, uniq, 1.0, sentinel).sqrt() + opt.eps
+    _add_at(vec, uniq, -lr * sg / denom, sentinel)
+    return vec, acc
 
 
 def _kernel_route(opt, store, acc, flat_idx, flat_g, lr, sentinel, impl,

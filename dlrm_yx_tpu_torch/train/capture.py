@@ -20,7 +20,9 @@ replay of a CUDA graph instead:
     body into a graph, which does not execute it, and replays the graph
     once, which does; later calls replay it. One graph per batch shape;
   * the graph is bound to the params and optimizer state it was captured
-    with (they are updated in place): a call with other tensors raises.
+    with, every tensor of both trees (the stores, QR tables, MD projections
+    and pooling weights among them; they are updated in place): a call
+    with other tensors raises.
     Its outputs are overwritten by the next replay, so each call returns
     copies;
   * the kernel wrappers' ``.launches`` counters count launches on the card:

@@ -9,9 +9,12 @@ forward to the saved (epoch, batch) position (``skip_position``).
 
 The files cross-load with the JAX package's. The leaves are written in the
 order of ``jax.tree.flatten`` over JAX's pytrees (dict keys sorted, lists in
-order, ``None`` no leaf): params ``bot`` (W, b)…, ``emb`` stores…, ``top``
-(W, b)…; optimizer state ``dense.bot`` (aw, ab)…, ``dense.top``…, ``emb``
-accumulators…; SGD has none. Each in JAX's physical layout
+order, ``None`` no leaf): params ``bot`` (W, b)…, ``emb`` stores…,
+``md_proj`` projections…, ``qr`` (Q, R) per QR table…, ``top`` (W, b)…,
+``vw`` pooling weights… (the last three where the model has them);
+optimizer state ``dense.bot`` (aw, ab)…, ``dense.top``…, ``emb``
+accumulators…, then ``md_proj``, ``qr`` and ``vw`` accumulators likewise;
+SGD has none. Each in JAX's physical layout
 (``convert.params_to_jax``): a store of a dim below 128 that divides it
 packed ``128 / dim`` rows to a physical row, as is an Adagrad accumulator;
 RWSAdagrad's 1-D row momentum with its ``acc_len`` padding. A bf16 store is

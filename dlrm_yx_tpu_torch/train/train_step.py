@@ -18,6 +18,17 @@ backward -> optimizer step, with sparse embedding updates:
     pooled cotangent itself (K5/K6). The stores never see a dense gradient
     and autograd never reaches them.
 
+The embedding variants take the same steps: autograd also gives the
+gradients of the MD projections (dense params) and of the QR tables'
+pooled vectors, whose row gradients (``qr_row_grads``) update the quotient
+and remainder tables through ``sparse_update`` (each with no sentinel
+tail: ``q_rows`` and ``collisions`` are their sentinels); weighted
+pooling scales the row gradients (and the stream route's weights) by
+``vw``, and a learned ``vw`` takes ``sparse_update_1d``. Updates are in
+place, so every row gradient that reads a table (``qr_row_grads``,
+``vw_row_grads``) is taken before that table is updated, as the JAX
+package's functional step takes them from the tables before the step.
+
 Every update is in place: a step returns the params and optimizer state it
 was given, updated. Nothing in a step waits for the device; losses come
 back as device tensors.
@@ -28,8 +39,7 @@ Where JAX jits and scans, the port captures: ``make_multistep_train_step``
 ``make_eval_step`` run, on the card, as replays of CUDA graphs
 (``train/capture.GraphStep``), their lr and stochastic-rounding seed read
 from device buffers that the host fills before each replay; with
-``capture=False``, and always on the CPU, the same bodies run eagerly. Not
-ported: QR / MD / weighted-pooling updates.
+``capture=False``, and always on the CPU, the same bodies run eagerly.
 """
 
 from __future__ import annotations
@@ -42,19 +52,22 @@ import torch
 from dlrm_yx_tpu_torch.config import DLRMConfig
 from dlrm_yx_tpu_torch.data.batch import Batch, to_device
 from dlrm_yx_tpu_torch.models.dlrm import (
-    check_supported,
     forward_from_pooled,
     forward_logits,
     group_indices,
     lookup_all_groups,
     model_groups,
+    qr_lookup_all,
+    qr_specs,
 )
-from dlrm_yx_tpu_torch.ops.embedding import flat_row_grads, global_row_ids
+from dlrm_yx_tpu_torch.ops.embedding import flat_row_grads, global_row_ids, vw_row_grads
 from dlrm_yx_tpu_torch.ops.losses import loss_fn, predictions_from_logits
+from dlrm_yx_tpu_torch.ops.qr_embedding import qr_row_grads
 from dlrm_yx_tpu_torch.optim.optimizer import (
     DENSE_ACCUM_FACTOR,
     OptConfig,
     sparse_update,
+    sparse_update_1d,
     sparse_update_stream,
     stream_eligible,
     update_dense_towers,
@@ -64,21 +77,61 @@ from dlrm_yx_tpu_torch.utils.device import resolve_device
 from dlrm_yx_tpu_torch.utils.profiling import phase_scope
 
 
+def _qr_grads(config: DLRMConfig, params: Dict, indices, weights, g_qr_pooled):
+    """Per QR table the flat row grads ((qi, gq), (ri, gr)) of its quotient
+    and remainder tables, taken from the tables as they are."""
+    return [qr_row_grads(q, r, spec, indices[spec.table_id], weights[spec.table_id], g)
+            for (q, r), spec, g in zip(params["qr"], qr_specs(config), g_qr_pooled)]
+
+
+def _update_qr(config: DLRMConfig, opt: OptConfig, params: Dict, opt_state: Dict,
+               qr_grads, lr) -> None:
+    """The sparse updates of every QR sub-table, in place: natural-layout
+    stores with no sentinel tail (their sentinels are ``q_rows`` and
+    ``collisions``), routed as the JAX package routes them."""
+    for i, (spec, ((qi, gq), (ri, gr))) in enumerate(zip(qr_specs(config), qr_grads)):
+        q, r = params["qr"][i]
+        q_acc, r_acc = opt_state["qr"][i] if opt.name != "sgd" else (None, None)
+        sparse_update(opt, q, q_acc, qi, gq, lr, spec.q_rows, impl=config.sparse_update_impl,
+                      packed=False)
+        sparse_update(opt, r, r_acc, ri, gr, lr, spec.collisions,
+                      impl=config.sparse_update_impl, packed=False)
+
+
+def _update_vw(opt: OptConfig, params: Dict, opt_state: Dict, gi: int, g, vidx, vg,
+               lr) -> None:
+    """The learned pooling weights of group ``gi``, in place."""
+    sparse_update_1d(opt, params["vw"][gi], opt_state["vw"][gi] if opt.name != "sgd" else None,
+                     vidx, vg, lr, g.total_rows)
+
+
 @torch.no_grad()
 def apply_gradients(config: DLRMConfig, opt: OptConfig, groups, params: Dict,
                     opt_state: Dict, batch, g_dense: Dict, g_pooled, lr,
-                    raw_rows=None, sr_seed=0) -> None:
-    """Dense updates of the MLPs and sparse row updates of every group
-    store from the pooled cotangent, in place. lr: a float or a 0-dim f32
-    device tensor; raw_rows: per-group rows gathered by the forward lookup
-    (L=1 groups, else None); sr_seed: the stochastic rounding's seed (the
-    step; an int or a 0-dim integer device tensor)."""
+                    raw_rows=None, sr_seed=0, g_qr_pooled=()) -> None:
+    """Dense updates of the MLPs (and MD projections) and sparse row updates
+    of every group store (and QR sub-table, and learned pooling weights)
+    from the pooled cotangents, in place. lr: a float or a 0-dim f32 device
+    tensor; raw_rows: per-group rows gathered by the forward lookup (L=1
+    groups, else None); sr_seed: the stochastic rounding's seed (the step;
+    an int or a 0-dim integer device tensor); g_qr_pooled: the QR tables'
+    pooled cotangents."""
     with phase_scope("optimizer"):
         update_dense_towers(opt, params, opt_state, g_dense, lr)
+        if g_qr_pooled:
+            # both sub-tables' grads first: each reads the other table
+            _update_qr(config, opt, params, opt_state,
+                       _qr_grads(config, params, batch.indices, batch.weights, g_qr_pooled), lr)
+        vw = params.get("vw")
         for gi, g in enumerate(groups):
             idx_g = group_indices(g, batch.indices)
             w_g = group_indices(g, batch.weights)
             store = params["emb"][gi]
+            vw_g = None if vw is None else vw[gi]
+            vw_grads = None
+            if config.weighted_pooling == "learned":
+                # from the store before its update
+                vw_grads = vw_row_grads(g, store, idx_g, w_g, g_pooled[gi])
             t, b, l = idx_g.shape
             use_stream = (
                 (config.sparse_update_impl == "stream"
@@ -88,47 +141,73 @@ def apply_gradients(config: DLRMConfig, opt: OptConfig, groups, params: Dict,
                 and not config.stochastic_rounding
                 and t * b * l * DENSE_ACCUM_FACTOR >= g.total_rows // g.pack
             )
+            acc = opt_state["emb"][gi] if opt.name != "sgd" else None
             if use_stream:
                 # SGD is exact on both routes, so 'pallas' sends its dense
-                # regime through the sorted stream as well; weighted
-                # pooling (unported) would scale w_g by the row weights
-                sparse_update_stream(
-                    opt, store, opt_state["emb"][gi] if opt.name != "sgd" else None,
-                    g, global_row_ids(g, idx_g), w_g, g_pooled[gi], lr)
-                continue
-            fidx, fg = flat_row_grads(g, idx_g, w_g, g_pooled[gi])
-            old_rows = None
-            if raw_rows is not None and raw_rows[gi] is not None:
-                old_rows = raw_rows[gi].reshape(t * b, g.dim)
-            sparse_update(
-                opt, store, opt_state["emb"][gi] if opt.name != "sgd" else None,
-                fidx, fg, lr, g.total_rows,
-                impl=config.sparse_update_impl,
-                stochastic_round=config.stochastic_rounding, sr_seed=sr_seed,
-                size_class=g.size_class, dim=g.dim,
-                exact_momentum=config.exact_row_momentum,
-                old_rows=old_rows, density_hint=config.dup_density_hint,
-            )
+                # regime through the sorted stream as well
+                gidx = global_row_ids(g, idx_g)
+                w_eff = w_g
+                if vw_g is not None:
+                    w_eff = w_g * vw_g.index_select(0, gidx.reshape(-1)).reshape(idx_g.shape)
+                sparse_update_stream(opt, store, acc, g, gidx, w_eff, g_pooled[gi], lr)
+            else:
+                fidx, fg = flat_row_grads(g, idx_g, w_g, g_pooled[gi], vw_g)
+                old_rows = None
+                if raw_rows is not None and raw_rows[gi] is not None:
+                    old_rows = raw_rows[gi].reshape(t * b, g.dim)
+                sparse_update(
+                    opt, store, acc, fidx, fg, lr, g.total_rows,
+                    impl=config.sparse_update_impl,
+                    stochastic_round=config.stochastic_rounding, sr_seed=sr_seed,
+                    size_class=g.size_class, dim=g.dim,
+                    exact_momentum=config.exact_row_momentum,
+                    old_rows=old_rows, density_hint=config.dup_density_hint,
+                )
+            if vw_grads is not None:
+                _update_vw(opt, params, opt_state, gi, g, *vw_grads, lr)
 
 
-def _dense_grads(config: DLRMConfig, groups, params: Dict, b: Batch, pooled):
-    """(loss, dense grads {"bot", "top"}, pooled grads) of one batch: the
-    dense graph differentiated with respect to the MLPs and the pooled
-    vectors."""
+def _dense_grads(config: DLRMConfig, groups, params: Dict, b: Batch, pooled, qr_pooled=()):
+    """(loss, dense grads {"bot", "top"[, "md_proj"]}, pooled grads, QR
+    pooled grads) of one batch: the dense graph differentiated with
+    respect to the MLPs, the MD projections and the pooled vectors."""
     pooled = [p.requires_grad_() for p in pooled]
+    qr_pooled = [p.requires_grad_() for p in qr_pooled]
     dense = {k: [(w.detach().requires_grad_(), c.detach().requires_grad_())
                  for w, c in params[k]] for k in ("bot", "top")}
+    if "md_proj" in params:
+        dense["md_proj"] = [w.detach().requires_grad_() for w in params["md_proj"]]
     with torch.enable_grad():
-        logits = forward_from_pooled({**params, **dense}, config, groups, b.dense, pooled)
+        logits = forward_from_pooled({**params, **dense}, config, groups, b.dense, pooled,
+                                     qr_pooled)
         with phase_scope("loss_compute"):
             loss = loss_fn(logits, b.labels, config.loss, config.loss_threshold,
                            config.wbce_weights)
     leaves = [t for k in ("bot", "top") for pair in dense[k] for t in pair]
+    leaves += dense.get("md_proj", [])
     with phase_scope("backward"):
-        grads = torch.autograd.grad(loss, leaves + pooled)
+        grads = torch.autograd.grad(loss, leaves + pooled + qr_pooled)
     it = iter(grads)
     g_dense = {k: [(next(it), next(it)) for _ in params[k]] for k in ("bot", "top")}
-    return loss.detach(), g_dense, list(it)
+    if "md_proj" in params:
+        g_dense["md_proj"] = [next(it) for _ in params["md_proj"]]
+    g_pooled = [next(it) for _ in pooled]
+    return loss.detach(), g_dense, g_pooled, list(it)
+
+
+def _lookups(config: DLRMConfig, groups, params: Dict, b: Batch, want_rows: bool = False):
+    """(pooled per group, QR pooled, rows per group or None) of one batch,
+    outside autograd."""
+    with torch.no_grad():
+        if want_rows:
+            pooled, raw_rows = lookup_all_groups(params, groups, b.indices, b.weights,
+                                                 want_rows=True)
+        else:
+            pooled = lookup_all_groups(params, groups, b.indices, b.weights)
+            raw_rows = None
+        qr_pooled = (qr_lookup_all(params, config, b.indices, b.weights)
+                     if config.qr_table_ids else [])
+    return pooled, qr_pooled, raw_rows
 
 
 def train_body(config: DLRMConfig, opt: OptConfig):
@@ -136,20 +215,15 @@ def train_body(config: DLRMConfig, opt: OptConfig):
     on a device batch ``b``; lr a float or 0-dim f32 device tensor, sr_seed
     an int or 0-dim integer device tensor (the step). The inner step of
     every train step here."""
-    check_supported(config)
     groups = model_groups(config)
 
     def body(params, opt_state, b, lr, sr_seed):
-        with torch.no_grad():
-            if config.write_only_update:
-                pooled, raw_rows = lookup_all_groups(
-                    params, groups, b.indices, b.weights, want_rows=True)
-            else:
-                pooled = lookup_all_groups(params, groups, b.indices, b.weights)
-                raw_rows = None
-        loss, g_dense, g_pooled = _dense_grads(config, groups, params, b, pooled)
+        pooled, qr_pooled, raw_rows = _lookups(config, groups, params, b,
+                                               config.write_only_update)
+        loss, g_dense, g_pooled, g_qr = _dense_grads(config, groups, params, b, pooled,
+                                                     qr_pooled)
         apply_gradients(config, opt, groups, params, opt_state, b, g_dense,
-                        g_pooled, lr, raw_rows, sr_seed=sr_seed)
+                        g_pooled, lr, raw_rows, sr_seed=sr_seed, g_qr_pooled=g_qr)
         return loss
 
     return body
@@ -273,35 +347,58 @@ def make_accum_train_step(config: DLRMConfig, opt: OptConfig, n_accum: int,
     update per group, so the Adagrad-family momenta see the accumulated
     gradient once. It never takes the sorted-stream route nor the
     write-only update. The loss is the mean micro-batch loss; the lr is
-    ``lr_fn(iteration)`` and the SR seed ``iteration``. A CUDA-graph replay
-    on the card (``capture``, the default there)."""
-    check_supported(config)
+    ``lr_fn(iteration)`` and the SR seed ``iteration``. QR sub-tables and
+    learned pooling weights take one update each over every micro-batch's
+    row grads, as in the JAX package. A CUDA-graph replay on the card
+    (``capture``, the default there)."""
     dev = resolve_device(device)
     groups = model_groups(config)
+    learned = config.weighted_pooling == "learned"
 
     def body(params, opt_state, batches, lrs, seeds):
         lr, seed = lrs[0], seeds[0]
+        vw = params.get("vw")
         g_sum = {k: [(torch.zeros_like(w), torch.zeros_like(c)) for w, c in params[k]]
                  for k in ("bot", "top")}
+        if "md_proj" in params:
+            g_sum["md_proj"] = [torch.zeros_like(w) for w in params["md_proj"]]
         loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
-        fidx_all = [[] for _ in groups]
-        fg_all = [[] for _ in groups]
+        fidx_all, fg_all = [[] for _ in groups], [[] for _ in groups]
+        vidx_all, vg_all = [[] for _ in groups], [[] for _ in groups]
+        g_qr_all = [[] for _ in config.qr_table_ids]
         for m in range(n_accum):
             b = Batch(*(f[m] for f in batches))
+            pooled, qr_pooled, _ = _lookups(config, groups, params, b)
+            loss, g_dense, g_pooled, g_qr = _dense_grads(config, groups, params, b, pooled,
+                                                         qr_pooled)
             with torch.no_grad():
-                pooled = lookup_all_groups(params, groups, b.indices, b.weights)
-            loss, g_dense, g_pooled = _dense_grads(config, groups, params, b, pooled)
-            with torch.no_grad():
-                g_sum = {k: [(sw + gw, sc + gc) for (sw, sc), (gw, gc) in zip(g_sum[k], g_dense[k])]
-                         for k in g_sum}
+                # every micro-batch's row grads come from the tables before the step
+                g_sum = {k: [(s[0] + g[0], s[1] + g[1]) if isinstance(s, tuple) else s + g
+                             for s, g in zip(g_sum[k], g_dense[k])] for k in g_sum}
                 loss_sum = loss_sum + loss
+                for acc, g in zip(g_qr_all, g_qr):
+                    acc.append(g)
                 for gi, g in enumerate(groups):
-                    fidx, fg = flat_row_grads(g, group_indices(g, b.indices),
-                                              group_indices(g, b.weights), g_pooled[gi])
+                    idx_g, w_g = group_indices(g, b.indices), group_indices(g, b.weights)
+                    fidx, fg = flat_row_grads(g, idx_g, w_g, g_pooled[gi],
+                                              None if vw is None else vw[gi])
                     fidx_all[gi].append(fidx)
                     fg_all[gi].append(fg)
+                    if learned:
+                        vidx, vg = vw_row_grads(g, params["emb"][gi], idx_g, w_g, g_pooled[gi])
+                        vidx_all[gi].append(vidx)
+                        vg_all[gi].append(vg)
         with torch.no_grad(), phase_scope("optimizer"):
             update_dense_towers(opt, params, opt_state, g_sum, lr)
+            if g_qr_all:
+                # the micro axis folded into the batch axis, as in JAX: one
+                # coalesced update a sub-table over every micro-batch's rows
+                def fold(x):  # [n_accum, T, B, L] -> [T, n_accum * B, L]
+                    return x.transpose(0, 1).reshape(x.shape[1], -1, x.shape[3])
+
+                grads = _qr_grads(config, params, fold(batches.indices), fold(batches.weights),
+                                  [torch.cat(g) for g in g_qr_all])
+                _update_qr(config, opt, params, opt_state, grads, lr)
             for gi, g in enumerate(groups):
                 sparse_update(
                     opt, params["emb"][gi], opt_state["emb"][gi] if opt.name != "sgd" else None,
@@ -312,6 +409,9 @@ def make_accum_train_step(config: DLRMConfig, opt: OptConfig, n_accum: int,
                     exact_momentum=config.exact_row_momentum,
                     density_hint=config.dup_density_hint,
                 )
+                if learned:
+                    _update_vw(opt, params, opt_state, gi, g, torch.cat(vidx_all[gi]),
+                               torch.cat(vg_all[gi]), lr)
         return loss_sum / n_accum
 
     graph_step = GraphStep(body, 1, _lr_fn(opt, lr_fn), dev, _capture_default(capture, dev))

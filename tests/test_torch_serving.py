@@ -192,8 +192,8 @@ def test_cli_inference_matches_jax_cli(mlperf):
 
 @pytest.mark.parametrize(
     "extra",
-    [["--mesh-data", "2"], ["--qr-flag"], ["--quantize-emb-with-bit", "8"],
-     ["--data-generation", "processed"]],
+    [["--mesh-data", "2"], ["--distributed"], ["--quantize-emb-with-bit", "8"],
+     ["--quantize-mlp-with-bit", "8"]],
 )
 def test_cli_rejects_unported_flags(extra):
     with pytest.raises(NotImplementedError, match="not yet ported"):

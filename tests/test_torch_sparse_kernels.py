@@ -89,8 +89,14 @@ def test_overwrite_plain_matches_jax_kernel_on_streams(stream):
 def test_overwrite_rejects_bad_inputs():
     store = torch.zeros(64, 128)
     idx, active = torch.zeros(4, dtype=torch.int32), torch.ones(4, dtype=torch.int32)
-    with pytest.raises(ValueError, match="multiple of 4"):
-        sparse_rows_overwrite(torch.zeros(64, 6), idx, torch.zeros(4, 6),
+    # any row width is taken now (the mixed-dimension groups' widths 1 and
+    # 2; tests/test_torch_variants.py holds widths 1, 2 and 4 to JAX): four
+    # items on row 0 of a width-6 store add their deltas
+    got = sparse_rows_overwrite(torch.zeros(64, 6), idx, torch.zeros(4, 6),
+                                torch.ones(4, 6), active)
+    assert (got[0] == 4).all() and not got[1:].any()
+    with pytest.raises(ValueError, match="no room for its sentinel rows"):
+        sparse_rows_overwrite(torch.zeros(9, 6), idx, torch.zeros(4, 6),
                               torch.zeros(4, 6), active)
     with pytest.raises(ValueError, match="new_vals"):
         sparse_rows_overwrite(store, idx, torch.zeros(4, 64), torch.zeros(4, 128), active)
