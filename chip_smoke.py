@@ -166,6 +166,28 @@ no result):
      momenta), QR (K4, K3, K1) and learned-pooling L=100 (K5, v_W 0 and
      negative on some rows) models, an eval step and three train steps on
      the card against the CPU with the kernel gates at 0;
+  8. serve-quantized: ``cli.main --inference-only`` on phase 4's model with
+     --quantize-emb-with-bit 8 and 4, each with --quantize-mlp-with-bit 32,
+     8 and 16, the launch counts set to 0 just before each run and read
+     just after (no kernel: the JAX package serves it with XLA); the
+     quantized stores' bytes on the card (torch.cuda.memory_allocated
+     around the quantization) against their size, the card's quantized rows
+     (each group's first and last 4,096 rows and the first batch's ids) bit
+     for bit against the CPU's quantization of the same rows, and the first
+     batch's predictions within 0.05 of the float eval step's (the JAX
+     test's bound), and the last batch's graph replay within 1e-6 of the
+     same step run eagerly; then (after phase s) the captured quantized eval steps
+     against the captured float one, in turns, and (after phase t) one
+     profiler window each, device time by kind;
+  9. export: phase b's CLI training run with --save-onnx, --enable-profiling
+     and --collect-execution-graph (one more K1, K2 and K3 launch: the
+     collected eager step, on copies of the params); the exported program
+     reloaded in the process and run on the trained params and a batch:
+     its predictions equal the live forward's bit for bit and it launches
+     K1 once; the Chrome trace names every phase and at least one of K1-K3
+     (a profiler window may drop a kernel), the execution trace every phase
+     and K1's operator; --debug-mode on a tiny model prints the same
+     initial parameters on the card as on the CPU.
 Then a JSON line of the kernels (launches from the path each kernel serves:
 K1-K3 phase b, K5 phase g, K6 phase h, K4 phase m), nvidia-smi's line, and
 the result line.
@@ -3173,7 +3195,306 @@ def variant_throughput(plain_fn, rows):
     return {name: fn for name, fn in fns.items() if name != "plain"}
 
 
+# ---------------------------------------------- quantized serving (phase 8)
+
+QUANT_COMBOS = tuple((e, m) for e in (8, 4) for m in (32, 8, 16))  # (table bits, tower bits)
+QUANT_SAMPLE_ROWS = 4096  # each group's first and last rows held to the CPU's quantization
+QUANT_TOL = 0.05          # |quantized - float| predictions: the JAX test's bound
+                          # (tests/test_variants.py:313)
+QUANT_REPLAY_TOL = 1e-6   # a replayed batch against the same step run eagerly: the same
+                          # operations, whose reductions may pick other kernels
+QUANT_KINDS = {
+    "gather (index_select: quantized rows, scales, biases)": "indexselect|index_select|gather",
+    "GEMM (the towers' f32 and exact int8-valued products)": "gemm|nvjet|xmma|cutlass|cublas",
+    "elementwise and reductions (dequantize, pool, quantize x, activations)":
+        "elementwise|reduce",
+}
+
+
+def quantized_store_bytes(groups, bits):
+    """The bytes of the quantized stores: uint8 rows (two values a byte at
+    int4) and an f32 scale and bias a row."""
+    return sum(g.total_rows * (g.dim if bits == 8 else g.dim // 2) + 8 * g.total_rows
+               for g in groups)
+
+
+def check_quantized_rows(what, seen, bits):
+    """The card's quantized rows against the CPU's quantization of the same
+    rows (each group's first and last QUANT_SAMPLE_ROWS rows and the first
+    batch's ids), bit for bit: the quantization is row by row."""
+    import torch
+
+    from dlrm_yx_tpu_torch.models.dlrm import group_indices
+    from dlrm_yx_tpu_torch.ops.quantized import quantize_store
+
+    n_rows = 0
+    for g, store, qs in zip(seen["groups"], seen["params"]["emb"], seen["qstores"]):
+        r = g.total_rows
+        offs = torch.tensor(g.row_offsets)[:, None, None]
+        idx = group_indices(g, torch.as_tensor(seen["batch"].indices)).long() + offs
+        ids = torch.cat([torch.arange(min(r, QUANT_SAMPLE_ROWS)),
+                         torch.arange(max(0, r - QUANT_SAMPLE_ROWS), r),
+                         idx.reshape(-1)]).unique().to(store.device)
+        want = quantize_store(store[ids].cpu(), bits)
+        differ = {name: int((getattr(qs, name)[ids].cpu().view(torch.uint8).reshape(len(ids), -1)
+                             != getattr(want, name).view(torch.uint8).reshape(len(ids), -1))
+                            .any(dim=1).sum())
+                  for name in ("data", "scale", "bias")}
+        if any(differ.values()):
+            fail(f"{what}: the card's quantized rows of a group of {r} rows x {g.dim} differ "
+                 f"from the CPU's quantization of the same {len(ids)} rows (rows differing "
+                 f"by field: {differ})")
+        n_rows += ids.numel()
+    return n_rows
+
+
+def quantized_main_paths(rows):
+    """Phase 8: ``cli.main --inference-only`` on the full-width model with
+    the tables at 8 and 4 bits and the towers at 32, 8 and 16, the launch
+    counts set to 0 just before each run and read just after (none: the
+    quantized step is torch work, as the JAX package routes it to XLA).
+    Each run's quantized stores are measured on the card against their
+    size, held bit for bit to the CPU's quantization on a sample of rows,
+    and its first batch's predictions to the float eval step's."""
+    import contextlib
+    import io
+    import math
+
+    import torch
+
+    from dlrm_yx_tpu_torch import cli
+    from dlrm_yx_tpu_torch.train.train_step import make_eval_step
+
+    real_quantize, real_step = cli.quantize_model_embeddings, cli.make_fully_quantized_eval_step
+    for emb_bits, mlp_bits in QUANT_COMBOS:
+        seen = {}
+
+        def quantize(params, groups, bits):
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            qstores = real_quantize(params, groups, bits)
+            torch.cuda.synchronize()
+            seen.update(qbytes=torch.cuda.memory_allocated() - before, qstores=qstores,
+                        params=params, groups=groups)
+            return qstores
+
+        def make_step(cfg, *a, **k):
+            ev = real_step(cfg, *a, **k)
+            seen.update(cfg=cfg, eager=real_step(cfg, *a, **{**k, "capture": False}))
+
+            def step(params, batch):
+                out = ev(params, batch)
+                if "batch" not in seen:
+                    seen.update(batch=batch, preds=out.clone())
+                seen["last"] = (batch, out.clone())  # the last batches are graph replays
+                return out
+
+            return step
+
+        argv = terabyte_argv(rows) + [
+            "--num-batches", str(N_SERVE_BATCHES), "--inference-only",
+            f"--quantize-emb-with-bit={emb_bits}", f"--quantize-mlp-with-bit={mlp_bits}"]
+        what = f"cli --inference-only, int{emb_bits} tables, towers at {mlp_bits} bits"
+        counters = launch_counters()
+        for c in counters.values():
+            c.launches = 0
+        cli.quantize_model_embeddings, cli.make_fully_quantized_eval_step = quantize, make_step
+        printed = io.StringIO()
+        try:
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(printed):
+                metrics = cli.main(argv)
+            seconds = time.perf_counter() - t0
+            launches = {name: c.launches for name, c in counters.items()}
+        finally:
+            cli.quantize_model_embeddings, cli.make_fully_quantized_eval_step = (
+                real_quantize, real_step)
+        if launches != only():
+            fail(f"{what}: launched {launches}, want no kernel")
+        acc = metrics.get("accuracy", math.nan)
+        if metrics.get("quantized") is not True or not 0.0 <= acc <= 1.0:
+            fail(f"{what}: metrics {metrics}")
+        want_bytes = quantized_store_bytes(seen["groups"], emb_bits)
+        nbytes = sum(t.numel() * t.element_size() for qs in seen["qstores"]
+                     for t in (qs.data, qs.scale, qs.bias))
+        # the caching allocator does not split off a remainder of 1 MiB or
+        # less from a large block: each of the tensors may hold up to that more
+        slack = 3 * len(seen["groups"]) * 2**20
+        if nbytes != want_bytes or not want_bytes <= seen["qbytes"] <= want_bytes + slack:
+            fail(f"{what}: the quantized stores hold {nbytes} B and took {seen['qbytes']} B "
+                 f"on the card, want {want_bytes} B")
+        n_rows = check_quantized_rows(what, seen, emb_bits)
+        float_preds, _ = make_eval_step(seen["cfg"], seen["preds"].device, capture=False)(
+            seen["params"], seen["batch"])
+        err = (seen["preds"] - float_preds).abs().max().item()
+        if not err <= QUANT_TOL:
+            fail(f"{what}: predictions {err} from the float eval step's > {QUANT_TOL}")
+        last_batch, replayed = seen["last"]
+        eager = seen["eager"](seen["params"], last_batch)
+        replay_err = (replayed - eager).abs().max().item()
+        if not replay_err <= QUANT_REPLAY_TOL:
+            fail(f"{what}: the last batch's replayed predictions are {replay_err} from the "
+                 f"same step run eagerly > {QUANT_REPLAY_TOL}")
+        scale_bias = 8 * sum(g.total_rows for g in seen["groups"])
+        replay = ("bit for bit with" if replay_err == 0 else f"{replay_err:.3e} from")
+        say("serve-quantized", f"{what}, 26 tables <=1M rows x 128, B={BATCH}: "
+                               f"{N_SERVE_BATCHES} batches in {seconds:.1f} s (host init and "
+                               f"data included); accuracy {acc:.6f}; stores of {nbytes} B, "
+                               f"{seen['qbytes']} B allocated on the card (want {want_bytes} B: "
+                               f"rows {want_bytes - scale_bias} B + scale and bias {scale_bias} "
+                               f"B); {n_rows} rows bit for bit with the CPU's quantization; "
+                               f"first batch's predictions within {err:.3e} of the float eval "
+                               f"step's (tol {QUANT_TOL}); the last batch's replay {replay} the "
+                               f"eager step; launches {launches}")
+
+
+def quantized_throughput(cfg, params, batch):
+    """Phase 8, timing: the captured quantized eval steps (one batch a
+    replay) against the captured float eval step (bf16, K1), in turns, on
+    device-drawn params and batch. Returns the quantized steps as
+    functions of nothing (profiled later)."""
+    import torch
+
+    from dlrm_yx_tpu_torch.models.dlrm import model_groups
+    from dlrm_yx_tpu_torch.ops.quantized import (
+        make_fully_quantized_eval_step,
+        quantize_mlp,
+        quantize_model_embeddings,
+    )
+    from dlrm_yx_tpu_torch.train.train_step import make_eval_step
+
+    groups = model_groups(cfg)
+    qstores = {bits: quantize_model_embeddings(params, groups, bits) for bits in (8, 4)}
+    towers = {8: tuple(quantize_mlp(params[k], "int8") for k in ("bot", "top")),
+              16: tuple(quantize_mlp(params[k], "fp16") for k in ("bot", "top")),
+              32: (None, None)}
+    dev = params["emb"][0].device
+    float_step = make_eval_step(cfg, dev)
+    fns = {"float (bf16, K1)": lambda: float_step(params, batch)[0]}
+    for e, m in QUANT_COMBOS:
+        step = make_fully_quantized_eval_step(cfg, groups, qstores[e], *towers[m], dev)
+        fns[f"int{e} tables, towers at {m} bits"] = lambda s=step: s(params, batch)
+
+    def check(name, preds):
+        if not bool(torch.isfinite(preds).all()):
+            fail(f"eval step ({name}) gave non-finite predictions")
+
+    times = time_in_turns(fns, check)
+    float_ms = statistics.mean(times["float (bf16, K1)"])
+    for name, ts in times.items():
+        ms = statistics.mean(ts)
+        say("throughput", f"captured eval step, one batch a replay, 26 tables <=1M rows x 128, "
+                          f"B={BATCH}, {name}: {ms:.4f} ms/batch ({BATCH / ms * 1e3:.0f} "
+                          f"examples/s; {ms / float_ms:.2f}x float; ms a call {ts})")
+    return {name: fn for name, fn in fns.items() if name.startswith("int")}
+
+
+# ------------------------------------ export and diagnostics (phase 9)
+
+PHASE_NAMES = ("embedding_lookup", "bottom_mlp", "interaction", "top_mlp", "loss_compute",
+               "backward", "optimizer")
+K1_K3_NAMES = {"K1": "fused_interaction", "K2": "row_plan", "K3": "dense_finish"}
+
+
+def export_and_diagnostics(rows):
+    """Phase 9: phase b's CLI training run with --save-onnx,
+    --enable-profiling and --collect-execution-graph (launch counts: one
+    more K1, K2 and K3 for the collected eager step); the exported program
+    reloaded and run on the trained params and a batch, against the live
+    forward, bit for bit, with K1 launched by it once; the trace and the
+    execution trace read for the phases and K1-K3; then --debug-mode on a
+    tiny model on the card against the CPU."""
+    import contextlib
+    import io
+    import shutil
+
+    import torch
+
+    from dlrm_yx_tpu_torch import cli
+    from dlrm_yx_tpu_torch.data.batch import to_device
+    from dlrm_yx_tpu_torch.export import load_exported
+    from dlrm_yx_tpu_torch.models.dlrm import forward
+    from dlrm_yx_tpu_torch.utils.profiling import TRACE_FILE
+
+    out_dir = os.path.join(DATA_DIR, "export")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    prof = os.path.join(out_dir, "prof")
+    os.makedirs(out_dir)
+    n = N_TRAIN_BATCHES
+    argv = terabyte_argv(rows) + [
+        "--num-batches", str(n), "--optimizer", "rwsadagrad", "--learning-rate", str(LR),
+        "--sparse-update-impl", "pallas", "--print-freq", "1", "--save-onnx",
+        "--enable-profiling", "--collect-execution-graph", "--profile-out-dir", prof]
+    want = only(fused_interaction=2 * n + 1, sparse_rows_overwrite=n + 1,
+                rwsadagrad_dense_finish=n + 1)
+    run = {}
+    cwd = os.getcwd()
+    os.chdir(out_dir)  # --save-onnx without --save-model writes ./dlrm_torch.pt2
+    try:
+        with SharedInit():
+            cli_training_run("export", f"cli training with --save-onnx --enable-profiling "
+                                       f"--collect-execution-graph, 26 tables <=1M rows x 128, "
+                                       f"B={BATCH}, L=1, bf16, rwsadagrad, pallas", argv, n,
+                             want, big_index=1, out=run)
+    finally:
+        os.chdir(cwd)
+    trainer = run["trainer"]
+    path = os.path.join(out_dir, "dlrm_torch.pt2")
+    program = load_exported(path)
+    b = to_device(trainer.trained_on[0], trainer.device)
+    counters = launch_counters()
+    with torch.no_grad():
+        live = forward(trainer.params, trainer.config, trainer.groups, b.dense, b.indices,
+                       b.weights)
+        for c in counters.values():
+            c.launches = 0
+        got = program.module()(trainer.params, b.dense, b.indices, b.weights)
+        launches = {name: c.launches for name, c in counters.items()}
+    if launches != only(fused_interaction=1):
+        fail(f"the reloaded program launched {launches}, want K1 once")
+    if not torch.equal(got, live):
+        fail(f"the reloaded program's predictions differ from the live forward's by "
+             f"{(got - live).abs().max().item()}")
+    say("export", f"{path} ({os.path.getsize(path)} B; sidecar "
+                  f"{open(path + '.json').read()}) reloaded: predictions on a batch equal the "
+                  f"live forward's bit for bit; launches {launches}")
+    with open(os.path.join(prof, TRACE_FILE)) as f:
+        text = f.read()
+    missing = [p for p in PHASE_NAMES if f'"{p}"' not in text]
+    named = [k for k, pat in K1_K3_NAMES.items() if pat in text]
+    if missing or not named:
+        fail(f"the --enable-profiling trace lacks phases {missing} or names none of K1-K3")
+    say("export", f"--enable-profiling: {TRACE_FILE} of {len(text)} B names every phase and "
+                  f"{named} of K1-K3 (a profiler window may drop a kernel; the launch "
+                  "counters count them)")
+    with open(os.path.join(prof, "train_step.et.json")) as f:
+        names = {node["name"] for node in json.load(f)["nodes"]}
+    with open(os.path.join(prof, "train_step.kernels.txt")) as f:
+        table = f.read()
+    missing = [p for p in PHASE_NAMES if p not in names]
+    if missing or "dlrm_yx_tpu_torch::fused_interaction" not in names:
+        fail(f"the execution trace lacks phases {missing} or K1's operator")
+    say("export", f"--collect-execution-graph: train_step.et.json ({len(names)} operator "
+                  f"names, every phase and K1's operator), train_step.kernels.txt names "
+                  f"{[k for k, pat in K1_K3_NAMES.items() if pat in table]} of K1-K3")
+
+    def debug_printout(device):
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            cli.main(["--mini-batch-size=2", "--data-size=6", "--debug-mode", "--device",
+                      device])
+        text = printed.getvalue()
+        return text[text.index("model arch:"):text.index("Finished training it")]
+
+    card, cpu = debug_printout("cuda"), debug_printout("cpu")
+    if card != cpu:
+        fail("--debug-mode: the initial printout on the card differs from the CPU's")
+    say("export", f"--debug-mode: the initial printout on the card equals the CPU's "
+                  f"({len(card.splitlines())} lines)")
+
+
 def main():
+    import gc
     import re
 
     import torch
@@ -3232,6 +3553,8 @@ def main():
         bf16_launches = train_bf16_sr_main_path(rows, big_index=1)
         # y. the embedding variants and the processed dataset
         variant_main_paths(rows)
+        # 8. quantized serving
+        quantized_main_paths(rows)
 
         # u, v. the real-data paths (MLPerf binary file, Kaggle TSV -> npz,
         # stack-distance traces) and checkpoints; w. their feeds' throughput,
@@ -3284,6 +3607,7 @@ def main():
     }
     for name, fn in variant_throughput(captured["L=1 train"][0], rows).items():
         captured[f"L=1 train, {name} tables"] = (fn, N_DISPATCH)
+    quantized = quantized_throughput(serve_cfg, params, batch)
     profile_step(lambda: step(params, batch), "serving (eager)",
                  ("embedding_lookup", "bottom_mlp", "interaction", "top_mlp"))
     train_phases = ("embedding_lookup", "bottom_mlp", "interaction", "top_mlp",
@@ -3315,12 +3639,23 @@ def main():
         elif name.startswith("capacity"):
             profile_by_kind(per_kernel, CAPACITY_KINDS)
     del captured
+    for name, fn in quantized.items():
+        profile_by_kind(profile_step(fn, f"quantized eval, {name} (captured, one batch a "
+                                         "replay)", ()), QUANT_KINDS)
+    del quantized
     profile_real_data(fit, feeds)
     del fit, feeds
 
     # q. device operations per wrapper call
     count_device_ops(big, cap_big)
     count_k1_k5_ops(bench_cfg, small)
+
+    # 9. export and the diagnostic flags on the training path
+    del step, params, batch, steps, tparams, state, tbatch, l100_steps, l100_parts
+    del cap_steps, cap_parts
+    gc.collect()
+    torch.cuda.empty_cache()
+    export_and_diagnostics(rows)
 
     sources = {
         "fused_interaction": ("dlrm_yx_tpu/ops/pallas_interaction.py:84", k1, launches,

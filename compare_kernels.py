@@ -11,7 +11,9 @@ prints one JSON line (``{"repo": ..., "cases": {name: {"ms", "plain_ms",
 "rel_err", ...}}}``) and the script ends with the card's name and power
 limit. Cases, at the main path's shapes:
 
-  * K1 at the serving shape (B=2048, S=26, D=128), bf16 and f32 compute;
+  * K1 at the serving shape (B=2048, S=26, D=128), bf16 and f32 compute,
+    also called eagerly (``eager_ms``: CUDA events around 200 wrapper calls
+    in a row, the host's cost of a call included);
   * K5 on the reference L=100 benchmark's store (8 x 1M rows x 64 f32)
     with one device batch's sorted occurrences (batch 2048, SGD's
     weights), and on the same batch with every weight-0 id sent to its
@@ -64,6 +66,23 @@ def device_time_ms(fn):
     return statistics.median(times)
 
 
+def eager_ms(fn, calls=200):
+    """ms a call of ``calls`` eager calls between two CUDA events (after a
+    warm-up): the wrapper's host cost shows where it exceeds the kernel's."""
+    import torch
+
+    for _ in range(10):
+        fn()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(calls):
+        fn()
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1) / calls
+
+
 def rel_err(got, want):
     got, want = got.float(), want.float()
     return ((got - want).abs().max() / want.abs().max()).item()
@@ -111,6 +130,7 @@ def run_one(repo):
         case(name, lambda _, c=cdt: fused_interaction(x, ly, False, c),
              lambda _, c=cdt: fused_interaction_reference(x, ly, False, c), lambda: None,
              TOL["K1"])
+        cases[name]["eager_ms"] = eager_ms(lambda c=cdt: fused_interaction(x, ly, False, c))
     del x, ly
 
     rows = [1_000_000] * 8

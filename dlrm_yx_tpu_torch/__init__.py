@@ -17,7 +17,10 @@ in ``train/capture.py``) and the serving path (``cli --inference-only``
 or processed data (``data/processed.py``), with checkpoints
 (``train/checkpoint.py``), the embedding variants (QR tables,
 ``ops/qr_embedding.py``; mixed dims, ``ops/md_embedding.py``; weighted
-pooling), and all six kernels (K1–K6). Entry points run on ``cuda`` unless the caller
-passes ``device="cpu"``. The package imports nothing of JAX or
+pooling), quantized serving (``ops/quantized.py``), model export and the
+execution trace (``export.py``), the profiling and debug flags, the
+reference-checkpoint and visualization tools (``tools/``), and all six
+kernels (K1–K6); the mesh paths are left. Entry points run on ``cuda``
+unless the caller passes ``device="cpu"``. The package imports nothing of JAX or
 ``dlrm_yx_tpu``.
 """

@@ -19,10 +19,20 @@ processed dataset written by ``python -m dlrm_yx_tpu_torch.data.processed``
 (its tables' rows and dims from ``DIR/table_configs.json``, its batches
 from ``DIR/data.npz``). The flags keep the JAX package's names, defaults
 and meaning; one flag is new, ``--device`` (``cuda`` by default; ``cpu``
-for the tests). Flags of parts not yet ported are still recognised, and
-giving any of them raises ``NotImplementedError`` instead of being
-ignored. ``--print-time`` and the reference-compat flags of
-``add_noop_flags`` are accepted and have no effect, as in the JAX CLI.
+for the tests). ``--inference-only`` with ``--quantize-emb-with-bit 4|8``
+and / or ``--quantize-mlp-with-bit 8|16`` serves from quantized tables
+(int4 / int8; 8 when only the towers are quantized) and int8 / fp16 towers
+(``ops/quantized.py``). ``--debug-mode`` prints the model and its
+parameters before and after training (``--print-precision`` digits);
+``--enable-profiling`` writes a ``torch.profiler`` Chrome trace of the run
+into ``--profile-out-dir``; ``--collect-execution-graph`` (or
+``--plot-compute-graph``) writes the execution trace of one eager train
+step there; ``--save-onnx`` exports the inference forward with
+``torch.export`` to ``<--save-model>/dlrm_torch.pt2`` (``export.py``). The
+mesh flags of the JAX CLI are still recognised, and giving any of them
+raises ``NotImplementedError`` instead of being ignored. ``--print-time``
+and the reference-compat flags of ``add_noop_flags`` are accepted and have
+no effect, as in the JAX CLI.
 The reference's L=100 throughput benchmark
 (``bench/dlrm_tpu_benchmark.sh``) runs with ``dlrm_yx_tpu.cli`` replaced by
 ``dlrm_yx_tpu_torch.cli``. bf16 table storage (``--emb-dtype bfloat16``)
@@ -46,6 +56,7 @@ import argparse
 import dataclasses
 import os
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -65,20 +76,25 @@ from dlrm_yx_tpu_torch.data.synthetic import (
     make_random_batches,
 )
 from dlrm_yx_tpu_torch.data.trace import make_trace_batches
+from dlrm_yx_tpu_torch.export import collect_execution_graph, export_inference
 from dlrm_yx_tpu_torch.ops.md_embedding import md_solver
+from dlrm_yx_tpu_torch.ops.quantized import (
+    make_fully_quantized_eval_step,
+    quantize_mlp,
+    quantize_model_embeddings,
+)
 from dlrm_yx_tpu_torch.optim.lr_policy import LRPolicy
 from dlrm_yx_tpu_torch.optim.optimizer import OptConfig
+from dlrm_yx_tpu_torch.train.train_step import make_train_step
 from dlrm_yx_tpu_torch.train.trainer import Trainer, TrainerConfig
 from dlrm_yx_tpu_torch.utils.device import resolve_device
 from dlrm_yx_tpu_torch.utils.logging import rank0_print
+from dlrm_yx_tpu_torch.utils.profiling import trace
 
-# flags of dlrm_yx_tpu/cli.py whose parts are not ported yet
+# flags of dlrm_yx_tpu/cli.py whose parts are not ported yet (the mesh paths)
 UNPORTED_FLAGS = (
-    "print-precision", "force-cpu-devices", "distributed", "mesh-data", "mesh-model",
-    "shard-mode", "sharder", "allocation", "debug-mode",
-    "enable-profiling", "profile-out-dir", "plot-compute-graph",
-    "save-onnx", "quantize-mlp-with-bit", "quantize-emb-with-bit",
-    "collect-execution-graph",
+    "force-cpu-devices", "distributed", "mesh-data", "mesh-model",
+    "shard-mode", "sharder", "allocation",
 )
 # --data-generation values ported (all of the JAX CLI's)
 DATA_GENERATIONS = ("random", "random-device", "synthetic", "dataset", "processed")
@@ -217,6 +233,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--print-time", action="store_true", default=False,
                    help="accepted for parity with the JAX CLI; no effect")
     p.add_argument("--print-wall-time", action="store_true", default=False)
+    p.add_argument("--print-precision", type=int, default=5)
+    # debugging and profiling
+    p.add_argument("--debug-mode", action="store_true", default=False)
+    p.add_argument("--enable-profiling", action="store_true", default=False)
+    p.add_argument("--profile-out-dir", type=str,
+                   default=os.path.join(tempfile.gettempdir(), "dlrm_tpu_trace"))
+    p.add_argument("--plot-compute-graph", action="store_true", default=False)
+    p.add_argument("--collect-execution-graph", action="store_true", default=False)
     # store/load model, scalars
     p.add_argument("--save-model", type=str, default="")
     p.add_argument("--load-model", type=str, default="")
@@ -227,6 +251,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--test-freq", type=int, default=-1)
     # mlperf
     p.add_argument("--inference-only", action="store_true", default=False)
+    p.add_argument("--save-onnx", action="store_true", default=False,
+                   help="export the inference forward (torch.export) to "
+                        "<--save-model>/dlrm_torch.pt2 after training")
+    # quantize (--inference-only)
+    p.add_argument("--quantize-mlp-with-bit", type=int, default=32)
+    p.add_argument("--quantize-emb-with-bit", type=int, default=32)
     p.add_argument("--mlperf-logging", action="store_true", default=False)
     p.add_argument("--mlperf-acc-threshold", type=float, default=0.0)
     p.add_argument("--mlperf-auc-threshold", type=float, default=0.0)
@@ -449,7 +479,7 @@ def _measure_dup_density(cfg: DLRMConfig, train):
     if train is None:
         return None
     try:
-        b0 = train[0] if hasattr(train, "__getitem__") else next(iter(train))
+        b0 = _first_batch(train)
     except (IndexError, StopIteration):  # no batch
         return None
     idx = torch.as_tensor(b0.indices).cpu().numpy()  # [T, B, L]
@@ -462,10 +492,74 @@ def _measure_dup_density(cfg: DLRMConfig, train):
     return max(1e-3, min(1.0, uniq / max(total, 1)))
 
 
+def debug_print_model(cfg: DLRMConfig, params, precision: int = 5) -> None:
+    """--debug-mode: the model's arch and its parameters, as the JAX CLI
+    prints them (the reference's golden printout, dlrm_s_pytorch.py:
+    1519-1571): each group's logical store, then each layer's W.T and b."""
+    np.set_printoptions(precision=precision)
+    print("model arch:")
+    print(f"mlp top arch {len(cfg.ln_top)-1} layers, with input to output "
+          f"dimensions: {np.array(cfg.ln_top)}")
+    print(f"# of interactions: {cfg.num_interactions}")
+    print(f"mlp bot arch {len(cfg.ln_bot)-1} layers, with input to output "
+          f"dimensions: {np.array(cfg.ln_bot)}")
+    print(f"# of features (sparse and dense): {cfg.num_features}")
+    print(f"dense feature size: {cfg.ln_bot[0]}")
+    print(f"sparse feature size: {cfg.base_dim}")
+    print(f"# of embeddings (= # of sparse features) {cfg.num_tables}, with "
+          f"dimensions {cfg.base_dim}x: {np.array(cfg.emb_rows)}")
+    print("initial parameters (weights and bias):")
+    for store in params["emb"]:
+        print(store.detach().float().cpu().numpy())
+    for k in ("bot", "top"):
+        for w, b in params[k]:
+            print(w.detach().cpu().numpy().T)
+            print(b.detach().cpu().numpy())
+
+
+def quantized_inference(args, cfg: DLRMConfig, trainer: Trainer, test_batches) -> dict:
+    """--inference-only with --quantize-emb-with-bit / --quantize-mlp-with-bit
+    (the JAX CLI's ``_quantized_inference``): tables at 4 or 8 bits (8 when
+    only the towers are quantized), towers int8 (8) or fp16 (16), the
+    accuracy of the rounded predictions."""
+    bits = args.quantize_emb_with_bit if args.quantize_emb_with_bit in (4, 8) else 8
+    qstores = quantize_model_embeddings(trainer.params, trainer.groups, bits)
+    qbot = qtop = None
+    if args.quantize_mlp_with_bit in (8, 16):
+        mode = "int8" if args.quantize_mlp_with_bit == 8 else "fp16"
+        qbot = quantize_mlp(trainer.params["bot"], mode)
+        qtop = quantize_mlp(trainer.params["top"], mode)
+    ev = make_fully_quantized_eval_step(cfg, trainer.groups, qstores, qbot, qtop,
+                                        trainer.device)
+    n_correct = n_total = 0
+    for b in test_batches:
+        preds = ev(trainer.params, b).cpu().numpy().ravel()
+        t = torch.as_tensor(b.labels).cpu().numpy().ravel()
+        n_correct += int(((preds >= 0.5) == (t > 0.5)).sum())
+        n_total += len(t)
+    return {"accuracy": n_correct / max(n_total, 1), "quantized": True}
+
+
+def _first_batch(train):
+    return train[0] if hasattr(train, "__getitem__") else next(iter(train))
+
+
+def _copies(tree):
+    """A copy of every tensor of a params or optimizer-state tree."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().clone()
+    if isinstance(tree, dict):
+        return {k: _copies(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_copies(v) for v in tree)
+    return tree
+
+
 def main(argv=None):
     """Trains (and evaluates at the end of each epoch, or every
     --test-freq iterations) and returns the last eval's metrics; with
-    --inference-only evaluates the initial model and returns its metrics."""
+    --inference-only evaluates the initial (or loaded) model and returns
+    its metrics."""
     args = build_parser().parse_args(argv)
     check_ported(args)
     np.random.seed(args.numpy_rand_seed)
@@ -506,14 +600,41 @@ def main(argv=None):
                 "update crossover)"
             )
     trainer = Trainer(cfg, opt, tcfg, lr_policy, device=args.device)
+    if args.debug_mode:
+        debug_print_model(cfg, trainer.params, args.print_precision)
     if args.inference_only:
-        metrics = trainer.evaluate(test)
+        if args.quantize_emb_with_bit in (4, 8) or args.quantize_mlp_with_bit in (8, 16):
+            metrics = quantized_inference(args, cfg, trainer, test)
+        else:
+            metrics = trainer.evaluate(test)
         rank0_print("inference metrics:", metrics)
         return metrics
+    if args.plot_compute_graph or args.collect_execution_graph:
+        # one eager step on copies of the params and optimizer state: the
+        # JAX CLI only traces its step, so the run trains from the same state
+        arts = collect_execution_graph(
+            make_train_step(cfg, opt, device=trainer.device),
+            (_copies(trainer.params), _copies(trainer.opt_state), _first_batch(train), 0),
+            args.profile_out_dir, "train_step")
+        rank0_print(f"execution graph artifacts: {arts}")
     t0 = time.time()
-    summary = trainer.fit(train, lambda: test)
+    if args.enable_profiling:
+        with trace(args.profile_out_dir):
+            summary = trainer.fit(train, lambda: test)
+        rank0_print(f"profiler trace written to {args.profile_out_dir}")
+    else:
+        summary = trainer.fit(train, lambda: test)
     if args.print_wall_time:
         rank0_print(f"Total wall time: {time.time() - t0:.2f} s")
+    if args.debug_mode:
+        print("updated parameters (weights and bias):")
+        debug_print_model(cfg, trainer.params, args.print_precision)
+    if args.save_onnx:
+        out_dir = args.save_model or "."
+        out = os.path.join(out_dir, "dlrm_torch.pt2")
+        os.makedirs(out_dir, exist_ok=True)
+        export_inference(trainer.params, cfg, _first_batch(train), out)
+        rank0_print(f"saved the exported model to {out}")
     return summary
 
 

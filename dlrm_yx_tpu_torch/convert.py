@@ -24,11 +24,16 @@ inverse reshape). A bf16 tensor becomes a raw 16-bit array of dtype
 ``V2``: the bytes, and the dtype descriptor, that ``np.savez`` records for
 an ``ml_dtypes.bfloat16`` array (``view(ml_dtypes.bfloat16)`` gives JAX its
 array). The port reads either form back.
+
+``qstores_from_jax`` and ``qmlp_from_jax`` carry the JAX package's
+quantized serving state (``dlrm_yx_tpu.ops.quantized``'s ``QuantizedStore``
+list and ``QuantizedMLP``, their arrays read as numpy) into the port's
+``ops.quantized`` types, element by element.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Union
+from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -36,6 +41,7 @@ import torch
 from dlrm_yx_tpu_torch.config import DLRMConfig
 from dlrm_yx_tpu_torch.models.dlrm import model_groups
 from dlrm_yx_tpu_torch.ops.embedding import pack_store, unpack_store
+from dlrm_yx_tpu_torch.ops.quantized import QuantizedMLP, QuantizedStore
 from dlrm_yx_tpu_torch.optim.optimizer import OptConfig, acc_len
 from dlrm_yx_tpu_torch.utils.device import resolve_device
 
@@ -150,3 +156,24 @@ def opt_state_to_jax(state: Dict, cfg: DLRMConfig) -> Dict:
     if out["vw"] is None:
         del out["vw"]
     return out
+
+
+def qstores_from_jax(qstores: Sequence, device: Optional[Union[str, torch.device]] = None
+                     ) -> List[QuantizedStore]:
+    """The JAX package's quantized group stores (``data`` uint8, ``scale``
+    and ``bias`` [R, 1] f32, ``bits``, ``dim``) as the port's, on
+    ``device``."""
+    dev = resolve_device(device)
+    return [QuantizedStore(data=_tensor(q.data, dev), scale=_tensor(q.scale, dev),
+                           bias=_tensor(q.bias, dev), bits=int(q.bits), dim=int(q.dim))
+            for q in qstores]
+
+
+def qmlp_from_jax(qmlp, device: Optional[Union[str, torch.device]] = None) -> QuantizedMLP:
+    """The JAX package's quantized tower (layers of ``(qw, w_scale or None,
+    b)``, ``mode``) as the port's, on ``device``."""
+    dev = resolve_device(device)
+    return QuantizedMLP(
+        layers=[(_tensor(qw, dev), None if s is None else _tensor(s, dev), _tensor(b, dev))
+                for qw, s, b in qmlp.layers],
+        mode=qmlp.mode)

@@ -283,9 +283,11 @@ def assemble_slots(
     the card). When every table is one slot of dim D in a group (the
     Criteo configs) it is one concat and one row gather (none for a single
     group), returned as a transposed view that the fused interaction reads
-    without a copy; the backward is then one scatter, not one per table."""
+    without a copy; the backward is then one scatter, not one per table.
+    A QR table without its pooled vector raises ``KeyError``, as in the
+    JAX package."""
     d = config.base_dim
-    if (not qr_pooled and all(g.dim == d for g in groups)
+    if (not config.qr_table_ids and all(g.dim == d for g in groups)
             and all(k == 1 for k in config.slots_per_table)):
         order = [t for g in groups for t in g.table_ids]
         t = pooled_list[0] if len(groups) == 1 else torch.cat(list(pooled_list), 0)

@@ -128,12 +128,20 @@ def build_table_groups(
     return groups
 
 
-@functools.lru_cache(maxsize=256)
 def device_ints(values: Tuple[int, ...], device: torch.device) -> torch.Tensor:
     """A static int32 vector on ``device``, copied there once: a fresh
     host-to-device copy in every step would stall the host on the card.
     Made outside inference mode, so that a vector first asked for by an
-    eval step can serve a train step's autograd later."""
+    eval step can serve a train step's autograd later. Under
+    ``torch.export`` (or ``torch.compile``) tracing it is made afresh, a
+    constant of the traced program: a cached one would be a fake tensor."""
+    if torch.compiler.is_compiling():
+        return torch.tensor(values, dtype=torch.int32, device=device)
+    return _cached_ints(values, device)
+
+
+@functools.lru_cache(maxsize=256)
+def _cached_ints(values: Tuple[int, ...], device: torch.device) -> torch.Tensor:
     with torch.inference_mode(False):
         return torch.tensor(values, dtype=torch.int32, device=device)
 

@@ -14,8 +14,12 @@ bound); on a CPU tensor it runs ``fused_interaction_reference``, the plain
 PyTorch version of the same function. There is no fallback from one to the
 other.
 
-``fused_interaction`` is an autograd Function on both devices, so the
-kernel's output carries a gradient. Its backward is a torch expression of
+``fused_interaction`` calls the custom operator
+``dlrm_yx_tpu_torch::fused_interaction`` (``torch.library.custom_op``) on
+both devices: a ``torch.export`` trace keeps it as one call, from its fake
+(shape-only) implementation, and a program exported with it runs the
+kernel on the card once this module is imported. The operator carries a
+gradient. Its backward is a torch expression of
 the JAX package's ``_vjp_bwd`` (``pallas_interaction.py:176-203``, XLA
 there too, not Pallas): the pair gradients scattered into a symmetric
 ``[B, F, F]`` dz (a diagonal pair counts twice), ``dt = dz @ T`` in f32
@@ -100,28 +104,39 @@ def _forward(x, ly, interact_itself, compute_dtype):
     return out
 
 
-class _FusedInteraction(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, ly, interact_itself, compute_dtype):
-        ctx.save_for_backward(x, ly)
-        ctx.interact_itself = interact_itself
-        ctx.compute_dtype = compute_dtype
-        return _forward(x, ly, interact_itself, compute_dtype)
+@torch.library.custom_op("dlrm_yx_tpu_torch::fused_interaction", mutates_args=())
+def _fused_interaction_op(x: torch.Tensor, ly: torch.Tensor, interact_itself: bool,
+                          compute_dtype: torch.dtype) -> torch.Tensor:
+    return _forward(x, ly, interact_itself, compute_dtype)
 
-    @staticmethod
-    def backward(ctx, g):
-        x, ly = ctx.saved_tensors
-        b, d = x.shape
-        f = ly.shape[1] + 1
-        li, lj = torch.tril_indices(f, f, 0 if ctx.interact_itself else -1,
-                                    device=x.device)
-        gz = g[:, d:]
-        dz = g.new_zeros(b, f * f)
-        dz.index_add_(1, li * f + lj, gz)
-        dz.index_add_(1, lj * f + li, gz)
-        t = torch.cat([x[:, None, :], ly], dim=1).to(ctx.compute_dtype).float()
-        dt = torch.bmm(dz.view(b, f, f), t)
-        return g[:, :d] + dt[:, 0], dt[:, 1:], None, None
+
+@_fused_interaction_op.register_fake
+def _(x, ly, interact_itself, compute_dtype):
+    return x.new_empty((x.shape[0], x.shape[1] + num_pairs(ly.shape[1] + 1, interact_itself)))
+
+
+def _setup_context(ctx, inputs, output):
+    x, ly, interact_itself, compute_dtype = inputs
+    ctx.save_for_backward(x, ly)
+    ctx.interact_itself = interact_itself
+    ctx.compute_dtype = compute_dtype
+
+
+def _backward(ctx, g):
+    x, ly = ctx.saved_tensors
+    b, d = x.shape
+    f = ly.shape[1] + 1
+    li, lj = torch.tril_indices(f, f, 0 if ctx.interact_itself else -1, device=x.device)
+    gz = g[:, d:]
+    dz = g.new_zeros(b, f * f)
+    dz.index_add_(1, li * f + lj, gz)
+    dz.index_add_(1, lj * f + li, gz)
+    t = torch.cat([x[:, None, :], ly], dim=1).to(ctx.compute_dtype).float()
+    dt = torch.bmm(dz.view(b, f, f), t)
+    return g[:, :d] + dt[:, 0], dt[:, 1:], None, None
+
+
+_fused_interaction_op.register_autograd(_backward, setup_context=_setup_context)
 
 
 def fused_interaction(
@@ -136,7 +151,7 @@ def fused_interaction(
     A CUDA call launches the kernel on the current stream and adds one to
     ``fused_interaction.launches``; a CPU call runs the plain version."""
     _check(x, ly, compute_dtype)
-    return _FusedInteraction.apply(x, ly, interact_itself, compute_dtype)
+    return _fused_interaction_op(x, ly, interact_itself, compute_dtype)
 
 
 fused_interaction.launches = 0

@@ -5,21 +5,48 @@ a ``torch.profiler.record_function`` range with the JAX package's phase
 names (``embedding_lookup``, ``bottom_mlp``, ``interaction``, ``top_mlp``,
 ``loss_compute``, ``backward``, ``optimizer``), so traces of the two
 packages name the same phases. It costs nothing unless a profiler is
-recording. ``StepTimer`` is the port of ``profiling.py:55-80``.
+recording. ``trace`` is the port of ``profiling.py:45-52``
+(``--enable-profiling``): a ``torch.profiler`` window over the enclosed
+work, written as a Chrome trace (``chrome://tracing``, Perfetto) in place
+of JAX's XPlane. ``StepTimer`` is the port of ``profiling.py:55-80``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 from typing import Iterator, List
 
-from torch.profiler import record_function
+import torch
+from torch.profiler import ProfilerActivity, profile, record_function
+
+TRACE_FILE = "trace.json"
 
 
 @contextlib.contextmanager
 def phase_scope(name: str) -> Iterator[None]:
     with record_function(name):
         yield
+
+
+def activities() -> List[ProfilerActivity]:
+    """What a profiler window records: host operators, and the card's
+    kernels when there is one."""
+    return [ProfilerActivity.CPU] + [ProfilerActivity.CUDA] * torch.cuda.is_available()
+
+
+@contextlib.contextmanager
+def trace(logdir: str) -> Iterator[None]:
+    """Profile the enclosed work and write ``logdir/trace.json`` at the
+    end, also when the work raises."""
+    os.makedirs(logdir, exist_ok=True)
+    prof = profile(activities=activities())
+    prof.start()
+    try:
+        yield
+    finally:
+        prof.stop()
+        prof.export_chrome_trace(os.path.join(logdir, TRACE_FILE))
 
 
 class StepTimer:

@@ -192,8 +192,8 @@ def test_cli_inference_matches_jax_cli(mlperf):
 
 @pytest.mark.parametrize(
     "extra",
-    [["--mesh-data", "2"], ["--distributed"], ["--quantize-emb-with-bit", "8"],
-     ["--quantize-mlp-with-bit", "8"]],
+    [["--mesh-data", "2"], ["--distributed"], ["--shard-mode", "row"],
+     ["--sharder", "greedy"]],
 )
 def test_cli_rejects_unported_flags(extra):
     with pytest.raises(NotImplementedError, match="not yet ported"):
@@ -205,10 +205,10 @@ def test_cli_without_inference_only_is_not_ported():
     --no-write-only-update and --stochastic-rounding; multi-step dispatch
     and gradient accumulation in tests/test_torch_trainer.py; checkpoints
     in tests/test_torch_checkpoint.py); its options whose parts are not
-    (the exported model) raise."""
+    (the mesh paths) raise."""
     flags = [f for f in CLI_FLAGS if f != "--inference-only"] + ["--device", "cpu"]
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        port_cli.main(flags + ["--save-onnx"])
+        port_cli.main(flags + ["--mesh-model", "2"])
 
 
 def test_cuda_asked_for_and_absent_raises(monkeypatch):
