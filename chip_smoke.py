@@ -187,7 +187,31 @@ no result):
      K1 once; the Chrome trace names every phase and at least one of K1-K3
      (a profiler window may drop a kernel), the execution trace every phase
      and K1's operator; --debug-mode on a tiny model prints the same
-     initial parameters on the card as on the CPU.
+     initial parameters on the card as on the CPU;
+  10. hybrid: whole-table (hybrid) sharding (``dlrm_yx_tpu_torch.parallel``)
+     on phase b's model (Terabyte-MLPerf <=1M rows, B=2048, L=1, bf16,
+     RWSAdagrad, pallas): (a) a world of one rank over NCCL, mesh 1 x 1,
+     ``HybridRunner`` with the plan's big and small stores laid out from
+     the single-device stores drawn on the card, a few captured steps and
+     an eval through ``Trainer.fit`` (launch counts set to 0 just before and
+     read just after: K1 once a step and an eval batch, K2 and K3 once a
+     step), held to ``make_train_step`` from the same params, optimizer
+     state and batches (losses and both stores bit for bit, else within
+     rtol 1e-5 / atol 1e-6 with the max |diff| shown); no big-store row that
+     no live lookup touched changed; the captured N=4 hybrid step against
+     the eager one bit for bit; the captured N=16 hybrid step against the
+     captured single-device step, in turns; the all-to-all issued before
+     the bottom MLP and waited on after it in one profiler window (and the
+     device side of that window read: the exchange's device time and the
+     time it runs beside the bottom MLP's GEMMs); the stores' bytes on the
+     card; (b) two ranks on the card over gloo (NCCL takes one rank a
+     device), eager, mesh 1 x 2, greedy sharder: each rank's stores hold
+     the tables the plan gives it, K1, K2 and K3 launch once a step on each
+     rank, the losses agree with (a)'s within rtol 1e-4, and each table's
+     change over the run (gathered to rank 0 by ``extract_tables``, minus
+     the table before the run) moved the same rows as (a)'s change and is
+     within 5e-2 of it in relative norm (bf16 compute; see TWO_RANK_LOSS).
+     This script runs each rank (``--hybrid-rank``).
 Then a JSON line of the kernels (launches from the path each kernel serves:
 K1-K3 phase b, K5 phase g, K6 phase h, K4 phase m), nvidia-smi's line, and
 the result line.
@@ -1247,10 +1271,16 @@ def check_stream_apply_traffic(group, store, b, gidx, gtab, compare):
     w_vw = w_eff * vw[pos.long()]
     vw_rows = int(torch.unique_consecutive(pos[w_vw != 0]).numel())
     err, rel, ms, plain_ms = timed("w * v_W", w_vw, gtab, vw_rows)
+    # the bound as phase f's benchmark row counts it: the rows with a nonzero
+    # weight read and written once, the (pos, seg, w) streams and the grad table
+    d = store.shape[1]
+    nbytes = 2 * 4 * d * vw_rows + 12 * pos.numel() + 4 * gtab.numel()
+    bound, by = bound_ms(nbytes, 2 * d * int((w_vw != 0).sum()))
     say("kernel", f"sorted_stream_apply, learned pooling's weights w * v_W[row] (v_W 0 on "
                   f"{int((vw == 0).sum())} rows, negative on {int((vw < 0).sum())}, random "
                   f"elsewhere): max_abs_err {err:.3e} (relative {rel:.3e}), {vw_rows} rows "
-                  f"changed, kernel {ms:.5f} ms, plain {plain_ms:.5f} ms")
+                  f"changed, kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, bound {bound:.5f} ms "
+                  f"({by}, {nbytes} B)")
 
 
 def check_stream_apply_capture(store, pos, seg, w_eff, gtab):
@@ -3493,6 +3523,465 @@ def export_and_diagnostics(rows):
                   f"({len(card.splitlines())} lines)")
 
 
+# ------------------------------------------- phase 10: hybrid (table) sharding
+
+HYBRID_STEPS = 4      # phase 10's Trainer.fit steps; its eval takes as many batches
+HYBRID_SEED = 41      # the tables' device draw, the same in (a) and (b)
+# (a) against the single-device step where it is not bit for bit
+HYBRID_TOL = dict(rtol=1e-5, atol=1e-6)
+# Both runs start from a nonzero optimizer state (ACC0 in every accumulator, as
+# phase c starts): from zero, RWSAdagrad's first dense update is lr * g / |g| for
+# every element, whatever g's size, so an element whose gradient is rounding noise
+# moves by the full lr either way (phase b's second loss is near 100)
+ACC0 = 0.01
+# (b) against (a). The towers compute in bf16, each of the two ranks on half
+# the batch, and each rank's dense grads are rounded to bf16 before the two
+# are summed (one card rounds the whole batch's once), as in the JAX
+# package's hybrid step. The losses read 6e-6 relative apart on an H100 80GB
+# HBM3 at 700 W: the limit keeps a margin of 16.
+TWO_RANK_LOSS = dict(rtol=1e-4, atol=0.0)
+# The tables are held by their change over the run, not their values: with
+# every accumulator at ACC0 a step moves an entry by at most lr * |g| /
+# sqrt(ACC0), far below the entries themselves, so values agree whatever the
+# update did. Each table's change must touch the same rows as (a)'s, and the
+# two changes may differ by TWO_RANK_CHANGE of (a)'s in norm over all tables.
+# With the dense grads rounded per rank (tests/test_torch_hybrid.py's
+# rwsadagrad_bf16 case holds the port's mesh of two to JAX's), the towers
+# drift from one card's, and the tables with them: (b) read 1.735e-02 on an H100 80GB
+# HBM3 at 700 W. The limit keeps a margin of about 3; a run that applied no
+# sparse update reads 1, and (a)'s change on rows shifted by one 0.601.
+TWO_RANK_CHANGE = 5e-2
+
+
+def hybrid_config(rows):
+    """Phase 10's model: phase b's (Terabyte-MLPerf <=1M rows, B=2048, L=1,
+    bf16 compute, RWSAdagrad, --sparse-update-impl pallas, pallas
+    interaction), with the uniform stream's density hint."""
+    import dataclasses
+
+    from dlrm_yx_tpu_torch.config import DLRMConfig
+    from dlrm_yx_tpu_torch.optim.optimizer import OptConfig, uniform_stream_density
+
+    cfg = DLRMConfig.build(
+        emb_rows=rows, ln_bot=(13, 512, 256, 128), ln_top=(1024, 1024, 512, 256, 1),
+        loss="bce", compute_dtype="bfloat16", sparse_update_impl="pallas",
+        interaction_impl="pallas")
+    cfg = dataclasses.replace(cfg, dup_density_hint=uniform_stream_density(
+        cfg.emb_rows, cfg.emb_split_threshold, BATCH))
+    return cfg, OptConfig("rwsadagrad", LR)
+
+
+def same_or_close(what, got, want, tol):
+    """'bit for bit', or the max |diff| within ``tol``; fails otherwise."""
+    import torch
+
+    if all(torch.equal(bits(a), bits(b)) for a, b in zip(got, want)):
+        return "bit for bit"
+    worst = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
+    if not all(torch.allclose(a.float(), b.float(), **tol) for a, b in zip(got, want)):
+        fail(f"{what}: max |diff| {worst} beyond rtol {tol['rtol']} atol {tol['atol']}")
+    return f"within rtol {tol['rtol']} atol {tol['atol']} (max |diff| {worst:.3e})"
+
+
+def fill_state(state):
+    """Every accumulator of an optimizer state set to ACC0, in place."""
+    for t in leaves(state):
+        t.fill_(ACC0)
+    return state
+
+
+def looked_up_big_rows(runner, batches):
+    """The rows of the rank's big store that the batches' live lookups read."""
+    import torch
+
+    from dlrm_yx_tpu_torch.ops.embedding import device_ints
+
+    plan, nb = runner.plan, runner.plan.n_big_slots
+    offs = device_ints(plan.row_offsets[runner.mesh.m * plan.t_pad:][:nb], "cuda")
+    rows = torch.zeros(plan.r_big_pad, dtype=torch.bool, device="cuda")
+    for b in batches:
+        lb = runner.prepare_batch(b)
+        ids = (lb.indices[:nb] + offs[:, None, None]).long()
+        ids = ids[(lb.weights[:nb] != 0) & (ids < plan.r_big_pad)]
+        rows[ids] = True
+    return rows
+
+
+def hybrid_capture_parity(cfg, opt, plan, single):
+    """Phase 10 (a): the captured N=4 hybrid step (three dispatches: eager
+    warm-up, capture + replay, replay) against the eager hybrid step from a
+    clone, bit for bit: losses and every tensor."""
+    import torch
+
+    from dlrm_yx_tpu_torch.data.batch import stack_batches
+    from dlrm_yx_tpu_torch.parallel.hybrid import (
+        HybridRunner,
+        make_hybrid_train_step,
+        params_from_single_device,
+    )
+
+    n = 4
+    runner = HybridRunner(cfg, opt, 1, 1, params=params_from_single_device(cfg, plan, single))
+    eager_p, eager_s = clone_tree(runner.params), clone_tree(runner.opt_state)
+    eager = make_hybrid_train_step(cfg, runner.plan, opt, runner.mesh, capture=False)
+    captured = runner.make_multi_step(n)
+    batches = drawn_batches(cfg, 3 * n, seed=44)
+    want, eager_launches = counted(lambda: torch.stack(
+        [eager(eager_p, eager_s, runner.prepare_batch(b), i)[2] for i, b in enumerate(batches)]))
+    got, replay_launches = counted(lambda: torch.cat(
+        [captured(runner.params, runner.opt_state,
+                  runner.prepare_batch(stack_batches(batches[j * n:(j + 1) * n])), j * n)[2]
+         for j in range(3)]))
+    torch.cuda.synchronize()
+    replays = captured.graph_step.replays()
+    pairs = [("losses", want, got)] + [
+        (f"tensor {i}", a, b) for i, (a, b) in enumerate(
+            zip(leaves((eager_p, eager_s)), leaves((runner.params, runner.opt_state))))]
+    differ = [name for name, a, b in pairs if not torch.equal(bits(a), bits(b))]
+    if differ or replay_launches != eager_launches or replays < 2:
+        fail(f"hybrid capture parity: {differ[:5]} of {len(pairs)} tensors differ, launches "
+             f"{replay_launches} against the eager {eager_launches}, {replays} replays")
+    say("hybrid", f"captured N={n} hybrid step (NCCL, world size 1): 3 dispatches ({replays} "
+                  f"replays) equal to the eager hybrid step bit for bit (losses and all "
+                  f"{len(pairs)} tensors); launches "
+                  f"{ {k: v for k, v in replay_launches.items() if v} }, as eager")
+
+
+def hybrid_throughput(cfg, opt, plan, single, state):
+    """Phase 10 (a): the captured N=16 hybrid step against the captured
+    single-device step, CUDA-event timed in turns; returns an eager hybrid
+    step (a function of nothing) for the overlap check."""
+    from dlrm_yx_tpu_torch.data.batch import stack_batches
+    from dlrm_yx_tpu_torch.parallel.hybrid import (
+        HybridRunner,
+        make_hybrid_train_step,
+        params_from_single_device,
+    )
+    from dlrm_yx_tpu_torch.train.train_step import make_multistep_train_step
+
+    runner = HybridRunner(cfg, opt, 1, 1, params=params_from_single_device(cfg, plan, single))
+    batch = drawn_batches(cfg, 1, seed=45)[0]
+    stacked = stack_batches([batch] * N_DISPATCH)
+    fns = {
+        "single-device captured": train_step_fn(
+            make_multistep_train_step(cfg, opt, N_DISPATCH), single, state, stacked),
+        "hybrid captured": train_step_fn(runner.make_multi_step(N_DISPATCH), runner.params,
+                                         runner.opt_state, runner.prepare_batch(stacked)),
+    }
+    times = time_in_turns(fns, check_loss)
+    base = statistics.mean(times["single-device captured"])
+    for name, ts in times.items():
+        ms = statistics.mean(ts) / N_DISPATCH
+        say("throughput", f"phase 10, {name} N={N_DISPATCH} (Terabyte-MLPerf <=1M rows, "
+                          f"B={BATCH}, bf16, rwsadagrad, pallas): {ms:.4f} ms/step "
+                          f"({BATCH / ms * 1e3:.0f} examples/s; "
+                          f"{statistics.mean(ts) / base:.3f}x the single-device step; ms a "
+                          f"call {ts})")
+    eager = make_hybrid_train_step(cfg, runner.plan, opt, runner.mesh, capture=False)
+    return train_step_fn(eager, runner.params, runner.opt_state, runner.prepare_batch(batch))
+
+
+def hybrid_overlap(eager_step):
+    """Phase 10 (a): one profiler window over an eager hybrid step: the
+    all-to-all issued before the bottom MLP's first GEMM and waited on after
+    its last one (``parallel/overlap.check_a2a_overlap``), and the device
+    side of the same window (read, not held: at world size 1 the exchange
+    moves no bytes between cards)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from dlrm_yx_tpu_torch.parallel.overlap import check_a2a_overlap
+
+    for _ in range(2):
+        eager_step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        eager_step()
+        torch.cuda.synchronize()
+    os.makedirs(DATA_DIR, exist_ok=True)
+    path = os.path.join(DATA_DIR, "hybrid_step_trace.json")
+    prof.export_chrome_trace(path)
+    got = check_a2a_overlap(path)
+    nccl = [(e.key, e.self_device_time_total) for e in prof.key_averages()
+            if e.device_type.name == "CUDA" and "nccl" in e.key.lower()]
+    if not got["overlapped"]:
+        fail(f"hybrid step: the all-to-all does not overlap the bottom MLP: {got}")
+    say("hybrid", f"overlap (one eager step under torch.profiler): {got}; NCCL kernels "
+                  f"{[(k[:60], round(us, 2)) for k, us in nccl]} (us)")
+
+
+def hybrid_world_of_one(rows):
+    """Phase 10 (a): the hybrid path at world size 1 over NCCL, at full
+    width; returns its losses."""
+    import contextlib
+    import gc
+    import io
+
+    import torch
+    import torch.distributed as dist
+
+    from dlrm_yx_tpu_torch.models.dlrm import init_dlrm_on_device, model_groups
+    from dlrm_yx_tpu_torch.optim.optimizer import init_opt_state
+    from dlrm_yx_tpu_torch.parallel.hybrid import HybridRunner, params_from_single_device
+    from dlrm_yx_tpu_torch.parallel.multihost import free_port, init_multihost
+    from dlrm_yx_tpu_torch.parallel.plan import make_plan
+    from dlrm_yx_tpu_torch.train.train_step import make_train_step
+    from dlrm_yx_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    t0 = time.perf_counter()
+    init_multihost(coordinator=f"127.0.0.1:{free_port()}", num_processes=1, process_id=0,
+                   device="cuda")
+    if dist.get_backend() != "nccl":
+        fail(f"phase 10 (a) wants NCCL, the world runs {dist.get_backend()}")
+    cfg, opt = hybrid_config(rows)
+    plan = make_plan(cfg, 1, "greedy")
+    torch.use_deterministic_algorithms(True)
+    try:
+        single = init_dlrm_on_device(cfg, seed=HYBRID_SEED)
+        before = torch.cuda.memory_allocated()
+        hp = params_from_single_device(cfg, plan, single)
+        runner = HybridRunner(cfg, opt, 1, 1, params=hp)
+        grown = torch.cuda.memory_allocated() - before
+        fill_state(runner.opt_state)
+        store_bytes = 4 * plan.dim * (plan.r_big_pad + plan.r_small_pad)
+        acc_bytes = sum(t.numel() * t.element_size()
+                        for t in (runner.opt_state["emb"], runner.opt_state["emb_small"]))
+        say("hybrid", f"mesh {runner.mesh.shape} over NCCL; plan: big store [{plan.r_big_pad}, "
+                      f"{plan.dim}] ({plan.n_big_slots} tables), small store "
+                      f"[{plan.r_small_pad}, {plan.dim}] ({plan.t_pad - plan.n_big_slots} "
+                      f"tables): {store_bytes} B of f32 stores and {acc_bytes} B of row "
+                      f"momenta on the card; memory_allocated rose {grown} B building the "
+                      f"rank's params, momenta and steps")
+        big_before = hp["emb"].clone()
+        train = drawn_batches(cfg, HYBRID_STEPS, seed=42)
+        test = drawn_batches(cfg, HYBRID_STEPS, seed=43)
+        trainer = Trainer(cfg, opt, TrainerConfig(print_freq=1, seed=HYBRID_SEED),
+                          runner=runner)
+        losses = []
+        step = trainer.train_step
+
+        def recording(*a):
+            out = step(*a)
+            losses.append(out[2])
+            return out
+
+        trainer.train_step = recording
+        counters = launch_counters()
+        for c in counters.values():
+            c.launches = 0
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            metrics = trainer.fit(train, lambda: test)
+        launches = {name: c.launches for name, c in counters.items()}
+        want = only(fused_interaction=2 * HYBRID_STEPS, sparse_rows_overwrite=HYBRID_STEPS,
+                    rwsadagrad_dense_finish=HYBRID_STEPS)
+        if launches != want:
+            fail(f"phase 10 Trainer.fit on the hybrid runner launched {launches}, want {want}")
+        got_losses = torch.cat([x.reshape(-1) for x in losses])
+        # the single-device step from the same params and batches
+        state = fill_state(init_opt_state(opt, single, model_groups(cfg)))
+        ref = make_train_step(cfg, opt)
+        want_losses = torch.stack([ref(single, state, b, i)[2] for i, b in enumerate(train)])
+        gathered = runner.single_device_params(trainer.params)
+        how = same_or_close("phase 10 hybrid vs single-device", [got_losses] + gathered["emb"],
+                            [want_losses] + single["emb"], HYBRID_TOL)
+        changed = (bits(trainer.params["emb"]) != bits(big_before)).any(dim=1)
+        live = looked_up_big_rows(runner, train)
+        if (changed & ~live).any() or not torch.isfinite(got_losses).all():
+            fail(f"phase 10: {int((changed & ~live).sum())} big-store rows changed that no "
+                 f"live lookup touched; losses {got_losses.tolist()}")
+        shown = {k: round(v, 6) for k, v in metrics.items() if isinstance(v, float)}
+        say("hybrid", f"Trainer.fit on HybridRunner (mesh 1 x 1, NCCL; every accumulator "
+                      f"starting at {ACC0}), {HYBRID_STEPS} captured "
+                      f"steps + {HYBRID_STEPS} eval batches: losses {got_losses.tolist()}, eval "
+                      f"{shown}; against make_train_step from the same params and batches: "
+                      f"losses and both stores {how}; {int(changed.sum())} big-store rows "
+                      f"changed, none that no live lookup touched ({int(live.sum())} were "
+                      f"looked up); launches {launches}")
+        del trainer, runner, hp, gathered, big_before
+        gc.collect()
+        torch.cuda.empty_cache()
+        hybrid_capture_parity(cfg, opt, plan, init_dlrm_on_device(cfg, seed=HYBRID_SEED))
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    eager_step = hybrid_throughput(cfg, opt, plan, single, state)
+    hybrid_overlap(eager_step)
+    del eager_step, single, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    say("hybrid", f"phase 10 (a) in {time.perf_counter() - t0:.1f} s")
+    return [float(x) for x in want_losses.tolist()]
+
+
+def hybrid_two_ranks(a_losses):
+    """Phase 10 (b): two ranks on the one card over gloo (NCCL refuses two
+    ranks on one device), eager, mesh 1 x 2 with the greedy sharder on phase
+    (a)'s model and batches: this script run as each rank
+    (``--hybrid-rank SPEC``)."""
+    from dlrm_yx_tpu_torch.parallel.multihost import spawn_local
+
+    t0 = time.perf_counter()
+    os.makedirs(DATA_DIR, exist_ok=True)
+    spec = os.path.join(DATA_DIR, "hybrid_ranks.json")
+    with open(spec, "w") as f:
+        json.dump({"losses": a_losses}, f)
+    try:
+        outs = spawn_local([os.path.abspath(__file__), "--hybrid-rank", spec], 2, timeout=300,
+                           capture=True)
+    except RuntimeError as e:
+        fail(f"phase 10 (b): {str(e)[-3000:]}")
+    for rank, out in enumerate(outs):
+        for line in out.splitlines():
+            if line.startswith("[hybrid-rank]"):
+                say("hybrid", f"rank {rank}: {line[len('[hybrid-rank] '):]}")
+    if not all("[hybrid-rank] ok" in out for out in outs):
+        fail("phase 10 (b): a rank did not finish its checks")
+    say("hybrid", f"phase 10 (b) in {time.perf_counter() - t0:.1f} s")
+
+
+def change_gap(got, want, before, n_tables):
+    """Two runs' table changes (each ``{table: tensor}`` minus ``before``):
+    the tables whose moved rows differ, the rows each moved, |got's change -
+    want's| / |want's change| over all tables, and the same for want's
+    change against itself shifted by one row."""
+    other, moved, moved_want, sq = [], 0, 0, {"diff": 0.0, "want": 0.0, "shifted": 0.0}
+    for t in range(n_tables):
+        d_w = (want[t] - before[t]).double()
+        d_g = (got[t] - before[t]).double()
+        rows_w, rows_g = (d_w != 0).any(dim=1), (d_g != 0).any(dim=1)
+        if not bool((rows_w == rows_g).all()):
+            other.append(t)
+        moved += int(rows_g.sum())
+        moved_want += int(rows_w.sum())
+        sq["diff"] += (d_g - d_w).square().sum().item()
+        sq["want"] += d_w.square().sum().item()
+        sq["shifted"] += (d_w.roll(1, dims=0) - d_w).square().sum().item()
+    norm = sq["want"] or float("nan")
+    return {"other_rows": other, "moved": moved, "moved_want": moved_want,
+            "rel": (sq["diff"] / norm) ** 0.5, "shifted": (sq["shifted"] / norm) ** 0.5}
+
+
+def hybrid_rank_main(spec_path):
+    """One rank of phase 10 (b), on cuda:0 over gloo."""
+    import torch
+
+    from dlrm_yx_tpu_torch.models.dlrm import init_dlrm_on_device, model_groups
+    from dlrm_yx_tpu_torch.optim.optimizer import init_opt_state
+    from dlrm_yx_tpu_torch.parallel.hybrid import HybridRunner, params_from_single_device
+    from dlrm_yx_tpu_torch.parallel.multihost import init_multihost
+    from dlrm_yx_tpu_torch.parallel.plan import extract_tables, make_plan
+    from dlrm_yx_tpu_torch.train.train_step import make_train_step
+    from dlrm_yx_tpu_torch.utils.device import resolve_device
+
+    def note(msg):
+        print(f"[hybrid-rank] {msg}", flush=True)
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    resolve_device("cuda:0")
+    rank, world = init_multihost(device="cuda:0", backend="gloo")
+    torch.use_deterministic_algorithms(True)
+    rows = terabyte_rows()
+    cfg, opt = hybrid_config(rows)
+    plan = make_plan(cfg, world, "greedy")
+    single = init_dlrm_on_device(cfg, seed=HYBRID_SEED, device="cuda:0")
+    # eager: gloo's collectives cannot be captured
+    runner = HybridRunner(cfg, opt, 1, world, sharder="greedy", device="cuda:0",
+                          params=params_from_single_device(cfg, plan, single, rank))
+    fill_state(runner.opt_state)
+    m = runner.mesh.m
+    # each rank's stores hold the tables the plan gives it
+    tables = {}
+    for g, store in zip(model_groups(cfg), single["emb"]):
+        for t, n, off in zip(g.table_ids, g.rows, g.row_offsets):
+            tables[t] = store[off: off + n]
+    held = []
+    for pos in range(m * plan.t_pad, (m + 1) * plan.t_pad):
+        t = plan.device_table_order[pos]
+        if t < 0:
+            continue
+        section = "emb" if pos % plan.t_pad < plan.n_big_slots else "emb_small"
+        off = plan.row_offsets[pos]
+        if not torch.equal(runner.params[section][off: off + cfg.emb_rows[t]], tables[t]):
+            raise SystemExit(f"rank {rank}: table {t} is not at row {off} of its {section}")
+        held.append(t)
+    note(f"mesh {runner.mesh.shape} over gloo with CUDA tensors, model index {m}: holds "
+         f"tables {held} as the plan places them")
+    counters = launch_counters()
+    for c in counters.values():
+        c.launches = 0
+    batches = drawn_batches(cfg, HYBRID_STEPS, seed=42)
+    losses = torch.stack([runner.train_step(runner.params, runner.opt_state,
+                                            runner.prepare_batch(b), i)[2]
+                          for i, b in enumerate(batches)])
+    launches = {name: c.launches for name, c in counters.items()}
+    want = only(fused_interaction=HYBRID_STEPS, sparse_rows_overwrite=HYBRID_STEPS,
+                rwsadagrad_dense_finish=HYBRID_STEPS)
+    if launches != want:
+        raise SystemExit(f"rank {rank}: launched {launches}, want {want}")
+    big = runner.mesh.all_gather_model(runner.params["emb"].unsqueeze(0))
+    small = runner.mesh.all_gather_model(runner.params["emb_small"].unsqueeze(0))
+    if rank == 0:
+        got_tables = extract_tables(plan, cfg, big, small)
+        del big, small, runner
+        before = {t: v.clone() for t, v in tables.items()}
+
+        def single_device_run(params, batches):
+            """make_train_step's losses over the batches and its tables after them."""
+            state = fill_state(init_opt_state(opt, params, model_groups(cfg)))
+            ref = make_train_step(cfg, opt)
+            out = torch.stack([ref(params, state, b, i)[2] for i, b in enumerate(batches)])
+            return out, {t: store[off: off + n]
+                         for g, store in zip(model_groups(cfg), params["emb"])
+                         for t, n, off in zip(g.table_ids, g.rows, g.row_offsets)}
+
+        # phase (a)'s single-device run, again: its losses were (a)'s, bit for bit
+        ref_losses, tables = single_device_run(single, batches)
+        # the metric's resolution: the same run on the examples in another order
+        perm = torch.randperm(BATCH, generator=torch.Generator().manual_seed(46)).cuda()
+        shuffled = [type(b)(b.dense[perm], b.indices[:, perm], b.weights[:, perm],
+                            b.labels[perm]) for b in batches]
+        perm_losses, perm_tables = single_device_run(
+            init_dlrm_on_device(cfg, seed=HYBRID_SEED, device="cuda:0"), shuffled)
+        a_losses = torch.tensor(spec["losses"], device="cuda:0")
+        loss_ok = torch.allclose(losses, a_losses, **TWO_RANK_LOSS)
+        loss_diff = (losses - a_losses).abs().max().item()
+        gap, floor = (change_gap(got, tables, before, len(rows))
+                      for got in (got_tables, perm_tables))
+        ok = (loss_ok and not gap["other_rows"] and gap["moved"] == gap["moved_want"] > 0
+              and gap["rel"] <= TWO_RANK_CHANGE)
+        rows_read = ("the same rows" if not gap["other_rows"]
+                     else f"other rows in tables {gap['other_rows']}")
+        note(f"losses {losses.tolist()} against (a)'s {spec['losses']} (the single-device "
+             f"run again here: {ref_losses.tolist()}): max |diff| {loss_diff:.3e} "
+             f"{'within' if loss_ok else 'BEYOND'} rtol {TWO_RANK_LOSS['rtol']}; the "
+             f"{len(rows)} tables gathered to rank 0 by extract_tables, each minus the "
+             f"table before the run: {gap['moved']} rows moved here, {gap['moved_want']} "
+             f"in (a), {rows_read}; |change - (a)'s change| / |(a)'s change| over all "
+             f"tables {gap['rel']:.3e} {'within' if gap['rel'] <= TWO_RANK_CHANGE else 'BEYOND'}"
+             f" {TWO_RANK_CHANGE:.3e}. The metric's resolution, (a)'s run on the examples "
+             f"in another order: losses max |diff| "
+             f"{(perm_losses - a_losses).abs().max().item():.3e}, "
+             f"{len(floor['other_rows'])} tables moved other rows, change {floor['rel']:.3e}. "
+             f"Controls on (a)'s change: no sparse update reads 1, the rows shifted by one "
+             f"read {gap['shifted']:.3f}")
+        if not ok:
+            raise SystemExit("rank 0: the two-rank run disagrees with (a) beyond the limits")
+    note(f"launches {launches} (K1, K2 and K3 once a step on this rank)")
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    note("ok")
+
+
+def terabyte_rows():
+    from dlrm_yx_tpu_torch.config import DLRMConfig
+
+    return DLRMConfig.terabyte_mlperf(max_ind_range=1_000_000).emb_rows
+
+
 def main():
     import gc
     import re
@@ -3657,6 +4146,10 @@ def main():
     torch.cuda.empty_cache()
     export_and_diagnostics(rows)
 
+    # 10. hybrid (whole-table) sharding: world size 1 over NCCL, then two
+    # ranks on the card over gloo
+    hybrid_two_ranks(hybrid_world_of_one(rows))
+
     sources = {
         "fused_interaction": ("dlrm_yx_tpu/ops/pallas_interaction.py:84", k1, launches,
                               "no single call computes bmm + tril + concat"),
@@ -3696,4 +4189,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--hybrid-rank"]:
+        hybrid_rank_main(sys.argv[2])
+    else:
+        main()

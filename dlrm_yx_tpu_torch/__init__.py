@@ -19,8 +19,11 @@ or processed data (``data/processed.py``), with checkpoints
 ``ops/qr_embedding.py``; mixed dims, ``ops/md_embedding.py``; weighted
 pooling), quantized serving (``ops/quantized.py``), model export and the
 execution trace (``export.py``), the profiling and debug flags, the
-reference-checkpoint and visualization tools (``tools/``), and all six
-kernels (K1–K6); the mesh paths are left. Entry points run on ``cuda``
-unless the caller passes ``device="cpu"``. The package imports nothing of JAX or
+reference-checkpoint and visualization tools (``tools/``), all six
+kernels (K1–K6), and whole-table (hybrid) sharding over a
+``torch.distributed`` mesh of one process a device (``parallel/``: the
+CLI's --mesh-data / --mesh-model / --distributed / --force-cpu-devices);
+row and column sharding are left. Entry points run on ``cuda`` unless the
+caller passes ``device="cpu"``. The package imports nothing of JAX or
 ``dlrm_yx_tpu``.
 """

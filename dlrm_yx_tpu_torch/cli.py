@@ -29,8 +29,14 @@ into ``--profile-out-dir``; ``--collect-execution-graph`` (or
 ``--plot-compute-graph``) writes the execution trace of one eager train
 step there; ``--save-onnx`` exports the inference forward with
 ``torch.export`` to ``<--save-model>/dlrm_torch.pt2`` (``export.py``). The
-mesh flags of the JAX CLI are still recognised, and giving any of them
-raises ``NotImplementedError`` instead of being ignored. ``--print-time``
+mesh flags keep the JAX CLI's meaning: with --mesh-data > 1 or
+--mesh-model > 1 a ``parallel.hybrid.HybridRunner`` shards whole tables over
+a world of one process a device (``--distributed`` joins the launcher's
+world, NCCL on the card, gloo on the CPU; ``--force-cpu-devices N`` starts N
+CPU ranks on this host and returns rank 0's result); row and column
+sharding (``--shard-mode row|col``), --debug-mode and
+--collect-execution-graph with a mesh raise ``NotImplementedError``.
+``--print-time``
 and the reference-compat flags of ``add_noop_flags`` are accepted and have
 no effect, as in the JAX CLI.
 The reference's L=100 throughput benchmark
@@ -54,6 +60,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import os
 import sys
 import tempfile
@@ -85,17 +92,18 @@ from dlrm_yx_tpu_torch.ops.quantized import (
 )
 from dlrm_yx_tpu_torch.optim.lr_policy import LRPolicy
 from dlrm_yx_tpu_torch.optim.optimizer import OptConfig
+from dlrm_yx_tpu_torch.parallel.hybrid import HybridRunner
+from dlrm_yx_tpu_torch.parallel.multihost import init_multihost, local_device, spawn_local
 from dlrm_yx_tpu_torch.train.train_step import make_train_step
 from dlrm_yx_tpu_torch.train.trainer import Trainer, TrainerConfig
 from dlrm_yx_tpu_torch.utils.device import resolve_device
-from dlrm_yx_tpu_torch.utils.logging import rank0_print
+from dlrm_yx_tpu_torch.utils.logging import is_rank0, rank0_print
 from dlrm_yx_tpu_torch.utils.profiling import trace
 
-# flags of dlrm_yx_tpu/cli.py whose parts are not ported yet (the mesh paths)
-UNPORTED_FLAGS = (
-    "force-cpu-devices", "distributed", "mesh-data", "mesh-model",
-    "shard-mode", "sharder", "allocation",
-)
+# --shard-mode values ported with a mesh (row and column sharding are not yet)
+SHARD_MODES = ("table",)
+# where a rank of a --force-cpu-devices world writes its result (rank 0)
+RESULT_ENV = "DLRM_TORCH_RESULT_FILE"
 # --data-generation values ported (all of the JAX CLI's)
 DATA_GENERATIONS = ("random", "random-device", "synthetic", "dataset", "processed")
 
@@ -269,20 +277,51 @@ def build_parser() -> argparse.ArgumentParser:
                         "card (0 = auto: largest of 16/8/4/2 dividing print/test freq)")
     p.add_argument("--prefetch-depth", type=int, default=2,
                    help="host->device staging queue depth (0 = synchronous)")
+    # parallelism: one process per device (parallel/); the JAX CLI's types
+    # and defaults
+    p.add_argument("--force-cpu-devices", type=int, default=0,
+                   help="run N CPU ranks on this host (a gloo world on localhost, "
+                        "each rank one process; rank 0's result is returned)")
+    p.add_argument("--distributed", action="store_true", default=False,
+                   help="join a multi-process world before building the mesh (reads "
+                        "COORDINATOR_ADDRESS/NUM_PROCESSES/PROCESS_ID or torchrun-style "
+                        "RANK/WORLD_SIZE/MASTER_ADDR/MASTER_PORT envs; auto-enabled when "
+                        "COORDINATOR_ADDRESS is set); NCCL on the card, gloo on the CPU")
+    p.add_argument("--mesh-data", type=int, default=1,
+                   help="data-parallel mesh axis size")
+    p.add_argument("--mesh-model", type=int, default=0,
+                   help="model-parallel (table-sharding) axis size; 0 = all devices")
+    p.add_argument("--shard-mode", type=str, default="table",
+                   choices=["table", "row", "col"],
+                   help="embedding sharding over 'model': whole tables (row and "
+                        "column slices are not yet ported)")
+    p.add_argument("--sharder", type=str, default="naive",
+                   help="naive | naive_chunk | greedy | hardcode | input")
+    p.add_argument("--allocation", type=str, default="",
+                   help="comma/dash-separated table->device ids for --sharder=input")
     add_noop_flags(p)
-    for flag in UNPORTED_FLAGS:
-        p.add_argument(f"--{flag}", nargs="?", const=True, default=None,
-                       help=argparse.SUPPRESS)
     return p
 
 
+def uses_mesh(args) -> bool:
+    """The JAX CLI builds a mesh only for --mesh-data > 1 or --mesh-model > 1."""
+    return args.mesh_data > 1 or args.mesh_model > 1
+
+
 def check_ported(args) -> None:
-    """Raise on a flag whose part is not ported yet."""
-    for flag in UNPORTED_FLAGS:
-        if getattr(args, flag.replace("-", "_")) is not None:
+    """Raise on an option whose part is not ported yet, before any process
+    starts."""
+    if uses_mesh(args):
+        if args.shard_mode not in SHARD_MODES:
             raise NotImplementedError(
-                f"--{flag} is not yet ported to dlrm_yx_tpu_torch"
-            )
+                f"--shard-mode {args.shard_mode} is not yet ported to dlrm_yx_tpu_torch "
+                "(row and column sharding; --shard-mode table is)")
+        for flag, on in (("--debug-mode", args.debug_mode),
+                         ("--collect-execution-graph",
+                          args.collect_execution_graph or args.plot_compute_graph)):
+            if on:
+                raise NotImplementedError(
+                    f"{flag} with a mesh is not yet ported to dlrm_yx_tpu_torch")
     if args.data_generation not in DATA_GENERATIONS:
         raise NotImplementedError(
             f"--data-generation={args.data_generation} is not yet ported "
@@ -523,17 +562,20 @@ def quantized_inference(args, cfg: DLRMConfig, trainer: Trainer, test_batches) -
     only the towers are quantized), towers int8 (8) or fp16 (16), the
     accuracy of the rounded predictions."""
     bits = args.quantize_emb_with_bit if args.quantize_emb_with_bit in (4, 8) else 8
-    qstores = quantize_model_embeddings(trainer.params, trainer.groups, bits)
+    # a runner's shards are gathered into the single-device layout first
+    params = (trainer.params if trainer.runner is None
+              else trainer.runner.single_device_params(trainer.params))
+    qstores = quantize_model_embeddings(params, trainer.groups, bits)
     qbot = qtop = None
     if args.quantize_mlp_with_bit in (8, 16):
         mode = "int8" if args.quantize_mlp_with_bit == 8 else "fp16"
-        qbot = quantize_mlp(trainer.params["bot"], mode)
-        qtop = quantize_mlp(trainer.params["top"], mode)
+        qbot = quantize_mlp(params["bot"], mode)
+        qtop = quantize_mlp(params["top"], mode)
     ev = make_fully_quantized_eval_step(cfg, trainer.groups, qstores, qbot, qtop,
                                         trainer.device)
     n_correct = n_total = 0
     for b in test_batches:
-        preds = ev(trainer.params, b).cpu().numpy().ravel()
+        preds = ev(params, b).cpu().numpy().ravel()
         t = torch.as_tensor(b.labels).cpu().numpy().ravel()
         n_correct += int(((preds >= 0.5) == (t > 0.5)).sum())
         n_total += len(t)
@@ -555,13 +597,54 @@ def _copies(tree):
     return tree
 
 
+def run_forced_world(argv, n: int) -> dict:
+    """--force-cpu-devices N: the command line run as ranks 0..N-1 of a gloo
+    world of CPU processes on this host (``parallel.multihost.spawn_local``),
+    each with --distributed --device cpu; returns rank 0's result. (JAX
+    simulates N devices in one process; a torch world is processes.)"""
+    argv = list(sys.argv[1:] if argv is None else argv)
+    with tempfile.TemporaryDirectory() as tmp:
+        result = os.path.join(tmp, "result.json")
+        env = dict(os.environ, **{RESULT_ENV: result})
+        spawn_local(["-m", "dlrm_yx_tpu_torch.cli"] + argv
+                    + ["--force-cpu-devices", "0", "--distributed", "--device", "cpu"],
+                    n, env=env)
+        with open(result) as f:
+            return json.load(f)
+
+
 def main(argv=None):
     """Trains (and evaluates at the end of each epoch, or every
     --test-freq iterations) and returns the last eval's metrics; with
     --inference-only evaluates the initial (or loaded) model and returns
-    its metrics."""
+    its metrics. With --distributed (or COORDINATOR_ADDRESS) it joins the
+    world first; with --force-cpu-devices N it starts a world of N CPU
+    ranks and returns rank 0's result."""
     args = build_parser().parse_args(argv)
     check_ported(args)
+    if args.force_cpu_devices > 1:
+        return run_forced_world(argv, args.force_cpu_devices)
+    if args.force_cpu_devices == 1:
+        args.device = "cpu"  # a world of one rank is this process
+    joined = False
+    if args.distributed or os.environ.get("COORDINATOR_ADDRESS"):
+        pid, num = init_multihost(device=args.device)
+        if num > 1:
+            joined = True
+            args.device = str(local_device(args.device))
+            rank0_print(f"multihost: process {pid}/{num}, {num} global devices")
+    try:
+        summary = _run(args, argv)
+        if os.environ.get(RESULT_ENV) and is_rank0():
+            with open(os.environ[RESULT_ENV], "w") as f:
+                json.dump(summary, f)
+        return summary
+    finally:
+        if joined:
+            torch.distributed.destroy_process_group()
+
+
+def _run(args, argv):
     np.random.seed(args.numpy_rand_seed)
     cfg = config_from_args(args, argv)
     opt = OptConfig(name=args.optimizer, lr=args.learning_rate)
@@ -599,7 +682,17 @@ def main(argv=None):
                 "unique rows per occurrence (drives the dense-vs-kernel "
                 "update crossover)"
             )
-    trainer = Trainer(cfg, opt, tcfg, lr_policy, device=args.device)
+    runner = None
+    if uses_mesh(args):
+        allocation = ([int(x) for x in args.allocation.replace(",", "-").split("-")]
+                      if args.allocation else None)
+        runner = HybridRunner(cfg, opt, data=args.mesh_data, model=args.mesh_model or None,
+                              sharder=args.sharder, allocation=allocation, lr_fn=lr_policy,
+                              seed=args.numpy_rand_seed,
+                              n_accum=max(1, args.mlperf_grad_accum_iter), device=args.device)
+        rank0_print(f"{args.shard_mode}-sharded mesh {dict(runner.mesh.shape)}, "
+                    f"sharder={args.sharder}")
+    trainer = Trainer(cfg, opt, tcfg, lr_policy, device=args.device, runner=runner)
     if args.debug_mode:
         debug_print_model(cfg, trainer.params, args.print_precision)
     if args.inference_only:
@@ -632,8 +725,13 @@ def main(argv=None):
     if args.save_onnx:
         out_dir = args.save_model or "."
         out = os.path.join(out_dir, "dlrm_torch.pt2")
-        os.makedirs(out_dir, exist_ok=True)
-        export_inference(trainer.params, cfg, _first_batch(train), out)
+        # a runner's shards gathered into the single-device layout (every
+        # rank takes part; rank 0 writes)
+        params = trainer.params if runner is None else runner.single_device_params(
+            trainer.params)
+        if is_rank0():
+            os.makedirs(out_dir, exist_ok=True)
+            export_inference(params, cfg, _first_batch(train), out)
         rank0_print(f"saved the exported model to {out}")
     return summary
 

@@ -25,6 +25,16 @@ inverse reshape). A bf16 tensor becomes a raw 16-bit array of dtype
 an ``ml_dtypes.bfloat16`` array (``view(ml_dtypes.bfloat16)`` gives JAX its
 array). The port reads either form back.
 
+``hybrid_params_from_jax`` / ``hybrid_opt_state_from_jax`` take the JAX
+package's hybrid-parallel pytrees (``parallel/hybrid.py``) as numpy, the
+stores ``[M, r_pad / pack, dim * pack]`` and RWSAdagrad's momenta flat over
+the M shards, and return one rank's (model index ``m``) port tensors: its
+stores as logical ``[r_pad, dim]`` rows, its ``acc_len``-long momentum.
+``hybrid_params_to_jax`` / ``hybrid_opt_state_to_jax`` go back from the M
+model shards' trees (one rank of each model index) to the whole pytrees.
+The variants' leaves go with them: ``vw`` / ``vw_small`` (``[M, r_pad]``,
+sharded like the stores), ``qr_r`` and ``md_proj`` (replicated).
+
 ``qstores_from_jax`` and ``qmlp_from_jax`` carry the JAX package's
 quantized serving state (``dlrm_yx_tpu.ops.quantized``'s ``QuantizedStore``
 list and ``QuantizedMLP``, their arrays read as numpy) into the port's
@@ -155,6 +165,92 @@ def opt_state_to_jax(state: Dict, cfg: DLRMConfig) -> Dict:
     out = {"dense": dense, "emb": emb, **_variant_leaves(state, _array)}
     if out["vw"] is None:
         del out["vw"]
+    return out
+
+
+def _towers(tree, conv):
+    return {k: [(conv(w), conv(b)) for w, b in tree[k]] for k in ("bot", "top")}
+
+
+def _hybrid_variant_leaves(tree: Dict, conv, model_index=None, stack=None) -> Dict:
+    """A hybrid tree's variant leaves through ``conv``: ``vw`` / ``vw_small``
+    (sharded over "model": row ``model_index`` of the whole ``[M, r]``
+    arrays, or ``stack`` of the shards' vectors), ``qr_r`` and ``md_proj``
+    (replicated); only where the tree has them."""
+    out = {}
+    for key in ("vw", "vw_small"):
+        if tree.get(key) is not None:
+            v = tree[key]
+            out[key] = conv(np.asarray(v)[model_index]) if stack is None else stack(key)
+    if "qr_r" in tree:
+        out["qr_r"] = conv(tree["qr_r"])
+    if "md_proj" in tree:
+        out["md_proj"] = [conv(w) for w in tree["md_proj"]]
+    return out
+
+
+def hybrid_params_from_jax(np_params: Dict, plan, model_index: int,
+                           device: Optional[Union[str, torch.device]] = None) -> Dict:
+    """Shard ``model_index`` of the JAX package's hybrid params (numpy) as the
+    port's rank params on ``device``."""
+    dev = resolve_device(device)
+    conv = lambda a: _tensor(a, dev)  # noqa: E731
+    out = _towers(np_params, conv)
+    for key, rows in (("emb", plan.r_big_pad), ("emb_small", plan.r_small_pad)):
+        out[key] = conv(np.asarray(np_params[key])[model_index].reshape(rows, plan.dim))
+    out["vw"] = None
+    out.update(_hybrid_variant_leaves(np_params, conv, model_index))
+    return out
+
+
+def hybrid_opt_state_from_jax(np_state: Dict, opt: OptConfig, plan, model_index: int,
+                              device: Optional[Union[str, torch.device]] = None) -> Dict:
+    """Shard ``model_index`` of the JAX package's hybrid optimizer state."""
+    if opt.name == "sgd":
+        return {}
+    dev = resolve_device(device)
+    conv = lambda a: _tensor(a, dev)  # noqa: E731
+    state = {"dense": _towers(np_state["dense"], conv)}
+    for key, rows in (("emb", plan.r_big_pad), ("emb_small", plan.r_small_pad)):
+        a = np.asarray(np_state[key])
+        if opt.name == "adagrad":
+            state[key] = conv(a[model_index].reshape(rows, plan.dim))
+        else:
+            n = acc_len(rows)
+            if a.shape != (plan.n_model * n,):
+                raise ValueError(f"row momentum of shape {a.shape} for {plan.n_model} shards "
+                                 f"of {rows} rows")
+            state[key] = conv(a[model_index * n:(model_index + 1) * n])
+    state.update(_hybrid_variant_leaves(np_state, conv, model_index))
+    return state
+
+
+def hybrid_params_to_jax(shards: Sequence[Dict], plan) -> Dict:
+    """The JAX package's hybrid params (numpy) from the M model shards'
+    rank params (in model order; the replicated leaves are the first's)."""
+    out = _towers(shards[0], _array)
+    for key in ("emb", "emb_small"):
+        phys = plan.store_shape("big" if key == "emb" else "small")
+        out[key] = np.stack([_array(s[key]).reshape(phys) for s in shards])
+    out["vw"] = None
+    out.update(_hybrid_variant_leaves(
+        shards[0], _array, stack=lambda k: np.stack([_array(s[k]) for s in shards])))
+    return out
+
+
+def hybrid_opt_state_to_jax(shards: Sequence[Dict], plan) -> Dict:
+    """The JAX package's hybrid optimizer state from the M model shards'."""
+    if not shards[0]:
+        return {}
+    out = {"dense": _towers(shards[0]["dense"], _array)}
+    for key in ("emb", "emb_small"):
+        if shards[0][key].dim() == 1:
+            out[key] = np.concatenate([_array(s[key]) for s in shards])
+        else:
+            phys = plan.store_shape("big" if key == "emb" else "small")
+            out[key] = np.stack([_array(s[key]).reshape(phys) for s in shards])
+    out.update(_hybrid_variant_leaves(
+        shards[0], _array, stack=lambda k: np.stack([_array(s[k]) for s in shards])))
     return out
 
 

@@ -181,7 +181,7 @@ def stream_eligible(opt: OptConfig, store: torch.Tensor, group: TableGroup) -> b
 
 def sparse_update_stream(opt: OptConfig, store: torch.Tensor, acc, group: TableGroup,
                          gidx: torch.Tensor, weights: torch.Tensor,
-                         g_pooled: torch.Tensor, lr: Scalar):
+                         g_pooled: torch.Tensor, lr: Scalar, row_dim=None):
     """The sorted-stream update of one group store (the high-L dense
     regime), in place; returns (store, acc). The port of the JAX package's
     ``sparse_update_stream`` (``optimizer.py:594-711``).
@@ -195,7 +195,9 @@ def sparse_update_stream(opt: OptConfig, store: torch.Tensor, acc, group: TableG
     the values are expanded here and K6 (``sorted_stream_add``) adds them.
     SGD is exact. RWSAdagrad's row momentum accumulates per occurrence:
     every occurrence adds w^2 * sum(g^2) / dim first, then every occurrence
-    divides by the final accumulator."""
+    divides by the final accumulator. ``row_dim``: optional [R] f32 true
+    dims of the rows (a hybrid store holding zero-padded narrower tables),
+    which divide the momentum in place of ``dim``."""
     t, b, l = gidx.shape
     dim = group.dim
     rows_s, perm = torch.sort(gidx.reshape(-1).to(torch.int32), stable=True)
@@ -216,7 +218,8 @@ def sparse_update_stream(opt: OptConfig, store: torch.Tensor, acc, group: TableG
         return apply_update(-lr * w_s), acc
     active = (rows_s < group.total_rows).float()
     sumsq = (gtab * gtab).sum(dim=-1)
-    mom_inc = w_s * w_s * sumsq.index_select(0, seg_s) / dim * active
+    dims = dim if row_dim is None else _take_fill(row_dim, rows_s, 1.0, group.total_rows)
+    mom_inc = w_s * w_s * sumsq.index_select(0, seg_s) / dims * active
     safe = torch.where(active > 0, rows_s, group.total_rows)
     _add_at(acc, safe, mom_inc, group.total_rows)
     denom = _take_fill(acc, safe, 1.0, group.total_rows).sqrt() + opt.eps
@@ -281,6 +284,7 @@ def sparse_update(
     old_rows=None,
     density_hint: float = -1.0,
     packed: bool = True,
+    row_dim=None,
 ):
     """Sparse row update of one group store, in place; returns (store, acc).
 
@@ -295,8 +299,12 @@ def sparse_update(
     packs ``128 // dim`` rows of this store to a physical row below 128 (a
     group store; the gates read the physical layout), False for a store it
     keeps in its natural layout (a QR sub-table: a width that is not a
-    multiple of 128 never takes a kernel). See the module docstring for the
-    routes.
+    multiple of 128 never takes a kernel); row_dim: optional [R] f32 true
+    dim of each row, for a hybrid store of zero-padded narrower tables
+    (mixed-dimension or k*D mixes): RWSAdagrad's row momentum is
+    sum(g^2) / row_dim (rwsadagrad.py:108), not over the padded width, and
+    the dense branch then skips K3, as in the JAX package. See the module
+    docstring for the routes.
     """
     d = store.shape[1]
     if dim is not None and dim != d:
@@ -328,7 +336,7 @@ def sparse_update(
         exact_momentum = not (density_hint >= MOMENTUM_EXACT_DENSITY)
     if use_kernel:
         return _kernel_route(opt, store, acc, flat_idx, flat_g, lr, sentinel, impl,
-                             stochastic_round, sr_seed, exact_momentum, old_rows)
+                             stochastic_round, sr_seed, exact_momentum, old_rows, row_dim)
 
     if opt.name == "sgd":
         # linear: a scatter-add is exact on duplicates
@@ -349,13 +357,15 @@ def sparse_update(
             return store, acc
         if (
             impl in ("pallas", "stream")
+            and row_dim is None
             and store.dtype in (torch.float32, torch.bfloat16)
             and acc.dim() == 1
             and layout_ok
         ):
             return rwsadagrad_dense_finish(store, acc, dense_g, lr, d, opt.eps)
         head = acc[:r]
-        head.add_((dense_g * dense_g).mean(dim=1))
+        sq = dense_g * dense_g
+        head.add_(sq.mean(dim=1) if row_dim is None else sq.sum(dim=1) / row_dim[:r])
         denom = head.sqrt()[:, None] + opt.eps
         store.copy_(store.float() - lr * (dense_g / denom))
         return store, acc
@@ -367,7 +377,8 @@ def sparse_update(
         _add_at(store, uniq, (-lr * sg / denom).to(store.dtype), sentinel)
         return store, acc
     # rwsadagrad: row momentum += mean(g^2 over dim) (rwsadagrad.py:108-115)
-    _add_at(acc, uniq, (sg * sg).sum(dim=-1) / d, sentinel)
+    dims = d if row_dim is None else _take_fill(row_dim, uniq, 1.0, sentinel)
+    _add_at(acc, uniq, (sg * sg).sum(dim=-1) / dims, sentinel)
     denom = _take_fill(acc, uniq, 1.0, sentinel).sqrt() + opt.eps
     _add_at(store, uniq, (-lr * sg / denom[:, None]).to(store.dtype), sentinel)
     return store, acc
@@ -391,7 +402,7 @@ def sparse_update_1d(opt: OptConfig, vec: torch.Tensor, acc, flat_idx: torch.Ten
 
 
 def _kernel_route(opt, store, acc, flat_idx, flat_g, lr, sentinel, impl,
-                  stochastic_round, sr_seed, exact_momentum, old_rows):
+                  stochastic_round, sr_seed, exact_momentum, old_rows, row_dim=None):
     """The row-touching route (``optimizer.py:333-429``)."""
     if exact_momentum:
         # coalesce first: momentum sees each row's summed gradient once;
@@ -426,7 +437,8 @@ def _kernel_route(opt, store, acc, flat_idx, flat_g, lr, sentinel, impl,
         denom = _take_fill(acc, safe, 1.0, sentinel).sqrt() + opt.eps
         return apply_store(-lr * flat_g / denom), acc
     # rwsadagrad: 1-D per-row momentum, per occurrence unless coalesced
-    mom_inc = ((flat_g * flat_g).sum(dim=-1) / store.shape[1]) * active
+    dims = store.shape[1] if row_dim is None else _take_fill(row_dim, safe, 1.0, sentinel)
+    mom_inc = ((flat_g * flat_g).sum(dim=-1) / dims) * active
     _acc_update_1d(acc, flat_idx, mom_inc, active, sentinel, impl)
     denom = _take_fill(acc, safe, 1.0, sentinel).sqrt() + opt.eps
     return apply_store(-lr * flat_g / denom[:, None]), acc

@@ -21,6 +21,13 @@ RWSAdagrad's 1-D row momentum with its ``acc_len`` padding. A bf16 store is
 written as raw 16-bit elements (dtype ``V2``, what ``np.savez`` records for
 ``ml_dtypes.bfloat16``) and read back from either form.
 
+A table-sharded run (``parallel/hybrid.py``) writes and reads the JAX
+package's hybrid pytree in the same format: ``bot``, ``emb`` ``[M, ...]``,
+``emb_small``, ``top``; ``dense``, then the stores' accumulators
+(RWSAdagrad's flat over the M shards), gathered to rank 0 to save and
+resharded on load (``HybridRunner.save_checkpoint`` / ``load_checkpoint``,
+through ``write_checkpoint``, ``read_leaves`` and ``unflatten``).
+
 Orbax (the JAX package's sharded backend) is a JAX library: the port has
 the npz backend only.
 """
@@ -48,6 +55,27 @@ def _leaves(tree) -> List:
     if isinstance(tree, (list, tuple)):
         return [x for t in tree for x in _leaves(t)]
     return [] if tree is None else [tree]
+
+
+def unflatten(like, leaves):
+    """The tree of ``like``'s structure (``_leaves`` order) holding ``leaves``
+    (an iterator) in place of its leaves."""
+    if isinstance(like, dict):
+        return {k: unflatten(like[k], leaves) for k in sorted(like)}
+    if isinstance(like, (list, tuple)):
+        return type(like)(unflatten(t, leaves) for t in like)
+    return None if like is None else next(leaves)
+
+
+def read_leaves(path: str, name: str) -> List[np.ndarray]:
+    """The ``leaf_{i}`` arrays of ``path/name.npz``, in order."""
+    with np.load(os.path.join(path, f"{name}.npz")) as d:
+        return [d[f"leaf_{i}"] for i in range(sum(k.startswith("leaf_") for k in d.files))]
+
+
+def read_meta(path: str) -> Dict:
+    with open(os.path.join(path, "meta.json")) as f:
+        return json.load(f)
 
 
 def _load_leaves(path: str, tensors: List[torch.Tensor]) -> None:
@@ -83,9 +111,26 @@ def save_checkpoint(
     and the counters to the directory ``path``. Device tensors are copied to
     the host on their stream's order: a caller with queued work on another
     stream synchronises first."""
+    write_checkpoint(path, params_to_jax(params, config), opt_state_to_jax(opt_state, config),
+                     epoch=epoch, iteration=iteration, train_loss=train_loss, metrics=metrics,
+                     optimizer=optimizer)
+
+
+def write_checkpoint(
+    path: str,
+    np_params: Dict,
+    np_state: Dict,
+    *,
+    epoch: int = 0,
+    iteration: int = 0,
+    train_loss: float = 0.0,
+    metrics: Dict[str, float] | None = None,
+    optimizer: str | None = None,
+) -> None:
+    """Write numpy trees already in the JAX package's layout (single-device
+    or hybrid) and the counters to the directory ``path``."""
     os.makedirs(path, exist_ok=True)
-    for name, tree in (("params", params_to_jax(params, config)),
-                       ("opt_state", opt_state_to_jax(opt_state, config))):
+    for name, tree in (("params", np_params), ("opt_state", np_state)):
         np.savez(os.path.join(path, f"{name}.npz"),
                  **{f"leaf_{i}": a for i, a in enumerate(_leaves(tree))})
     meta = {
@@ -107,9 +152,7 @@ def load_checkpoint(path: str, params: Dict, opt_state: Dict):
     (params, opt_state, meta)."""
     _load_leaves(os.path.join(path, "params.npz"), _leaves(params))
     _load_leaves(os.path.join(path, "opt_state.npz"), _leaves(opt_state))
-    with open(os.path.join(path, "meta.json")) as f:
-        meta = json.load(f)
-    return params, opt_state, meta
+    return params, opt_state, read_meta(path)
 
 
 def skip_position(meta: Dict, nbatches: int) -> Tuple[int, int]:

@@ -184,34 +184,54 @@ class Trainer:
         tcfg: TrainerConfig,
         lr_policy: Optional[LRPolicy] = None,
         device: Optional[Union[str, torch.device]] = None,
+        runner=None,
     ):
         """Parameters come from ``init_dlrm(config, tcfg.seed)`` on
         ``device`` (the card unless the caller asks for the CPU), the
-        optimizer state from ``init_opt_state``."""
+        optimizer state from ``init_opt_state``. ``runner``: a parallel
+        execution backend (``parallel.hybrid.HybridRunner``) that provides
+        the params and optimizer state (this rank's), the steps, the batch
+        preparation and its device in their place; None = one device."""
         self.config = config
         self.opt = opt
         self.tcfg = tcfg
-        self.device = resolve_device(device)
+        self.runner = runner
+        self.device = runner.device if runner is not None else resolve_device(device)
         self.groups = model_groups(config)
         self.accum = max(1, tcfg.grad_accum_iter)
+        if runner is not None and self.accum > 1 and runner.n_accum != self.accum:
+            raise ValueError(
+                f"runner was built with n_accum={runner.n_accum} but "
+                f"--mlperf-grad-accum-iter={self.accum}; pass n_accum to the runner")
         self.msteps = 1
         self.multi_step = None
-        if self.accum > 1:
-            self.train_step = make_accum_train_step(config, opt, self.accum, lr_policy,
-                                                    self.device)
+        if runner is not None:
+            # single steps (and the tail of a multi-step epoch) take batches
+            # stacked one deep, as below; the accumulation step is the runner's
+            self.train_step = runner.train_step if self.accum > 1 else runner.make_multi_step(1)
+            if self.accum == 1:
+                self.msteps = _auto_steps_per_dispatch(tcfg)
+                if self.msteps > 1:
+                    self.multi_step = runner.make_multi_step(self.msteps)
+            self.eval_step = runner.eval_step
+            self.params, self.opt_state = runner.params, runner.opt_state
         else:
-            # single steps (and the tail of a multi-step epoch) take
-            # batches stacked one deep
-            self.train_step = make_multistep_train_step(config, opt, 1, lr_policy,
+            if self.accum > 1:
+                self.train_step = make_accum_train_step(config, opt, self.accum, lr_policy,
                                                         self.device)
-            self.msteps = _auto_steps_per_dispatch(tcfg)
-            if self.msteps > 1:
-                self.multi_step = make_multistep_train_step(config, opt, self.msteps,
-                                                            lr_policy, self.device)
-        self.eval_step = make_eval_step(config, self.device)
-        self.model = DLRM(config, init_dlrm(config, seed=tcfg.seed, device=self.device))
-        self.params = self.model.as_params()
-        self.opt_state = init_opt_state(opt, self.params, self.groups)
+            else:
+                # single steps (and the tail of a multi-step epoch) take
+                # batches stacked one deep
+                self.train_step = make_multistep_train_step(config, opt, 1, lr_policy,
+                                                            self.device)
+                self.msteps = _auto_steps_per_dispatch(tcfg)
+                if self.msteps > 1:
+                    self.multi_step = make_multistep_train_step(config, opt, self.msteps,
+                                                                lr_policy, self.device)
+            self.eval_step = make_eval_step(config, self.device)
+            self.model = DLRM(config, init_dlrm(config, seed=tcfg.seed, device=self.device))
+            self.params = self.model.as_params()
+            self.opt_state = init_opt_state(opt, self.params, self.groups)
         self.events = EventLogger() if tcfg.mlperf_logging else None
         self.writer = ScalarWriter(tcfg.tb_logdir) if tcfg.tb_logdir else None
         self.best_acc = 0.0
@@ -240,7 +260,11 @@ class Trainer:
                     f"configured with --optimizer {self.opt.name} — pass --optimizer "
                     f"{ck_opt} (resuming across optimizers would silently misread the "
                     "accumulators)")
-        _, _, meta = load_checkpoint(path, self.params, self.opt_state)
+        if self.runner is not None:
+            # the hybrid pytrees, this rank's shards copied in place
+            meta = self.runner.load_checkpoint(path, self.params, self.opt_state)
+        else:
+            _, _, meta = load_checkpoint(path, self.params, self.opt_state)
         self.best_acc = meta["metrics"].get("accuracy", 0.0)
         self.iteration = meta["iteration"]
         self._resume_meta = meta
@@ -262,7 +286,8 @@ class Trainer:
         n_correct = 0
         n_total = 0
         for b in test_batches:
-            preds, _ = self.eval_step(self.params, b)
+            preds, _ = self.eval_step(self.params,
+                                      b if self.runner is None else self.runner.prepare_batch(b))
             p = preds.float().cpu().numpy().ravel()
             t = torch.as_tensor(b.labels).cpu().numpy().ravel()
             n_correct += int(((p >= 0.5) == (t > 0.5)).sum())
@@ -288,7 +313,10 @@ class Trainer:
     def _prepare(self, batch: Batch, stream):
         """(batch, event) for a dispatch: on the card with a staging stream,
         a host batch pinned and copied there on it (``stage_batch``); else
-        the batch as it is (the step copies it into its inputs)."""
+        the batch as it is (the step copies it into its inputs). With a
+        runner, this rank's part of the batch (``runner.prepare_batch``)."""
+        if self.runner is not None:
+            batch = self.runner.prepare_batch(batch)
         if stream is None:
             return batch, None
         return stage_batch(batch, self.device, stream)
@@ -456,9 +484,15 @@ class Trainer:
             if self.device.type == "cuda":
                 # the params are read after every queued replay has run
                 torch.cuda.synchronize(self.device)
-            save_checkpoint(self.tcfg.save_path, self.params, self.opt_state, self.config,
-                            epoch=epoch, iteration=self.iteration, metrics=metrics,
-                            optimizer=self.opt.name)
+            meta = dict(epoch=epoch, iteration=self.iteration, metrics=metrics,
+                        optimizer=self.opt.name)
+            if self.runner is not None:
+                # gathered from the model shards; rank 0 writes
+                self.runner.save_checkpoint(self.tcfg.save_path, self.params, self.opt_state,
+                                            **meta)
+            else:
+                save_checkpoint(self.tcfg.save_path, self.params, self.opt_state, self.config,
+                                **meta)
             rank0_print(f"Saved best checkpoint to {self.tcfg.save_path}")
         stop = False
         if 0 < self.tcfg.mlperf_acc_threshold < self.best_acc:

@@ -10,6 +10,7 @@ import pytest
 from dlrm_yx_tpu.cli import build_parser as jax_build_parser
 from dlrm_yx_tpu.cli import main as jax_cli_main
 from dlrm_yx_tpu_torch import cli as port_cli
+from torch_hybrid_cases import MESH_FLAGS
 
 # each no-op flag with a value that is not its default
 NOOP_FLAGS = {
@@ -63,7 +64,7 @@ def test_noop_flags_keep_the_jax_types_and_defaults():
         got = getattr(port_args, _dest(flag))
         assert got == getattr(jax_args, _dest(flag)) != getattr(
             jax_build_parser().parse_args([]), _dest(flag)), flag
-        assert flag[2:] not in port_cli.UNPORTED_FLAGS
+        assert flag[2:] not in MESH_FLAGS
 
 
 def _assert_same_metrics(got, want):
@@ -93,7 +94,9 @@ def test_cli_training_with_every_noop_flag_matches_jax_cli():
     assert got == plain
 
 
-@pytest.mark.parametrize("extra", [["--force-cpu-devices", "4"], ["--allocation", "0-1"]])
+@pytest.mark.parametrize("extra", [
+    ["--force-cpu-devices", "4", "--mesh-model", "2", "--shard-mode", "col"],
+    ["--allocation", "0-1", "--mesh-model", "2", "--shard-mode", "row"]])
 def test_unported_flags_still_raise_beside_noop_flags(extra):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         port_cli.main(SERVE + ["--use-gpu", "--pin-memory"] + extra + ["--device", "cpu"])

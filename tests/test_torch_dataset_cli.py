@@ -25,6 +25,7 @@ from dlrm_yx_tpu_torch import cli as port_cli
 from dlrm_yx_tpu_torch.data import fastparse
 from dlrm_yx_tpu_torch.data.criteo import convert_days_to_memmap
 from dlrm_yx_tpu_torch.data.criteo_bin import npz_to_binary
+from torch_hybrid_cases import MESH_FLAGS
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -251,6 +252,6 @@ def test_ported_flags_keep_the_jax_types_and_defaults():
     jax_args = vars(jax_build_parser().parse_args([]))
     port_args = vars(port_cli.build_parser().parse_args([]))
     for flag in ported:
-        assert flag not in port_cli.UNPORTED_FLAGS
+        assert flag not in MESH_FLAGS
         key = flag.replace("-", "_")
         assert port_args[key] == jax_args[key], flag

@@ -192,10 +192,14 @@ def test_cli_inference_matches_jax_cli(mlperf):
 
 @pytest.mark.parametrize(
     "extra",
-    [["--mesh-data", "2"], ["--distributed"], ["--shard-mode", "row"],
-     ["--sharder", "greedy"]],
+    [["--mesh-data", "2", "--shard-mode", "row"],
+     ["--distributed", "--mesh-model", "2", "--shard-mode", "col"],
+     ["--shard-mode", "row", "--mesh-model", "2"],
+     ["--sharder", "greedy", "--mesh-model", "2", "--shard-mode", "col"]],
 )
 def test_cli_rejects_unported_flags(extra):
+    """Row and column sharding (--shard-mode row|col with a mesh) are not
+    ported; the mesh flags' other values are (tests/test_torch_hybrid_cli.py)."""
     with pytest.raises(NotImplementedError, match="not yet ported"):
         port_cli.main(CLI_FLAGS + ["--device", "cpu"] + extra)
 
@@ -204,11 +208,12 @@ def test_cli_without_inference_only_is_not_ported():
     """Training is ported (tests/test_torch_training.py, with
     --no-write-only-update and --stochastic-rounding; multi-step dispatch
     and gradient accumulation in tests/test_torch_trainer.py; checkpoints
-    in tests/test_torch_checkpoint.py); its options whose parts are not
-    (the mesh paths) raise."""
+    in tests/test_torch_checkpoint.py; table sharding in
+    tests/test_torch_hybrid_cli.py); its options whose parts are not (row
+    and column sharding) raise."""
     flags = [f for f in CLI_FLAGS if f != "--inference-only"] + ["--device", "cpu"]
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        port_cli.main(flags + ["--mesh-model", "2"])
+        port_cli.main(flags + ["--mesh-model", "2", "--shard-mode", "row"])
 
 
 def test_cuda_asked_for_and_absent_raises(monkeypatch):

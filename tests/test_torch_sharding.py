@@ -1,0 +1,276 @@
+"""The port's host-side sharding pieces (``dlrm_yx_tpu_torch.parallel``:
+sharders, ``make_plan``, ``arrange_sparse_inputs``, ``build_sharded_emb`` /
+``extract_tables``, ``init_hybrid_params``, the mesh's checks, the
+launcher env and the hybrid converters) against the JAX package's, exactly,
+in one process."""
+
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from dlrm_yx_tpu.config import DLRMConfig as JaxConfig
+from dlrm_yx_tpu.ops.md_embedding import md_solver
+from dlrm_yx_tpu.optim.optimizer import OptConfig as JaxOpt
+from dlrm_yx_tpu.parallel import hybrid as jax_hybrid
+from dlrm_yx_tpu.parallel import mesh as jax_mesh
+from dlrm_yx_tpu.parallel import plan as jax_plan
+from dlrm_yx_tpu.parallel import sharders as jax_sharders
+from dlrm_yx_tpu_torch.config import DLRMConfig
+from dlrm_yx_tpu_torch.convert import (
+    hybrid_opt_state_from_jax,
+    hybrid_opt_state_to_jax,
+    hybrid_params_from_jax,
+    hybrid_params_to_jax,
+)
+from dlrm_yx_tpu_torch.optim.optimizer import OptConfig
+from dlrm_yx_tpu_torch.parallel import hybrid, mesh, multihost, plan, sharders
+
+ROWS = ([100, 1, 1, 1, 99, 1], [10] * 5, [5, 300, 40, 7000, 12, 12, 900], [3])
+
+
+@pytest.mark.parametrize("alg", ["naive", "naive_chunk", "greedy", "hardcode"])
+@pytest.mark.parametrize("n", [1, 2, 3, 4])
+def test_sharders_match_jax(alg, n):
+    for rows in ROWS:
+        assert sharders.shard(rows, n, alg) == jax_sharders.shard(rows, n, alg)
+        assert sharders.get_splits(len(rows), n) == jax_sharders.get_splits(len(rows), n)
+
+
+def test_input_sharder_and_refusals_match_jax():
+    alloc = [1, 0, 1]
+    assert sharders.shard([5, 5, 5], 2, "input", allocation=alloc) == \
+        jax_sharders.shard([5, 5, 5], 2, "input", allocation=alloc)
+    for args, kw in ((([5, 5], 2, "input"), dict(allocation=[0, 7])),
+                     (([5, 5], 2, "input"), dict(allocation=[0])),
+                     (([5, 5], 2, "nope"), {})):
+        with pytest.raises(ValueError) as got:
+            sharders.shard(*args, **kw)
+        with pytest.raises(ValueError) as want:
+            jax_sharders.shard(*args, **kw)
+        assert str(got.value) == str(want.value)
+
+
+def _md_dims(rows, d0):
+    return tuple(int(x) for x in md_solver(np.array(rows), 0.3, d0=d0, round_dim=True))
+
+
+# (name, config keywords): plain, split threshold, QR mult / concat, MD, k*D
+CONFIGS = {
+    "plain": dict(emb_rows=(50, 51, 52, 53, 54, 55), ln_bot=(4, 8, 4), ln_top=(8, 1)),
+    "split": dict(emb_rows=(40, 3000, 60, 3200, 50), ln_bot=(4, 16, 128), ln_top=(16, 1),
+                  emb_split_threshold=100),
+    "qr_mult": dict(emb_rows=(500, 300, 40, 700), ln_bot=(4, 8, 4), ln_top=(8, 1),
+                    qr_flag=True, qr_threshold=200, qr_collisions=4, qr_operation="mult"),
+    "qr_concat": dict(emb_rows=(500, 300, 40, 700), ln_bot=(4, 8, 4), ln_top=(8, 1),
+                      qr_flag=True, qr_threshold=200, qr_collisions=4,
+                      qr_operation="concat", emb_split_threshold=100),
+    "md": dict(emb_rows=(800, 50, 600, 40), emb_dims=_md_dims((800, 50, 600, 40), 8),
+               ln_bot=(4, 8, 8), ln_top=(8, 1), md_flag=True, md_threshold=200),
+    "kd": dict(emb_rows=(30, 20, 10, 200), emb_dims=(8, 4, 12, 4), ln_bot=(4, 8, 4),
+               ln_top=(8, 1), emb_split_threshold=25),
+    "wide": dict(emb_rows=(30, 20, 10), emb_dims=(8, 8, 8), ln_bot=(4, 8, 4), ln_top=(8, 1)),
+}
+
+
+def _configs(name):
+    kw = CONFIGS[name]
+    return JaxConfig.build(**kw), DLRMConfig.build(**kw)
+
+
+def _plan_fields(p):
+    return dict(dataclasses.asdict(p), r_big_pad=p.r_big_pad, r_small_pad=p.r_small_pad,
+                big_shape=p.store_shape("big"), small_shape=p.store_shape("small"),
+                num_tables=p.num_tables)
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+@pytest.mark.parametrize("n_model", [1, 2, 4])
+def test_make_plan_matches_jax_field_for_field(name, n_model):
+    jcfg, pcfg = _configs(name)
+    for alg in ("naive", "greedy"):
+        want = jax_plan.make_plan(jcfg, n_model, alg)
+        got = plan.make_plan(pcfg, n_model, alg)
+        assert _plan_fields(got) == _plan_fields(want)
+
+
+def test_make_plan_refusals_match_jax():
+    kw = dict(CONFIGS["qr_concat"], emb_dims=(4, 4, 8, 4), emb_split_threshold=0)
+    with pytest.raises(NotImplementedError) as got:
+        plan.make_plan(DLRMConfig.build(**kw), 2)
+    with pytest.raises(NotImplementedError) as want:
+        jax_plan.make_plan(JaxConfig.build(**kw), 2)
+    assert str(got.value) == str(want.value)
+
+
+def _sparse(rows, b=6, l=3, seed=0):
+    r = np.random.RandomState(seed)
+    idx = np.stack([r.randint(0, n, (b, l)) for n in rows]).astype(np.int32)
+    return idx, r.rand(len(rows), b, l).astype(np.float32)
+
+
+@pytest.mark.parametrize("name", ["plain", "split", "qr_concat"])
+@pytest.mark.parametrize("n_model", [2, 4])
+def test_arrange_sparse_inputs_matches_jax(name, n_model):
+    jcfg, pcfg = _configs(name)
+    idx, w = _sparse(jcfg.emb_rows)
+    jp = jax_plan.make_plan(jcfg, n_model, "greedy")
+    want = jax_plan.arrange_sparse_inputs(jp, idx, w)
+    pp = plan.make_plan(pcfg, n_model, "greedy")
+    for got in (plan.arrange_sparse_inputs(pp, idx, w),
+                [a.numpy() for a in plan.arrange_sparse_inputs(pp, torch.from_numpy(idx),
+                                                                torch.from_numpy(w))]):
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("name", ["plain", "split", "md", "kd", "qr_concat"])
+@pytest.mark.parametrize("n_model", [1, 2, 4])
+def test_build_extract_round_trip_matches_jax(name, n_model):
+    jcfg, pcfg = _configs(name)
+    jp = jax_plan.make_plan(jcfg, n_model, "greedy")
+    pp = plan.make_plan(pcfg, n_model, "greedy")
+    r = np.random.RandomState(1)
+    tables = [r.randn(n, pp.dim).astype(np.float32)[:, :d]
+              for n, d in zip(pp.pseudo_rows, [pcfg.emb_dims[t] for t in pp.pseudo_table])]
+    jbig, jsmall = jax_plan.build_sharded_emb(jp, jcfg, tables)
+    big, small = plan.build_sharded_emb(pp, pcfg, tables)
+    np.testing.assert_array_equal(big.reshape(jbig.shape), jbig)
+    np.testing.assert_array_equal(small.reshape(jsmall.shape), jsmall)
+    tbig, tsmall = plan.build_sharded_emb(pp, pcfg, [torch.from_numpy(t) for t in tables])
+    for m in range(n_model):
+        own = plan.build_sharded_emb(pp, pcfg, [torch.from_numpy(t) for t in tables], m)
+        assert torch.equal(own[0], tbig[m]) and torch.equal(own[1], tsmall[m])
+    want = jax_plan.extract_tables(jp, jcfg, jbig, jsmall)
+    for got in (plan.extract_tables(pp, pcfg, big, small),
+                plan.extract_tables(pp, pcfg, jbig, jsmall),
+                [t.numpy() for t in plan.extract_tables(pp, pcfg, tbig, tsmall)]):
+        assert len(got) == len(want)
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("name", ["plain", "split", "wide"])
+@pytest.mark.parametrize("n_model", [1, 2, 4])
+def test_init_hybrid_params_matches_jax(name, n_model):
+    jcfg, pcfg = _configs(name)
+    jp = jax_plan.make_plan(jcfg, n_model, "greedy")
+    pp = plan.make_plan(pcfg, n_model, "greedy")
+    want = jax.tree.map(np.asarray, jax_hybrid.init_hybrid_params(jcfg, jp, seed=9))
+    for m in range(n_model):
+        got = hybrid.init_hybrid_params(pcfg, pp, seed=9, model_index=m, device="cpu")
+        for key in ("emb", "emb_small"):
+            np.testing.assert_array_equal(got[key].numpy(), want[key][m].reshape(
+                got[key].shape))
+        for k in ("bot", "top"):
+            for (w, b), (jw, jb) in zip(got[k], want[k]):
+                np.testing.assert_array_equal(w.numpy(), jw)
+                np.testing.assert_array_equal(b.numpy(), jb)
+        assert got["vw"] is None and want["vw"] is None
+
+
+@pytest.mark.parametrize("optname", ["sgd", "adagrad", "rwsadagrad"])
+@pytest.mark.parametrize("name,pooling", [("split", None), ("qr_mult", "fixed"), ("md", None),
+                                          ("kd", "learned")])
+def test_hybrid_converters_round_trip_jax_state(optname, name, pooling):
+    """JAX's whole hybrid pytrees (with the variants' leaves) -> each rank's
+    port tensors -> back."""
+    kw = dict(CONFIGS[name], weighted_pooling=pooling)
+    jcfg, pcfg = JaxConfig.build(**kw), DLRMConfig.build(**kw)
+    n_model = 2
+    jp = jax_plan.make_plan(jcfg, n_model, "greedy")
+    pp = plan.make_plan(pcfg, n_model, "greedy")
+    jparams = jax_hybrid.init_hybrid_params(jcfg, jp, seed=3)
+    jstate = jax_hybrid.init_hybrid_opt_state(JaxOpt(optname, 0.1), jparams, jp)
+    jparams, jstate = jax.tree.map(lambda a: np.asarray(a) + 0.5, (jparams, jstate))
+    opt = OptConfig(optname, 0.1)
+    shards = [hybrid_params_from_jax(jparams, pp, m, "cpu") for m in range(n_model)]
+    states = [hybrid_opt_state_from_jax(jstate, opt, pp, m, "cpu") for m in range(n_model)]
+    want = jax.tree.map(np.asarray, (jparams, jstate))
+    got = (hybrid_params_to_jax(shards, pp), hybrid_opt_state_to_jax(states, pp))
+    assert jax.tree.structure(got) == jax.tree.structure(want)
+    for a, b in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
+        np.testing.assert_array_equal(a, b)
+    if optname != "sgd":
+        fresh = hybrid.init_hybrid_opt_state(opt, shards[0], pp)
+        assert [tuple(t.shape) for t in jax.tree.leaves(fresh)] == \
+            [tuple(t.shape) for t in jax.tree.leaves(states[0])]
+
+
+def test_mesh_checks_match_jax():
+    """A mesh larger than the world raises JAX's text; model=None takes the
+    world over data; without a process group the world is one rank."""
+    for data, model in ((2, 2), (1, 2), (3, None)):
+        with pytest.raises(ValueError) as got:
+            mesh.make_mesh(data, model, device="cpu")
+        with pytest.raises(ValueError) as want:
+            jax_mesh.make_mesh(data, model, devices=jax.devices()[:1])
+        assert str(got.value) == str(want.value)
+    m = mesh.make_mesh(1, None, device="cpu")
+    assert m.shape == {"data": 1, "model": 1} and (m.d, m.m) == (0, 0)
+    t = torch.arange(6.0).reshape(3, 2)
+    out = torch.empty_like(t)
+    assert m.all_to_all_model(out, t, async_op=True) is None and torch.equal(out, t)
+    assert m.all_gather_data(t) is t and m.all_reduce(t) is t
+
+
+def test_launcher_env_is_read_as_jax_reads_it(monkeypatch):
+    for name in ("NUM_PROCESSES", "WORLD_SIZE", "PMI_SIZE", "OMPI_COMM_WORLD_SIZE",
+                 "PROCESS_ID", "RANK", "PMI_RANK", "OMPI_COMM_WORLD_RANK",
+                 "COORDINATOR_ADDRESS"):
+        monkeypatch.delenv(name, raising=False)
+    assert multihost.init_multihost(device="cpu") == (0, 1)
+    monkeypatch.setenv("WORLD_SIZE", "1")
+    monkeypatch.setenv("RANK", "0")
+    assert multihost.init_multihost(device="cpu") == (0, 1)
+    monkeypatch.setenv("WORLD_SIZE", "x")
+    monkeypatch.setenv("PMI_SIZE", "3")
+    assert multihost._env_int(["WORLD_SIZE", "PMI_SIZE"]) == 3
+    assert multihost.host_local_batch_slice(64) == (0, 64)
+    monkeypatch.setenv("LOCAL_RANK", "2")
+    assert multihost.local_device("cuda") == torch.device("cuda", 2)
+    assert multihost.local_device("cpu") == torch.device("cpu")
+
+
+@pytest.mark.parametrize("name,pooling", [("qr_mult", None), ("qr_concat", "fixed"),
+                                          ("md", None), ("kd", "learned"),
+                                          ("split", "learned")])
+@pytest.mark.parametrize("n_model", [1, 2])
+def test_init_hybrid_params_of_the_variants_match_jax(name, pooling, n_model):
+    """QR quotient / remainder draws, MD projections and pooling weights
+    as the JAX package lays them out, shard by shard."""
+    kw = dict(CONFIGS[name], weighted_pooling=pooling)
+    jcfg, pcfg = JaxConfig.build(**kw), DLRMConfig.build(**kw)
+    jp = jax_plan.make_plan(jcfg, n_model, "greedy")
+    pp = plan.make_plan(pcfg, n_model, "greedy")
+    want = jax.tree.map(np.asarray, jax_hybrid.init_hybrid_params(jcfg, jp, seed=9))
+    for m in range(n_model):
+        got = hybrid.init_hybrid_params(pcfg, pp, seed=9, model_index=m, device="cpu")
+        assert sorted(k for k in got if got[k] is not None) == \
+            sorted(k for k in want if want[k] is not None)
+        for key in ("emb", "emb_small", "vw", "vw_small"):
+            if want.get(key) is not None:
+                np.testing.assert_array_equal(got[key].numpy(),
+                                              want[key][m].reshape(got[key].shape))
+        for key in ("qr_r",):
+            if key in want:
+                np.testing.assert_array_equal(got[key].numpy(), want[key])
+        for a, b in zip(got.get("md_proj", []), want.get("md_proj", [])):
+            np.testing.assert_array_equal(a.numpy(), b)
+        for k in ("bot", "top"):
+            for (w, b), (jw, jb) in zip(got[k], want[k]):
+                np.testing.assert_array_equal(w.numpy(), jw)
+
+
+def test_learned_pooling_with_qr_raises_as_in_jax():
+    kw = dict(CONFIGS["qr_mult"], weighted_pooling="learned")
+    with pytest.raises(NotImplementedError) as got:
+        hybrid.init_hybrid_params(DLRMConfig.build(**kw),
+                                  plan.make_plan(DLRMConfig.build(**kw), 2), device="cpu")
+    with pytest.raises(NotImplementedError) as want:
+        jax_hybrid.init_hybrid_params(JaxConfig.build(**kw),
+                                      jax_plan.make_plan(JaxConfig.build(**kw), 2))
+    assert str(got.value) == str(want.value)

@@ -46,6 +46,7 @@ from dlrm_yx_tpu_torch.train.trainer import (
     _group_microbatches,
     _prefetch_thread,
 )
+from torch_hybrid_cases import MESH_FLAGS
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 POLICY = dict(base_lr=0.2, num_warmup_steps=3, decay_start_step=5, num_decay_steps=4)
@@ -287,6 +288,6 @@ def test_cli_dispatch_flags_keep_the_jax_defaults():
     port_args = port_cli.build_parser().parse_args([])
     for dest in ("steps_per_dispatch", "prefetch_depth", "mlperf_grad_accum_iter"):
         assert getattr(port_args, dest) == getattr(jax_args, dest), dest
-        assert dest.replace("_", "-") not in port_cli.UNPORTED_FLAGS
+        assert dest.replace("_", "-") not in MESH_FLAGS
     assert (port_args.steps_per_dispatch, port_args.prefetch_depth,
             port_args.mlperf_grad_accum_iter) == (0, 2, 1)
