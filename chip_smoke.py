@@ -211,7 +211,27 @@ no result):
      change over the run (gathered to rank 0 by ``extract_tables``, minus
      the table before the run) moved the same rows as (a)'s change and is
      within 5e-2 of it in relative norm (bf16 compute; see TWO_RANK_LOSS).
-     This script runs each rank (``--hybrid-rank``).
+     This script runs each rank (``--hybrid-rank``);
+  11. sharded: row and column sharding (``parallel/row_sharded.py``,
+     ``col_sharded.py``) on phase 10's model and batches: (a) for each of
+     ``RowShardedRunner`` and ``ColShardedRunner``, a world of one rank over
+     NCCL, mesh 1 x 1, its shards laid out from the single-device stores
+     drawn on the card, a few captured steps and an eval through
+     ``Trainer.fit`` (launch counts set to 0 just before and read just
+     after: K1 once a step and an eval batch, K2 and K3 once a step), held
+     to ``make_train_step`` as in phase 10 (a); no big-store row that no
+     live lookup touched changed; the captured N=4 step against the eager
+     one bit for bit; then the captured N=16 row, column and single-device
+     steps timed in turns; (b) for each mode two ranks on the card over
+     gloo, eager, mesh 1 x 2 (row: half the row space a rank; column: a
+     [~7.0M, 64] slice a rank, K2 at width 64): the tables gathered from
+     the shards equal the single-device ones, K1, K2 and K3 launch once a
+     step on each rank, and the losses and table changes are held to (a)'s
+     as in phase 10 (b) (``--sharded-rank``); (c) K2 and K4 on the column
+     slice of the big space at M = 2 ([~7.0M, 64]) and M = 4 ([~7.0M, 32])
+     with one batch's ids, as drawn and with a hot row on half of K, bit
+     for bit against their plain versions on the CPU, with their times,
+     the plain versions', ``index_add_``'s and the bounds.
 Then a JSON line of the kernels (launches from the path each kernel serves:
 K1-K3 phase b, K5 phase g, K6 phase h, K4 phase m), nvidia-smi's line, and
 the result line.
@@ -3869,11 +3889,9 @@ def hybrid_rank_main(spec_path):
     import torch
 
     from dlrm_yx_tpu_torch.models.dlrm import init_dlrm_on_device, model_groups
-    from dlrm_yx_tpu_torch.optim.optimizer import init_opt_state
     from dlrm_yx_tpu_torch.parallel.hybrid import HybridRunner, params_from_single_device
     from dlrm_yx_tpu_torch.parallel.multihost import init_multihost
     from dlrm_yx_tpu_torch.parallel.plan import extract_tables, make_plan
-    from dlrm_yx_tpu_torch.train.train_step import make_train_step
     from dlrm_yx_tpu_torch.utils.device import resolve_device
 
     def note(msg):
@@ -3927,53 +3945,438 @@ def hybrid_rank_main(spec_path):
     if rank == 0:
         got_tables = extract_tables(plan, cfg, big, small)
         del big, small, runner
-        before = {t: v.clone() for t, v in tables.items()}
-
-        def single_device_run(params, batches):
-            """make_train_step's losses over the batches and its tables after them."""
-            state = fill_state(init_opt_state(opt, params, model_groups(cfg)))
-            ref = make_train_step(cfg, opt)
-            out = torch.stack([ref(params, state, b, i)[2] for i, b in enumerate(batches)])
-            return out, {t: store[off: off + n]
-                         for g, store in zip(model_groups(cfg), params["emb"])
-                         for t, n, off in zip(g.table_ids, g.rows, g.row_offsets)}
-
-        # phase (a)'s single-device run, again: its losses were (a)'s, bit for bit
-        ref_losses, tables = single_device_run(single, batches)
-        # the metric's resolution: the same run on the examples in another order
-        perm = torch.randperm(BATCH, generator=torch.Generator().manual_seed(46)).cuda()
-        shuffled = [type(b)(b.dense[perm], b.indices[:, perm], b.weights[:, perm],
-                            b.labels[perm]) for b in batches]
-        perm_losses, perm_tables = single_device_run(
-            init_dlrm_on_device(cfg, seed=HYBRID_SEED, device="cuda:0"), shuffled)
-        a_losses = torch.tensor(spec["losses"], device="cuda:0")
-        loss_ok = torch.allclose(losses, a_losses, **TWO_RANK_LOSS)
-        loss_diff = (losses - a_losses).abs().max().item()
-        gap, floor = (change_gap(got, tables, before, len(rows))
-                      for got in (got_tables, perm_tables))
-        ok = (loss_ok and not gap["other_rows"] and gap["moved"] == gap["moved_want"] > 0
-              and gap["rel"] <= TWO_RANK_CHANGE)
-        rows_read = ("the same rows" if not gap["other_rows"]
-                     else f"other rows in tables {gap['other_rows']}")
-        note(f"losses {losses.tolist()} against (a)'s {spec['losses']} (the single-device "
-             f"run again here: {ref_losses.tolist()}): max |diff| {loss_diff:.3e} "
-             f"{'within' if loss_ok else 'BEYOND'} rtol {TWO_RANK_LOSS['rtol']}; the "
-             f"{len(rows)} tables gathered to rank 0 by extract_tables, each minus the "
-             f"table before the run: {gap['moved']} rows moved here, {gap['moved_want']} "
-             f"in (a), {rows_read}; |change - (a)'s change| / |(a)'s change| over all "
-             f"tables {gap['rel']:.3e} {'within' if gap['rel'] <= TWO_RANK_CHANGE else 'BEYOND'}"
-             f" {TWO_RANK_CHANGE:.3e}. The metric's resolution, (a)'s run on the examples "
-             f"in another order: losses max |diff| "
-             f"{(perm_losses - a_losses).abs().max().item():.3e}, "
-             f"{len(floor['other_rows'])} tables moved other rows, change {floor['rel']:.3e}. "
-             f"Controls on (a)'s change: no sparse update reads 1, the rows shifted by one "
-             f"read {gap['shifted']:.3f}")
-        if not ok:
-            raise SystemExit("rank 0: the two-rank run disagrees with (a) beyond the limits")
+        two_rank_verdict(note, cfg, opt, single, tables, batches, losses, got_tables,
+                         spec["losses"], len(rows))
     note(f"launches {launches} (K1, K2 and K3 once a step on this rank)")
     torch.distributed.barrier()
     torch.distributed.destroy_process_group()
     note("ok")
+
+# ------------------------------------- phase 11: row and column sharding
+
+SHARD_MODES = ("row", "col")
+# (c): the column slice of the big space at M = 2 and M = 4
+SLICE_MESHES = (2, 4)
+
+
+def sharded_mode(mode):
+    """(the mode's module, its runner class, its plan maker)."""
+    from dlrm_yx_tpu_torch.parallel import col_sharded, row_sharded
+
+    if mode == "row":
+        return row_sharded, row_sharded.RowShardedRunner, row_sharded.make_row_plan
+    return col_sharded, col_sharded.ColShardedRunner, col_sharded.make_col_plan
+
+
+def live_rows(plan, batches, n_rows):
+    """[n_rows] bool: the rows of a model-rank-0 shard of the big space (at
+    M = 1: the whole space) that the batches' live lookups read."""
+    import torch
+
+    from dlrm_yx_tpu_torch.ops.embedding import device_ints
+
+    big = device_ints(plan.big_ids, "cuda").long()
+    offs = device_ints(plan.row_offsets, "cuda")
+    rows = torch.zeros(n_rows, dtype=torch.bool, device="cuda")
+    for b in batches:
+        ids = (b.indices.index_select(0, big) + offs[:, None, None]).long()
+        rows[ids[(b.weights.index_select(0, big) != 0) & (ids < n_rows)]] = True
+    return rows
+
+
+def sharded_fit(mode, cfg, opt):
+    """Phase 11 (a), one mode: Trainer.fit on the mode's runner at world size
+    1 (its shards laid out from the single-device stores drawn on the
+    card), the launch counts set to 0 just before and read just after, held
+    to make_train_step from the same params, optimizer state and batches;
+    no big-store row that no live lookup touched changed. Returns the
+    single-device run's losses."""
+    import contextlib
+    import io
+
+    import torch
+
+    from dlrm_yx_tpu_torch.models.dlrm import init_dlrm_on_device, model_groups
+    from dlrm_yx_tpu_torch.optim.optimizer import init_opt_state
+    from dlrm_yx_tpu_torch.train.train_step import make_train_step
+    from dlrm_yx_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    module, runner_cls, make_plan = sharded_mode(mode)
+    single = init_dlrm_on_device(cfg, seed=HYBRID_SEED)
+    plan = make_plan(cfg, 1)
+    params = module.params_from_single_device(cfg, plan, single)
+    runner = runner_cls(cfg, opt, 1, 1, params=params)
+    fill_state(runner.opt_state)
+    big_before = params["emb"].clone()
+    train = drawn_batches(cfg, HYBRID_STEPS, seed=42)
+    test = drawn_batches(cfg, HYBRID_STEPS, seed=43)
+    trainer = Trainer(cfg, opt, TrainerConfig(print_freq=1, seed=HYBRID_SEED), runner=runner)
+    losses = []
+    step = trainer.train_step
+
+    def recording(*a):
+        out = step(*a)
+        losses.append(out[2])
+        return out
+
+    trainer.train_step = recording
+    counters = launch_counters()
+    for c in counters.values():
+        c.launches = 0
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        metrics = trainer.fit(train, lambda: test)
+    launches = {name: c.launches for name, c in counters.items()}
+    want = only(fused_interaction=2 * HYBRID_STEPS, sparse_rows_overwrite=HYBRID_STEPS,
+                rwsadagrad_dense_finish=HYBRID_STEPS)
+    if launches != want:
+        fail(f"phase 11 Trainer.fit on the {mode} runner launched {launches}, want {want}")
+    got_losses = torch.cat([x.reshape(-1) for x in losses])
+    state = fill_state(init_opt_state(opt, single, model_groups(cfg)))
+    ref = make_train_step(cfg, opt)
+    want_losses = torch.stack([ref(single, state, b, i)[2] for i, b in enumerate(train)])
+    gathered = runner.single_device_params(trainer.params)
+    how = same_or_close(f"phase 11 {mode} vs single-device", [got_losses] + gathered["emb"],
+                        [want_losses] + single["emb"], HYBRID_TOL)
+    store = trainer.params["emb"]
+    changed = (bits(store) != bits(big_before)).any(dim=1)
+    live = live_rows(plan, train, store.shape[0])
+    if (changed & ~live).any() or not torch.isfinite(got_losses).all():
+        fail(f"phase 11 {mode}: {int((changed & ~live).sum())} big-store rows changed that no "
+             f"live lookup touched; losses {got_losses.tolist()}")
+    shown = {k: round(v, 6) for k, v in metrics.items() if isinstance(v, float)}
+    say("sharded", f"{mode}: plan {type(plan).__name__} (n_model 1, big store "
+                   f"{list(store.shape)} f32 of {len(plan.big_ids)} tables, small store "
+                   f"{list(trainer.params['emb_small'].shape)} of "
+                   f"{plan.small_group.num_tables} tables, pack {plan.pack}, dups_in_big "
+                   f"{plan.dups_in_big}); Trainer.fit (NCCL, mesh 1 x 1, every accumulator "
+                   f"starting at {ACC0}), {HYBRID_STEPS} captured steps + {HYBRID_STEPS} eval "
+                   f"batches: losses {got_losses.tolist()}, eval {shown}; against "
+                   f"make_train_step from the same params and batches: losses and both stores "
+                   f"{how}; {int(changed.sum())} big-store rows changed, none that no live "
+                   f"lookup touched ({int(live.sum())} were looked up); launches {launches}")
+    return [float(x) for x in want_losses.tolist()]
+
+
+def sharded_capture_parity(mode, cfg, opt):
+    """Phase 11 (a): the mode's captured N=4 step (three dispatches) against
+    its eager step from a clone, bit for bit: losses and every tensor."""
+    import torch
+
+    from dlrm_yx_tpu_torch.data.batch import stack_batches
+    from dlrm_yx_tpu_torch.models.dlrm import init_dlrm_on_device
+
+    module, runner_cls, make_plan = sharded_mode(mode)
+    n = 4
+    runner = runner_cls(cfg, opt, 1, 1, params=module.params_from_single_device(
+        cfg, make_plan(cfg, 1), init_dlrm_on_device(cfg, seed=HYBRID_SEED)))
+    eager_p, eager_s = clone_tree(runner.params), clone_tree(runner.opt_state)
+    eager = runner.eager_step()
+    captured = runner.make_multi_step(n)
+    batches = drawn_batches(cfg, 3 * n, seed=44)
+    want, eager_launches = counted(lambda: torch.stack(
+        [eager(eager_p, eager_s, runner.prepare_batch(b), i)[2] for i, b in enumerate(batches)]))
+    got, replay_launches = counted(lambda: torch.cat(
+        [captured(runner.params, runner.opt_state,
+                  runner.prepare_batch(stack_batches(batches[j * n:(j + 1) * n])), j * n)[2]
+         for j in range(3)]))
+    torch.cuda.synchronize()
+    replays = captured.graph_step.replays()
+    pairs = [("losses", want, got)] + [
+        (f"tensor {i}", a, b) for i, (a, b) in enumerate(
+            zip(leaves((eager_p, eager_s)), leaves((runner.params, runner.opt_state))))]
+    differ = [name for name, a, b in pairs if not torch.equal(bits(a), bits(b))]
+    if differ or replay_launches != eager_launches or replays < 2:
+        fail(f"{mode} capture parity: {differ[:5]} of {len(pairs)} tensors differ, launches "
+             f"{replay_launches} against the eager {eager_launches}, {replays} replays")
+    say("sharded", f"{mode}: captured N={n} step (NCCL, world size 1): 3 dispatches "
+                   f"({replays} replays) equal to the eager step bit for bit (losses and all "
+                   f"{len(pairs)} tensors); launches "
+                   f"{ {k: v for k, v in replay_launches.items() if v} }, as eager")
+
+
+def sharded_throughput(cfg, opt, smi):
+    """Phase 11 (a): the captured N=16 row, column and single-device steps,
+    CUDA-event timed in turns."""
+    from dlrm_yx_tpu_torch.data.batch import stack_batches
+    from dlrm_yx_tpu_torch.models.dlrm import init_dlrm_on_device, model_groups
+    from dlrm_yx_tpu_torch.optim.optimizer import init_opt_state
+    from dlrm_yx_tpu_torch.train.train_step import make_multistep_train_step
+
+    single = init_dlrm_on_device(cfg, seed=HYBRID_SEED)
+    state = fill_state(init_opt_state(opt, single, model_groups(cfg)))
+    stacked = stack_batches([drawn_batches(cfg, 1, seed=45)[0]] * N_DISPATCH)
+    fns = {"single-device captured": train_step_fn(
+        make_multistep_train_step(cfg, opt, N_DISPATCH), single, state, stacked)}
+    for mode in SHARD_MODES:
+        module, runner_cls, make_plan = sharded_mode(mode)
+        runner = runner_cls(cfg, opt, 1, 1, params=module.params_from_single_device(
+            cfg, make_plan(cfg, 1), single))
+        fill_state(runner.opt_state)
+        fns[f"{mode} captured"] = train_step_fn(runner.make_multi_step(N_DISPATCH),
+                                                runner.params, runner.opt_state,
+                                                runner.prepare_batch(stacked))
+    times = time_in_turns(fns, check_loss)
+    base = statistics.mean(times["single-device captured"])
+    for name, ts in times.items():
+        ms = statistics.mean(ts) / N_DISPATCH
+        say("throughput", f"phase 11, {name} N={N_DISPATCH} (Terabyte-MLPerf <=1M rows, "
+                          f"B={BATCH}, bf16, rwsadagrad, pallas; {smi}): {ms:.4f} ms/step "
+                          f"({BATCH / ms * 1e3:.0f} examples/s; "
+                          f"{statistics.mean(ts) / base:.3f}x the single-device step; ms a "
+                          f"call {ts})")
+
+
+def sharded_world_of_one(rows, smi):
+    """Phase 11 (a): row and column sharding at world size 1 over NCCL, at
+    full width; returns mode -> the single-device run's losses."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from dlrm_yx_tpu_torch.parallel.multihost import free_port, init_multihost
+
+    t0 = time.perf_counter()
+    init_multihost(coordinator=f"127.0.0.1:{free_port()}", num_processes=1, process_id=0,
+                   device="cuda")
+    if dist.get_backend() != "nccl":
+        fail(f"phase 11 (a) wants NCCL, the world runs {dist.get_backend()}")
+    cfg, opt = hybrid_config(rows)
+    losses = {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for mode in SHARD_MODES:
+            losses[mode] = sharded_fit(mode, cfg, opt)
+            gc.collect()
+            torch.cuda.empty_cache()
+            sharded_capture_parity(mode, cfg, opt)
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    sharded_throughput(cfg, opt, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    say("sharded", f"phase 11 (a) in {time.perf_counter() - t0:.1f} s")
+    return losses
+
+
+def sharded_two_ranks(a_losses):
+    """Phase 11 (b): for each mode, two ranks on the one card over gloo,
+    eager, mesh 1 x 2, on (a)'s model and batches: this script run as each
+    rank (``--sharded-rank SPEC``)."""
+    from dlrm_yx_tpu_torch.parallel.multihost import spawn_local
+
+    t0 = time.perf_counter()
+    os.makedirs(DATA_DIR, exist_ok=True)
+    for mode in SHARD_MODES:
+        spec = os.path.join(DATA_DIR, f"sharded_ranks_{mode}.json")
+        with open(spec, "w") as f:
+            json.dump({"mode": mode, "losses": a_losses[mode]}, f)
+        try:
+            outs = spawn_local([os.path.abspath(__file__), "--sharded-rank", spec], 2,
+                               timeout=300, capture=True)
+        except RuntimeError as e:
+            fail(f"phase 11 (b) {mode}: {str(e)[-3000:]}")
+        for rank, out in enumerate(outs):
+            for line in out.splitlines():
+                if line.startswith("[sharded-rank]"):
+                    say("sharded", f"{mode} rank {rank}: {line[len('[sharded-rank] '):]}")
+        if not all("[sharded-rank] ok" in out for out in outs):
+            fail(f"phase 11 (b) {mode}: a rank did not finish its checks")
+    say("sharded", f"phase 11 (b) in {time.perf_counter() - t0:.1f} s")
+
+
+def sharded_rank_main(spec_path):
+    """One rank of phase 11 (b), on cuda:0 over gloo."""
+    import torch
+
+    from dlrm_yx_tpu_torch.models.dlrm import init_dlrm_on_device, model_groups
+    from dlrm_yx_tpu_torch.parallel.multihost import init_multihost
+    from dlrm_yx_tpu_torch.utils.device import resolve_device
+
+    def note(msg):
+        print(f"[sharded-rank] {msg}", flush=True)
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    mode = spec["mode"]
+    resolve_device("cuda:0")
+    rank, world = init_multihost(device="cuda:0", backend="gloo")
+    torch.use_deterministic_algorithms(True)
+    rows = terabyte_rows()
+    cfg, opt = hybrid_config(rows)
+    module, runner_cls, make_plan = sharded_mode(mode)
+    plan = make_plan(cfg, world)
+    single = init_dlrm_on_device(cfg, seed=HYBRID_SEED, device="cuda:0")
+    # eager: gloo's collectives cannot be captured
+    runner = runner_cls(cfg, opt, 1, world, device="cuda:0",
+                        params=module.params_from_single_device(cfg, plan, single, rank))
+    fill_state(runner.opt_state)
+    tables = {t: store[off: off + n] for g, store in zip(model_groups(cfg), single["emb"])
+              for t, n, off in zip(g.table_ids, g.rows, g.row_offsets)}
+    # the shards, gathered over the model group, give back every table
+    laid = runner.tables(runner.params)
+    wrong = [t for t, w in enumerate(laid) if not torch.equal(w, tables[t])]
+    del laid
+    if wrong:
+        raise SystemExit(f"rank {rank}: tables {wrong} are not where the plan lays them")
+    note(f"mesh {runner.mesh.shape} over gloo with CUDA tensors, model index "
+         f"{runner.mesh.m}: big store {list(runner.params['emb'].shape)} f32 "
+         f"({runner.params['emb'].numel() * 4} B), small store "
+         f"{list(runner.params['emb_small'].shape)}; the {len(rows)} tables gathered from the "
+         f"shards equal the single-device tables bit for bit")
+    counters = launch_counters()
+    for c in counters.values():
+        c.launches = 0
+    batches = drawn_batches(cfg, HYBRID_STEPS, seed=42)
+    losses = torch.stack([runner.train_step(runner.params, runner.opt_state,
+                                            runner.prepare_batch(b), i)[2]
+                          for i, b in enumerate(batches)])
+    launches = {name: c.launches for name, c in counters.items()}
+    want = only(fused_interaction=HYBRID_STEPS, sparse_rows_overwrite=HYBRID_STEPS,
+                rwsadagrad_dense_finish=HYBRID_STEPS)
+    if launches != want:
+        raise SystemExit(f"rank {rank}: launched {launches}, want {want}")
+    got = runner.tables(runner.params)
+    if rank == 0:
+        del runner
+        two_rank_verdict(note, cfg, opt, single, tables, batches, losses, dict(enumerate(got)),
+                         spec["losses"], len(rows))
+    del got
+    note(f"launches {launches} (K1, K2 and K3 once a step on this rank)")
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    note("ok")
+
+
+def rows_add_case(what, store, ids, active, gen):
+    """K4 on ``store`` with the items (ids, active): the kernel against its
+    plain version run on the CPU over the whole store, bit for bit; the
+    wrapper, the plain version on the card and index_add_ timed; returns
+    the numbers."""
+    import torch
+
+    from dlrm_yx_tpu_torch.ops.sparse_rows_add import sparse_rows_add, sparse_rows_add_reference
+
+    r, w = store.shape
+    k = ids.numel()
+    upd = torch.randn(k, w, device="cuda", generator=gen) * 1e-2
+    got = sparse_rows_add(store.clone(), ids, upd, active).cpu()
+    want = sparse_rows_add_reference(store.cpu(), ids.cpu(), upd.cpu(), active.cpu())
+    equal, err = same_bits(got, want)
+    del got, want
+    if not equal:
+        fail(f"sparse_rows_add {what}: not bit-equal to the plain version on the CPU "
+             f"(max abs err {err})")
+    ms = device_time_ms(lambda: sparse_rows_add(store, ids, upd, active),
+                        reps=TRAFFIC_REPS, samples=TRAFFIC_REPS)
+    sparse_rows_add_reference(store, ids, upd, active)  # warm-up
+    plain_ms = events_ms(lambda: sparse_rows_add_reference(store, ids, upd, active), 1)[0]
+    ids64 = ids.long()
+    library_ms = device_time_ms(lambda: store.index_add_(0, ids64, upd * active[:, None]),
+                                reps=TRAFFIC_REPS, samples=TRAFFIC_REPS)
+    n_rows = torch.unique(ids64[active > 0]).numel()
+    nbytes = 8 * k + 4 * w * k + 2 * 4 * w * n_rows
+    bound, by = bound_ms(nbytes, w * k)
+    say("kernel", f"sparse_rows_add {what} [{r}, {w}] f32, K={k} on {n_rows} distinct rows: "
+                  f"bit-equal to the plain version on the CPU; wrapper {ms:.5f} ms, plain "
+                  f"{plain_ms:.5f} ms (one call, host sync included), index_add_ "
+                  f"{library_ms:.5f} ms, bound {bound:.5f} ms ({by}, {nbytes} B)")
+
+
+def check_slice_kernels(rows):
+    """Phase 11 (c): K2 and K4 on the column slice of the big space at its
+    own widths (M = 2: [total_rows, 64], M = 4: [total_rows, 32]) with one
+    batch's ids, as drawn and with a hot row on half of K, bit for bit
+    against their plain versions on the CPU, timed."""
+    import torch
+
+    from dlrm_yx_tpu_torch.parallel.col_sharded import make_col_plan
+
+    t0 = time.perf_counter()
+    cfg, _ = hybrid_config(rows)
+    gen = torch.Generator(device="cuda").manual_seed(47)
+    batch = drawn_batches(cfg, 1, seed=48)[0]
+    for n_model in SLICE_MESHES:
+        plan = make_col_plan(cfg, n_model)
+        store = torch.rand(plan.total_rows, plan.d_local, device="cuda", generator=gen) - 0.5
+        big = torch.tensor(plan.big_ids, device="cuda")
+        offs = torch.tensor(plan.row_offsets, device="cuda", dtype=torch.int32)
+        drawn = (batch.indices.index_select(0, big) + offs[:, None, None]).reshape(-1).int()
+        for case in ("one batch", "a hot row on half of K"):
+            ids = drawn.clone()
+            if case != "one batch":
+                ids[::2] = ids[0]
+            active = torch.ones(ids.numel(), dtype=torch.int32, device="cuda")
+            what = f"column slice M={n_model} (pack {plan.pack}), {case}"
+            overwrite_case(what, store, ids, active, gen, 0.0)
+            rows_add_case(what, store, ids, active, gen)
+        del store
+        torch.cuda.empty_cache()
+    say("kernel", f"phase 11 (c) in {time.perf_counter() - t0:.1f} s")
+
+
+def two_rank_verdict(note, cfg, opt, single, tables, batches, losses, got_tables, a_losses,
+                     n_tables):
+    """Rank 0 of a two-rank run (phases 10 (b) and 11 (b)): the losses
+    against (a)'s, and each table's change over the run (``got_tables``,
+    gathered to rank 0, minus the table before) against the single-device
+    run's from ``single`` (the params before the run; ``tables`` its
+    tables), which it runs here again; the metric's resolution from the
+    same run on the examples in another order. Raises SystemExit beyond the
+    limits."""
+    import torch
+
+    from dlrm_yx_tpu_torch.models.dlrm import init_dlrm_on_device, model_groups
+    from dlrm_yx_tpu_torch.optim.optimizer import init_opt_state
+    from dlrm_yx_tpu_torch.train.train_step import make_train_step
+
+    before = {t: v.clone() for t, v in tables.items()}
+
+    def single_device_run(params, batches):
+        """make_train_step's losses over the batches and its tables after them."""
+        state = fill_state(init_opt_state(opt, params, model_groups(cfg)))
+        ref = make_train_step(cfg, opt)
+        out = torch.stack([ref(params, state, b, i)[2] for i, b in enumerate(batches)])
+        return out, {t: store[off: off + n]
+                     for g, store in zip(model_groups(cfg), params["emb"])
+                     for t, n, off in zip(g.table_ids, g.rows, g.row_offsets)}
+
+    # phase (a)'s single-device run, again: its losses were (a)'s, bit for bit
+    ref_losses, tables = single_device_run(single, batches)
+    # the metric's resolution: the same run on the examples in another order
+    perm = torch.randperm(BATCH, generator=torch.Generator().manual_seed(46)).cuda()
+    shuffled = [type(b)(b.dense[perm], b.indices[:, perm], b.weights[:, perm],
+                        b.labels[perm]) for b in batches]
+    perm_losses, perm_tables = single_device_run(
+        init_dlrm_on_device(cfg, seed=HYBRID_SEED, device="cuda:0"), shuffled)
+    a_losses_t = torch.tensor(a_losses, device="cuda:0")
+    loss_ok = torch.allclose(losses, a_losses_t, **TWO_RANK_LOSS)
+    loss_diff = (losses - a_losses_t).abs().max().item()
+    gap, floor = (change_gap(got, tables, before, n_tables)
+                  for got in (got_tables, perm_tables))
+    ok = (loss_ok and not gap["other_rows"] and gap["moved"] == gap["moved_want"] > 0
+          and gap["rel"] <= TWO_RANK_CHANGE)
+    rows_read = ("the same rows" if not gap["other_rows"]
+                 else f"other rows in tables {gap['other_rows']}")
+    note(f"losses {losses.tolist()} against (a)'s {a_losses} (the single-device "
+         f"run again here: {ref_losses.tolist()}): max |diff| {loss_diff:.3e} "
+         f"{'within' if loss_ok else 'BEYOND'} rtol {TWO_RANK_LOSS['rtol']}; the "
+         f"{n_tables} tables gathered to rank 0, each minus the table before the run: "
+         f"{gap['moved']} rows moved here, {gap['moved_want']} "
+         f"in (a), {rows_read}; |change - (a)'s change| / |(a)'s change| over all "
+         f"tables {gap['rel']:.3e} {'within' if gap['rel'] <= TWO_RANK_CHANGE else 'BEYOND'}"
+         f" {TWO_RANK_CHANGE:.3e}. The metric's resolution, (a)'s run on the examples "
+         f"in another order: losses max |diff| "
+         f"{(perm_losses - a_losses_t).abs().max().item():.3e}, "
+         f"{len(floor['other_rows'])} tables moved other rows, change {floor['rel']:.3e}. "
+         f"Controls on (a)'s change: no sparse update reads 1, the rows shifted by one "
+         f"read {gap['shifted']:.3f}")
+    if not ok:
+        raise SystemExit("rank 0: the two-rank run disagrees with (a) beyond the limits")
 
 
 def terabyte_rows():
@@ -4149,6 +4552,9 @@ def main():
     # 10. hybrid (whole-table) sharding: world size 1 over NCCL, then two
     # ranks on the card over gloo
     hybrid_two_ranks(hybrid_world_of_one(rows))
+    # 11. row and column sharding: the same, then the column slice's kernels
+    sharded_two_ranks(sharded_world_of_one(rows, smi))
+    check_slice_kernels(rows)
 
     sources = {
         "fused_interaction": ("dlrm_yx_tpu/ops/pallas_interaction.py:84", k1, launches,
@@ -4191,5 +4597,7 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--hybrid-rank"]:
         hybrid_rank_main(sys.argv[2])
+    elif sys.argv[1:2] == ["--sharded-rank"]:
+        sharded_rank_main(sys.argv[2])
     else:
         main()

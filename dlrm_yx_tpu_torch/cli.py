@@ -30,12 +30,15 @@ into ``--profile-out-dir``; ``--collect-execution-graph`` (or
 step there; ``--save-onnx`` exports the inference forward with
 ``torch.export`` to ``<--save-model>/dlrm_torch.pt2`` (``export.py``). The
 mesh flags keep the JAX CLI's meaning: with --mesh-data > 1 or
---mesh-model > 1 a ``parallel.hybrid.HybridRunner`` shards whole tables over
-a world of one process a device (``--distributed`` joins the launcher's
-world, NCCL on the card, gloo on the CPU; ``--force-cpu-devices N`` starts N
-CPU ranks on this host and returns rank 0's result); row and column
-sharding (``--shard-mode row|col``), --debug-mode and
---collect-execution-graph with a mesh raise ``NotImplementedError``.
+--mesh-model > 1 a runner shards the tables over a world of one process a
+device (``--distributed`` joins the launcher's world, NCCL on the card,
+gloo on the CPU; ``--force-cpu-devices N`` starts N CPU ranks on this host
+and returns rank 0's result): ``parallel.hybrid.HybridRunner`` places whole
+tables (``--shard-mode table``), ``parallel.row_sharded.RowShardedRunner``
+splits the big tables' rows (``row``) and
+``parallel.col_sharded.ColShardedRunner`` their columns (``col``); with a
+runner, --collect-execution-graph traces one eager sharded step on copies
+of the params, and --debug-mode fails as the JAX CLI's does.
 ``--print-time``
 and the reference-compat flags of ``add_noop_flags`` are accepted and have
 no effect, as in the JAX CLI.
@@ -84,6 +87,7 @@ from dlrm_yx_tpu_torch.data.synthetic import (
 )
 from dlrm_yx_tpu_torch.data.trace import make_trace_batches
 from dlrm_yx_tpu_torch.export import collect_execution_graph, export_inference
+from dlrm_yx_tpu_torch.models.dlrm import model_groups
 from dlrm_yx_tpu_torch.ops.md_embedding import md_solver
 from dlrm_yx_tpu_torch.ops.quantized import (
     make_fully_quantized_eval_step,
@@ -92,16 +96,16 @@ from dlrm_yx_tpu_torch.ops.quantized import (
 )
 from dlrm_yx_tpu_torch.optim.lr_policy import LRPolicy
 from dlrm_yx_tpu_torch.optim.optimizer import OptConfig
+from dlrm_yx_tpu_torch.parallel.col_sharded import ColShardedRunner
 from dlrm_yx_tpu_torch.parallel.hybrid import HybridRunner
 from dlrm_yx_tpu_torch.parallel.multihost import init_multihost, local_device, spawn_local
+from dlrm_yx_tpu_torch.parallel.row_sharded import RowShardedRunner
 from dlrm_yx_tpu_torch.train.train_step import make_train_step
 from dlrm_yx_tpu_torch.train.trainer import Trainer, TrainerConfig
 from dlrm_yx_tpu_torch.utils.device import resolve_device
 from dlrm_yx_tpu_torch.utils.logging import is_rank0, rank0_print
 from dlrm_yx_tpu_torch.utils.profiling import trace
 
-# --shard-mode values ported with a mesh (row and column sharding are not yet)
-SHARD_MODES = ("table",)
 # where a rank of a --force-cpu-devices world writes its result (rank 0)
 RESULT_ENV = "DLRM_TORCH_RESULT_FILE"
 # --data-generation values ported (all of the JAX CLI's)
@@ -293,8 +297,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="model-parallel (table-sharding) axis size; 0 = all devices")
     p.add_argument("--shard-mode", type=str, default="table",
                    choices=["table", "row", "col"],
-                   help="embedding sharding over 'model': whole tables (row and "
-                        "column slices are not yet ported)")
+                   help="embedding sharding over 'model': whole tables "
+                        "(reference parity), row slices, or column slices")
     p.add_argument("--sharder", type=str, default="naive",
                    help="naive | naive_chunk | greedy | hardcode | input")
     p.add_argument("--allocation", type=str, default="",
@@ -311,17 +315,6 @@ def uses_mesh(args) -> bool:
 def check_ported(args) -> None:
     """Raise on an option whose part is not ported yet, before any process
     starts."""
-    if uses_mesh(args):
-        if args.shard_mode not in SHARD_MODES:
-            raise NotImplementedError(
-                f"--shard-mode {args.shard_mode} is not yet ported to dlrm_yx_tpu_torch "
-                "(row and column sharding; --shard-mode table is)")
-        for flag, on in (("--debug-mode", args.debug_mode),
-                         ("--collect-execution-graph",
-                          args.collect_execution_graph or args.plot_compute_graph)):
-            if on:
-                raise NotImplementedError(
-                    f"{flag} with a mesh is not yet ported to dlrm_yx_tpu_torch")
     if args.data_generation not in DATA_GENERATIONS:
         raise NotImplementedError(
             f"--data-generation={args.data_generation} is not yet ported "
@@ -547,13 +540,26 @@ def debug_print_model(cfg: DLRMConfig, params, precision: int = 5) -> None:
     print(f"sparse feature size: {cfg.base_dim}")
     print(f"# of embeddings (= # of sparse features) {cfg.num_tables}, with "
           f"dimensions {cfg.base_dim}x: {np.array(cfg.emb_rows)}")
+    groups = model_groups(cfg)
     print("initial parameters (weights and bias):")
-    for store in params["emb"]:
-        print(store.detach().float().cpu().numpy())
+    for i, store in enumerate(params["emb"]):
+        print(logical_rows(store, groups[i]))
     for k in ("bot", "top"):
         for w, b in params[k]:
             print(w.detach().cpu().numpy().T)
             print(b.detach().cpu().numpy())
+
+
+def logical_rows(store: torch.Tensor, group) -> np.ndarray:
+    """A group store's [total_rows, dim] rows as numpy, read as the JAX CLI
+    reads them (``unpack_store``: a reshape, a TypeError on a store of
+    another size, as a mesh runner's sharded ``emb`` is)."""
+    a = store.detach().float().cpu().numpy()
+    shape = (group.total_rows, group.dim)
+    if a.size != shape[0] * shape[1]:
+        raise TypeError(f"cannot reshape array of shape {a.shape} (size {a.size}) into shape "
+                        f"{shape} (size {shape[0] * shape[1]})")
+    return a.reshape(shape)
 
 
 def quantized_inference(args, cfg: DLRMConfig, trainer: Trainer, test_batches) -> dict:
@@ -644,6 +650,24 @@ def main(argv=None):
             torch.distributed.destroy_process_group()
 
 
+def make_runner(args, cfg: DLRMConfig, opt: OptConfig, lr_policy):
+    """The mesh runner of --shard-mode (``dlrm_yx_tpu/cli.py:593-633``)."""
+    kw = dict(data=args.mesh_data, model=args.mesh_model or None, lr_fn=lr_policy,
+              seed=args.numpy_rand_seed, n_accum=max(1, args.mlperf_grad_accum_iter),
+              device=args.device)
+    if args.shard_mode == "row":
+        runner = RowShardedRunner(cfg, opt, **kw)
+    elif args.shard_mode == "col":
+        runner = ColShardedRunner(cfg, opt, **kw)
+    else:
+        allocation = ([int(x) for x in args.allocation.replace(",", "-").split("-")]
+                      if args.allocation else None)
+        runner = HybridRunner(cfg, opt, sharder=args.sharder, allocation=allocation, **kw)
+    rank0_print(f"{args.shard_mode}-sharded mesh {dict(runner.mesh.shape)}"
+                + (f", sharder={args.sharder}" if args.shard_mode == "table" else ""))
+    return runner
+
+
 def _run(args, argv):
     np.random.seed(args.numpy_rand_seed)
     cfg = config_from_args(args, argv)
@@ -682,16 +706,7 @@ def _run(args, argv):
                 "unique rows per occurrence (drives the dense-vs-kernel "
                 "update crossover)"
             )
-    runner = None
-    if uses_mesh(args):
-        allocation = ([int(x) for x in args.allocation.replace(",", "-").split("-")]
-                      if args.allocation else None)
-        runner = HybridRunner(cfg, opt, data=args.mesh_data, model=args.mesh_model or None,
-                              sharder=args.sharder, allocation=allocation, lr_fn=lr_policy,
-                              seed=args.numpy_rand_seed,
-                              n_accum=max(1, args.mlperf_grad_accum_iter), device=args.device)
-        rank0_print(f"{args.shard_mode}-sharded mesh {dict(runner.mesh.shape)}, "
-                    f"sharder={args.sharder}")
+    runner = make_runner(args, cfg, opt, lr_policy) if uses_mesh(args) else None
     trainer = Trainer(cfg, opt, tcfg, lr_policy, device=args.device, runner=runner)
     if args.debug_mode:
         debug_print_model(cfg, trainer.params, args.print_precision)
@@ -704,11 +719,19 @@ def _run(args, argv):
         return metrics
     if args.plot_compute_graph or args.collect_execution_graph:
         # one eager step on copies of the params and optimizer state: the
-        # JAX CLI only traces its step, so the run trains from the same state
+        # JAX CLI only traces (or lowers) its step, so the run trains from
+        # the same state. With a runner every rank runs the sharded step
+        # (its collectives) and writes its own trace.
+        b0 = _first_batch(train)
+        if runner is None:
+            step, name = make_train_step(cfg, opt, device=trainer.device), "train_step"
+        else:
+            step, b0 = runner.eager_step(), runner.prepare_batch(b0)
+            rank = runner.mesh.rank
+            name = "hybrid_step" if rank == 0 else f"hybrid_step.rank{rank}"
         arts = collect_execution_graph(
-            make_train_step(cfg, opt, device=trainer.device),
-            (_copies(trainer.params), _copies(trainer.opt_state), _first_batch(train), 0),
-            args.profile_out_dir, "train_step")
+            step, (_copies(trainer.params), _copies(trainer.opt_state), b0, 0),
+            args.profile_out_dir, name)
         rank0_print(f"execution graph artifacts: {arts}")
     t0 = time.time()
     if args.enable_profiling:

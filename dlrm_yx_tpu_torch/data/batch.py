@@ -22,7 +22,7 @@ memory with a non-blocking copy, device tensors device to device.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence, Tuple
+from typing import List, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -62,6 +62,25 @@ def csr_to_padded(
             indices[k, b, :n] = seg
             weights[k, b, :n] = 1.0
     return indices, weights
+
+
+def padded_to_csr(indices: np.ndarray, weights: np.ndarray
+                  ) -> Tuple[List[np.ndarray], List[np.ndarray]]:
+    """The inverse of ``csr_to_padded``: per table, the live (weight > 0)
+    ids in batch order and each sample's offset into them, int64."""
+    t, b, _ = indices.shape
+    ls_i, ls_o = [], []
+    for k in range(t):
+        idx_list, offsets = [], []
+        cur = 0
+        for i in range(b):
+            seg = indices[k, i][weights[k, i] > 0]
+            offsets.append(cur)
+            idx_list.extend(seg.tolist())
+            cur += len(seg)
+        ls_i.append(np.array(idx_list, dtype=np.int64))
+        ls_o.append(np.array(offsets, dtype=np.int64))
+    return ls_i, ls_o
 
 
 def to_device(batch: Batch, device: torch.device) -> Batch:

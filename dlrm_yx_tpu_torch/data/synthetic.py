@@ -168,3 +168,25 @@ class _DeviceBatches:
         if self.round_targets:
             y = (y > 0.5).float()
         return Batch(dense, idx, w, y)
+
+
+def save_batches_hdf5(path: str, batches) -> None:
+    """Write batches to an HDF5 file, one group a batch (the reference's
+    per-batch .hdf5 persistence of RandomDataset); numpy or tensors."""
+    import h5py
+
+    with h5py.File(path, "w") as f:
+        f.attrs["num_batches"] = len(batches)
+        for i, b in enumerate(batches):
+            g = f.create_group(f"batch_{i}")
+            for name in Batch._fields:
+                g.create_dataset(name, data=np.asarray(torch.as_tensor(getattr(b, name)).cpu()))
+
+
+def load_batches_hdf5(path: str) -> List[Batch]:
+    """The batches ``save_batches_hdf5`` wrote, as numpy."""
+    import h5py
+
+    with h5py.File(path, "r") as f:
+        return [Batch(*(np.asarray(f[f"batch_{i}"][name]) for name in Batch._fields))
+                for i in range(int(f.attrs["num_batches"]))]

@@ -1,9 +1,11 @@
-"""Multi-device training: whole-table (hybrid) sharding over a
-``torch.distributed`` mesh, one process a device.
+"""Multi-device training over a ``torch.distributed`` mesh, one process a
+device: whole-table (hybrid), row and column sharding.
 
 ``sharders`` (table placement), ``plan`` (the static layout), ``mesh`` (the
 ("data", "model") process groups), ``multihost`` (joining or starting a
-world), ``hybrid`` (the sharded steps and ``HybridRunner``) and
-``overlap`` (the all-to-all / bottom-MLP order in a trace): the port of
-``dlrm_yx_tpu/parallel``'s table-sharded path.
+world), ``hybrid`` (the table-sharded steps and ``HybridRunner``),
+``row_sharded`` / ``col_sharded`` (the big tables split by rows or by
+columns, ``RowShardedRunner`` / ``ColShardedRunner``) and ``overlap`` (the
+all-to-all / bottom-MLP order in a trace): the port of
+``dlrm_yx_tpu/parallel``.
 """

@@ -252,19 +252,25 @@ def shard_params(mesh: Mesh, plan: ShardingPlan, params: Dict, opt: OptConfig,
             hybrid_opt_state_from_jax(opt_state, opt, plan, mesh.m, mesh.device))
 
 
-def _local_batch(plan: ShardingPlan, mesh: Mesh, b: Batch) -> Batch:
-    """This rank's part of a global batch: its model index's slots of
-    ``arrange_sparse_inputs`` over its data shard's batch, and its
-    ``(d, m)`` slice of dense and labels for the towers."""
+def batch_split(mesh: Mesh, bsz: int):
+    """(rows a data shard looks up, rows a rank's towers take, the first of
+    this rank's tower rows) of a global batch of ``bsz``; raises as the JAX
+    package does when the mesh does not divide it."""
     n_data, n_model = mesh.shape["data"], mesh.shape["model"]
-    bsz = b.labels.shape[0]
     if bsz % (n_data * n_model) or (bsz // n_data) % n_model:
         raise ValueError(
             f"batch size {bsz} incompatible with mesh {dict(mesh.shape)} (needs B % "
             f"(data*model) == 0 and (B/data) % model == 0)")
     bd = bsz // n_data
     bl = bd // n_model
-    lo = (mesh.d * n_model + mesh.m) * bl
+    return bd, bl, (mesh.d * n_model + mesh.m) * bl
+
+
+def _local_batch(plan: ShardingPlan, mesh: Mesh, b: Batch) -> Batch:
+    """This rank's part of a global batch: its model index's slots of
+    ``arrange_sparse_inputs`` over its data shard's batch, and its
+    ``(d, m)`` slice of dense and labels for the towers."""
+    bd, bl, lo = batch_split(mesh, b.labels.shape[0])
     ai, aw = arrange_sparse_inputs(plan, b.indices[:, mesh.d * bd:(mesh.d + 1) * bd],
                                    b.weights[:, mesh.d * bd:(mesh.d + 1) * bd])
     s0 = mesh.m * plan.t_pad
@@ -831,8 +837,14 @@ def make_hybrid_accum_train_step(config: DLRMConfig, plan: ShardingPlan, opt: Op
                                  mesh: Mesh, n_accum: int, lr_fn=None):
     """Gradient accumulation over ``n_accum`` stacked micro-batches, one
     optimizer step; returns (params, opt_state, mean micro-batch loss)."""
-    graph_step = GraphStep(hybrid_accum_body(config, plan, opt, mesh, n_accum), 1,
-                           _lr_fn(opt, lr_fn), mesh.device, mesh.capturable)
+    return accum_step(hybrid_accum_body(config, plan, opt, mesh, n_accum), opt, lr_fn, mesh)
+
+
+def accum_step(body, opt: OptConfig, lr_fn, mesh: Mesh):
+    """step(params, opt_state, batches, iteration) -> (params, opt_state,
+    loss) of an accumulation ``body``: one dispatch, a CUDA-graph replay
+    where the mesh's collectives can be captured."""
+    graph_step = GraphStep(body, 1, _lr_fn(opt, lr_fn), mesh.device, mesh.capturable)
 
     def step(params, opt_state, batches, iteration):
         return params, opt_state, graph_step(params, opt_state, batches, iteration)
@@ -844,8 +856,13 @@ def make_hybrid_accum_train_step(config: DLRMConfig, plan: ShardingPlan, opt: Op
 def make_hybrid_eval_step(config: DLRMConfig, plan: ShardingPlan, mesh: Mesh):
     """eval(params, batch) -> (predictions [B, 1] of the whole batch, loss);
     ``batch`` is this rank's part."""
-    graph_step = GraphStep(hybrid_eval_body(config, plan, mesh), 0, None, mesh.device,
-                           mesh.capturable, inference=True)
+    return eval_step_of(hybrid_eval_body(config, plan, mesh), mesh)
+
+
+def eval_step_of(body, mesh: Mesh):
+    """eval(params, batch) of an eval ``body`` (a CUDA-graph replay where
+    the mesh's collectives can be captured)."""
+    graph_step = GraphStep(body, 0, None, mesh.device, mesh.capturable, inference=True)
 
     def eval_step(params, batch):
         return graph_step(params, None, batch)
@@ -880,7 +897,61 @@ def gather_single_device_params(config: DLRMConfig, plan: ShardingPlan, mesh: Me
             "emb": emb, "vw": None}
 
 
-class HybridRunner:
+class MeshRunner:
+    """What the three mesh runners share: the checkpoint of their sharded
+    pytrees in the JAX package's npz layout, gathered to rank 0 to save and
+    resharded on load. A runner names ``sharded_keys`` (the leaves each
+    model rank holds a part of) and converts its shards with ``_to_jax``."""
+
+    sharded_keys = ()
+
+    def _model_shards(self, tree: Dict) -> List[Dict]:
+        """The M model shards of a rank's tree, gathered over its model group."""
+        if not tree:
+            return [{}] * self.mesh.shape["model"]
+        gathered = {k: self.mesh.all_gather_model(tree[k].unsqueeze(0))
+                    for k in self.sharded_keys if tree.get(k) is not None}
+        return [dict(tree, **{k: g[j] for k, g in gathered.items()})
+                for j in range(self.mesh.shape["model"])]
+
+    def save_checkpoint(self, path: str, params: Dict, opt_state: Dict, **meta) -> None:
+        """Write the JAX package's npz checkpoint of the runner's pytrees, as
+        its ``load_checkpoint`` reads them: every rank takes part in the
+        gather, rank 0 writes. ``meta``: ``write_checkpoint``'s counters."""
+        from dlrm_yx_tpu_torch.train.checkpoint import write_checkpoint
+        from dlrm_yx_tpu_torch.utils.logging import is_rank0
+
+        shards, states = self._model_shards(params), self._model_shards(opt_state)
+        if is_rank0():
+            write_checkpoint(path, *self._to_jax(shards, states), **meta)
+
+    def load_checkpoint(self, path: str, params: Dict, opt_state: Dict) -> Dict:
+        """Read a checkpoint of this runner's kind (this package's or the JAX
+        package's) and copy this rank's shards into ``params`` /
+        ``opt_state`` in place (``reshard``; a captured step stays bound to
+        them); returns its meta."""
+        from dlrm_yx_tpu_torch.train.checkpoint import (
+            _leaves,
+            read_leaves,
+            read_meta,
+            unflatten,
+        )
+
+        trees = []
+        for name, like in (("params", params), ("opt_state", opt_state)):
+            leaves = read_leaves(path, name)
+            if len(leaves) != len(_leaves(like)):
+                raise ValueError(f"{path}/{name}.npz holds {len(leaves)} leaves, the run has "
+                                 f"{len(_leaves(like))}")
+            trees.append(unflatten(like, iter(leaves)))
+        new = self.reshard(*trees)
+        with torch.no_grad():
+            for dst, src in zip(_leaves((params, opt_state)), _leaves(new)):
+                dst.copy_(src)
+        return read_meta(path)
+
+
+class HybridRunner(MeshRunner):
     """The hybrid-parallel pieces behind the Trainer's runner interface
     (``params``, ``opt_state``, ``train_step``, ``eval_step``,
     ``prepare_batch``, ``make_multi_step``, ``reshard``, ``n_accum``), so the
@@ -926,6 +997,11 @@ class HybridRunner:
     def prepare_batch(self, b: Batch) -> Batch:
         return prepare_batch(self.plan, self.mesh, b)
 
+    def eager_step(self):
+        """One optimizer step a call, run eagerly (--collect-execution-graph)."""
+        return make_hybrid_train_step(self.config, self.plan, self.opt, self.mesh, self._lr_fn,
+                                      capture=False)
+
     def reshard(self, params, opt_state):
         """This rank's tensors from host pytrees in the JAX package's
         hybrid layout (e.g. a loaded checkpoint)."""
@@ -934,50 +1010,11 @@ class HybridRunner:
     def single_device_params(self, params: Dict) -> Dict:
         return gather_single_device_params(self.config, self.plan, self.mesh, params)
 
-    def _model_shards(self, tree: Dict) -> List[Dict]:
-        """The M model shards of a rank's tree, gathered over its model group."""
-        if not tree:
-            return [{}] * self.mesh.shape["model"]
-        gathered = {k: self.mesh.all_gather_model(tree[k].unsqueeze(0))
-                    for k in ("emb", "emb_small", "vw", "vw_small") if tree.get(k) is not None}
-        return [dict(tree, **{k: g[j] for k, g in gathered.items()})
-                for j in range(self.mesh.shape["model"])]
+    sharded_keys = ("emb", "emb_small", "vw", "vw_small")
 
-    def save_checkpoint(self, path: str, params: Dict, opt_state: Dict, **meta) -> None:
-        """Write the JAX package's npz checkpoint of the hybrid pytrees (``emb``
-        ``[M, r_big_pad / pack, dim * pack]``, RWSAdagrad's momenta flat over
-        the shards), as its ``load_checkpoint`` reads them: every rank takes
-        part in the gather, rank 0 writes. ``meta``: ``write_checkpoint``'s
-        counters."""
+    def _to_jax(self, shards: List[Dict], states: List[Dict]):
+        """The JAX package's hybrid pytrees (``emb`` ``[M, r_big_pad / pack,
+        dim * pack]``, RWSAdagrad's momenta flat over the shards)."""
         from dlrm_yx_tpu_torch.convert import hybrid_opt_state_to_jax, hybrid_params_to_jax
-        from dlrm_yx_tpu_torch.train.checkpoint import write_checkpoint
-        from dlrm_yx_tpu_torch.utils.logging import is_rank0
 
-        shards, states = self._model_shards(params), self._model_shards(opt_state)
-        if is_rank0():
-            write_checkpoint(path, hybrid_params_to_jax(shards, self.plan),
-                             hybrid_opt_state_to_jax(states, self.plan), **meta)
-
-    def load_checkpoint(self, path: str, params: Dict, opt_state: Dict) -> Dict:
-        """Read a hybrid checkpoint (this package's or the JAX package's) and
-        copy this rank's shards into ``params`` / ``opt_state`` in place
-        (``reshard``; a captured step stays bound to them); returns its meta."""
-        from dlrm_yx_tpu_torch.train.checkpoint import (
-            _leaves,
-            read_leaves,
-            read_meta,
-            unflatten,
-        )
-
-        trees = []
-        for name, like in (("params", params), ("opt_state", opt_state)):
-            leaves = read_leaves(path, name)
-            if len(leaves) != len(_leaves(like)):
-                raise ValueError(f"{path}/{name}.npz holds {len(leaves)} leaves, the run has "
-                                 f"{len(_leaves(like))}")
-            trees.append(unflatten(like, iter(leaves)))
-        new = self.reshard(*trees)
-        with torch.no_grad():
-            for dst, src in zip(_leaves((params, opt_state)), _leaves(new)):
-                dst.copy_(src)
-        return read_meta(path)
+        return hybrid_params_to_jax(shards, self.plan), hybrid_opt_state_to_jax(states, self.plan)

@@ -27,6 +27,9 @@ from dlrm_yx_tpu_torch.utils.device import resolve_device
 # torch 2.13 renames all_gather_into_tensor (which torch 2.11 has) to
 # all_gather_single; the same call
 _all_gather_into = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+# and reduce_scatter_tensor to reduce_scatter_single
+_reduce_scatter_into = (getattr(dist, "reduce_scatter_single", None)
+                        or dist.reduce_scatter_tensor)
 
 
 def world() -> tuple:
@@ -83,6 +86,22 @@ class Mesh:
         if self.distributed:
             dist.all_reduce(t, group=self.world_group)
         return t
+
+    def all_reduce_model(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum over the model group, in place (JAX's ``psum`` over "model")."""
+        if self.distributed and self.shape["model"] > 1:
+            dist.all_reduce(t, group=self.model_group)
+        return t
+
+    def reduce_scatter_model(self, inp: torch.Tensor) -> torch.Tensor:
+        """``inp`` [M, ...] summed over the model group, chunk j of the sum
+        to model rank j: this rank's chunk [...]."""
+        if self.shape["model"] == 1:
+            return inp[0]
+        out = torch.empty(inp.shape[1:], dtype=inp.dtype, device=inp.device)
+        _reduce_scatter_into(out, inp.reshape((-1,) + tuple(inp.shape[2:])),
+                             group=self.model_group)
+        return out
 
     def _all_gather(self, t: torch.Tensor, group, n: int) -> torch.Tensor:
         if not self.distributed:

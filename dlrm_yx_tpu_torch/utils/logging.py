@@ -28,10 +28,15 @@ def rank0_print(*args, **kw) -> None:
 
 class EventLogger:
     """MLPerf-style lifecycle event logger (``log_start`` / ``log_end`` /
-    ``log_event``, the reference's ``mlperf_logger.py:21-60``)."""
+    ``log_event``, the reference's ``mlperf_logger.py:21-60``): each event a
+    ``:::MLLOG`` line on stdout (``stdout``) and appended to ``path``."""
 
-    def __init__(self, benchmark: str = "dlrm"):
+    def __init__(self, benchmark: str = "dlrm", path: Optional[str] = None,
+                 stdout: bool = True):
         self.benchmark = benchmark
+        self.path = path
+        self.stdout = stdout
+        self._f = open(path, "a") if path else None
 
     def _emit(self, event_type: str, key: str, value: Any = None,
               metadata: Optional[Dict] = None) -> None:
@@ -45,7 +50,12 @@ class EventLogger:
             "value": value,
             "metadata": metadata or {},
         }
-        print(":::MLLOG " + json.dumps(rec))
+        line = ":::MLLOG " + json.dumps(rec)
+        if self.stdout:
+            print(line)
+        if self._f:
+            self._f.write(line + "\n")
+            self._f.flush()
 
     def log_start(self, key: str, metadata: Optional[Dict] = None):
         self._emit("INTERVAL_START", key, None, metadata)
@@ -56,6 +66,17 @@ class EventLogger:
     def log_event(self, key: str, value: Any = None,
                   metadata: Optional[Dict] = None):
         self._emit("POINT_IN_TIME", key, value, metadata)
+
+    def submission_block(self, platform: str = "gpu-h100", org: str = "dlrm_yx_tpu_torch"):
+        """The MLPerf submission metadata block (mlperf_logger.py:63-118)."""
+        for key, value in (
+            ("submission_benchmark", self.benchmark),
+            ("submission_division", "closed"),
+            ("submission_org", org),
+            ("submission_platform", platform),
+            ("submission_status", "onprem"),
+        ):
+            self.log_event(key, value)
 
 
 class ScalarWriter:

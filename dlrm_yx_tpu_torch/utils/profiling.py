@@ -15,7 +15,8 @@ from __future__ import annotations
 
 import contextlib
 import os
-from typing import Iterator, List
+import time
+from typing import Iterator, List, Optional
 
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
@@ -50,14 +51,27 @@ def trace(logdir: str) -> Iterator[None]:
 
 
 class StepTimer:
-    """Per-iteration wall-clock seconds (``times``, appended by the caller)
-    and an epoch average that leaves out the first iterations (the
-    reference's bookkeeping, dlrm_s_pytorch.py:1845-1846,1966-1988)."""
+    """Per-iteration wall-clock seconds (``times``: appended by ``stop``
+    after ``start``, or by the caller) and an epoch average that leaves out
+    the first iterations (the reference's bookkeeping,
+    dlrm_s_pytorch.py:1845-1846,1966-1988)."""
 
     def __init__(self, warmup_iters: int = 2):
         self.warmup = warmup_iters
         self.times: List[float] = []
+        self._t0: Optional[float] = None
+
+    def start(self) -> None:
+        self._t0 = time.perf_counter()
+
+    def stop(self) -> float:
+        dt = time.perf_counter() - self._t0
+        self.times.append(dt)
+        return dt
 
     def mean_ms(self) -> float:
         eff = self.times[self.warmup:] or self.times
         return 1000.0 * sum(eff) / max(len(eff), 1)
+
+    def total_s(self) -> float:
+        return sum(self.times)

@@ -95,8 +95,14 @@ def test_cli_training_with_every_noop_flag_matches_jax_cli():
 
 
 @pytest.mark.parametrize("extra", [
-    ["--force-cpu-devices", "4", "--mesh-model", "2", "--shard-mode", "col"],
-    ["--allocation", "0-1", "--mesh-model", "2", "--shard-mode", "row"]])
+    ["--force-cpu-devices", "4", "--mesh-data", "2", "--mesh-model", "2", "--shard-mode", "col"],
+    ["--force-cpu-devices", "2", "--allocation", "0-1", "--mesh-model", "2",
+     "--shard-mode", "row"]])
 def test_unported_flags_still_raise_beside_noop_flags(extra):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        port_cli.main(SERVE + ["--use-gpu", "--pin-memory"] + extra + ["--device", "cpu"])
+    """The mesh flags beside no-op flags: row and column sharding serve on
+    gloo ranks with the JAX CLI's metrics."""
+    flags = SERVE + ["--use-gpu", "--pin-memory"] + extra
+    want = jax_cli_main(flags)
+    got = port_cli.main(flags + ["--device", "cpu"])
+    assert set(got) == set(want) and got["accuracy"] == want["accuracy"]
+    assert abs(got["streaming_auc"] - want["streaming_auc"]) <= 1e-6

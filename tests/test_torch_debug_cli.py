@@ -72,11 +72,14 @@ def test_only_the_mesh_flags_are_left_unported():
 
     jax_args = vars(jax_parser().parse_args([]))
     port_args = vars(port_cli.build_parser().parse_args([]))
-    # every JAX flag is declared (the port adds --device); what is left of
-    # the mesh flags is row and column sharding
+    # every JAX flag is declared (the port adds --device), and every shard
+    # mode runs with a mesh (row and column sharding were the last)
     assert set(port_args) - set(jax_args) == {"device"}
     assert set(jax_args) <= set(port_args)
-    assert port_cli.SHARD_MODES == ("table",)
+    for mode in ("table", "row", "col"):
+        port_cli.check_ported(port_cli.build_parser().parse_args(
+            ["--mesh-model=2", f"--shard-mode={mode}", "--debug-mode",
+             "--collect-execution-graph"]))
     for flag in ("print-precision", "debug-mode", "enable-profiling", "plot-compute-graph",
                  "collect-execution-graph", "save-onnx", "quantize-mlp-with-bit",
                  "quantize-emb-with-bit"):

@@ -3,8 +3,9 @@ CLI: ``--force-cpu-devices N`` (N gloo CPU ranks on this host; JAX
 simulates N devices in one process), two processes started with
 ``--distributed`` and the launcher's env vars, ``--sharder input
 --allocation``, the mesh flags at their single-device values (a mesh only
-for --mesh-data > 1 or --mesh-model > 1, as in JAX), the refused shard
-modes, ``--save-onnx`` and checkpoints from a runner.
+for --mesh-data > 1 or --mesh-model > 1, as in JAX), ``--save-onnx`` and
+checkpoints from a runner (row and column sharding:
+``test_torch_sharded_cli.py``).
 
 The JAX CLI runs in the test process on its 8 virtual CPU devices; the
 port's ranks are processes (``parallel.multihost.spawn_local``), which
@@ -142,13 +143,6 @@ def test_single_device_mesh_values_run_as_in_jax(monkeypatch, plain_run, extra):
     want = jax_cli_main(TINY + extra)
     assert set(got) == set(want) and got["accuracy"] == want["accuracy"]
     assert abs(got["streaming_auc"] - want["streaming_auc"]) <= 1e-6
-
-
-@pytest.mark.parametrize("mode", ["row", "col"])
-def test_row_and_column_sharding_raise_naming_the_mode(mode):
-    with pytest.raises(NotImplementedError, match=f"--shard-mode {mode} is not yet ported"):
-        port_cli.main(TINY + ["--mesh-model", "2", "--shard-mode", mode,
-                              "--force-cpu-devices", "2"])
 
 
 def test_mesh_flags_keep_the_jax_types_and_defaults():

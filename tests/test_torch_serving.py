@@ -198,10 +198,13 @@ def test_cli_inference_matches_jax_cli(mlperf):
      ["--sharder", "greedy", "--mesh-model", "2", "--shard-mode", "col"]],
 )
 def test_cli_rejects_unported_flags(extra):
-    """Row and column sharding (--shard-mode row|col with a mesh) are not
-    ported; the mesh flags' other values are (tests/test_torch_hybrid_cli.py)."""
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        port_cli.main(CLI_FLAGS + ["--device", "cpu"] + extra)
+    """Every mesh flag is ported: row and column sharding (--shard-mode
+    row|col with a mesh) serve on two gloo ranks with the JAX CLI's metrics
+    (more in tests/test_torch_sharded_cli.py)."""
+    want = jax_cli_main(CLI_FLAGS + extra)
+    got = port_cli.main(CLI_FLAGS + ["--device", "cpu", "--force-cpu-devices", "2"] + extra)
+    assert set(got) == set(want) and got["accuracy"] == want["accuracy"]
+    assert abs(got["streaming_auc"] - want["streaming_auc"]) <= 1e-6
 
 
 def test_cli_without_inference_only_is_not_ported():
@@ -209,11 +212,14 @@ def test_cli_without_inference_only_is_not_ported():
     --no-write-only-update and --stochastic-rounding; multi-step dispatch
     and gradient accumulation in tests/test_torch_trainer.py; checkpoints
     in tests/test_torch_checkpoint.py; table sharding in
-    tests/test_torch_hybrid_cli.py); its options whose parts are not (row
-    and column sharding) raise."""
-    flags = [f for f in CLI_FLAGS if f != "--inference-only"] + ["--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        port_cli.main(flags + ["--mesh-model", "2", "--shard-mode", "row"])
+    tests/test_torch_hybrid_cli.py), row sharding among its options: two
+    gloo ranks train with the JAX CLI's metrics."""
+    flags = [f for f in CLI_FLAGS if f != "--inference-only"] + [
+        "--mesh-model", "2", "--shard-mode", "row"]
+    want = jax_cli_main(flags)
+    got = port_cli.main(flags + ["--device", "cpu", "--force-cpu-devices", "2"])
+    assert set(got) == set(want) and got["accuracy"] == want["accuracy"]
+    assert abs(got["streaming_auc"] - want["streaming_auc"]) <= 1e-6
 
 
 def test_cuda_asked_for_and_absent_raises(monkeypatch):

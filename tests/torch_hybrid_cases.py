@@ -1,7 +1,9 @@
 """The cases of the hybrid-step tests (``test_torch_hybrid.py``,
 ``test_torch_hybrid_mesh.py``): the port's hybrid (whole-table sharded)
 steps in gloo worlds of CPU ranks against the JAX package's
-``HybridRunner`` on the same mesh shape (its 8 virtual CPU devices).
+``HybridRunner`` on the same mesh shape (its 8 virtual CPU devices); the
+row and column tests (``torch_sharded_cases.py``) run their cases through
+the same worlds and the same checks (a case's ``mode``).
 
 Each mesh shape's world runs once (``tests/torch_hybrid_worker.py``, started
 as processes outside pytest) and writes every case's losses, tables and
@@ -110,6 +112,24 @@ def world_runner(tmp_path_factory, cases=None, meshes=None):
     return run
 
 
+def jax_runner(case, cfg, mesh):
+    """(the JAX package's runner of the case's ``mode`` on the mesh shape,
+    its tables from its stores)."""
+    from dlrm_yx_tpu.parallel.col_sharded import ColShardedRunner, extract_col_sharded_tables
+    from dlrm_yx_tpu.parallel.row_sharded import RowShardedRunner, extract_row_sharded_tables
+
+    opt, n_accum = JaxOpt(case["opt"], case["lr"]), case.get("n_accum", 1)
+    mode = case.get("mode", "table")
+    if mode == "table":
+        runner = JaxRunner(cfg, opt, data=mesh[0], model=mesh[1],
+                           sharder=case.get("sharder", "greedy"), seed=SEED, n_accum=n_accum)
+        return runner, lambda emb, small: jax_extract_tables(runner.plan, cfg, emb, small)
+    cls, extract = ((RowShardedRunner, extract_row_sharded_tables) if mode == "row"
+                    else (ColShardedRunner, extract_col_sharded_tables))
+    runner = cls(cfg, opt, data=mesh[0], model=mesh[1], seed=SEED, n_accum=n_accum)
+    return runner, lambda emb, small: extract(runner.plan, emb, small)
+
+
 def jax_run(monkeypatch, mesh, case):
     """JAX's HybridRunner on the same mesh shape: (losses, tables, eval
     predictions of the first batch)."""
@@ -117,8 +137,7 @@ def jax_run(monkeypatch, mesh, case):
         monkeypatch.setattr(jax_opt, name, value)
     cfg = JaxConfig.build(**case.get("config", CONFIG), sparse_update_impl=case["impl"])
     n_accum = case.get("n_accum", 1)
-    runner = JaxRunner(cfg, JaxOpt(case["opt"], case["lr"]), data=mesh[0], model=mesh[1],
-                       sharder=case.get("sharder", "greedy"), seed=SEED, n_accum=n_accum)
+    runner, extract = jax_runner(case, cfg, mesh)
     p, s = runner.params, jax.tree.map(lambda a: a + ACC0, runner.opt_state)
     bs = batches(cfg.emb_rows, case)
     losses = []
@@ -127,8 +146,8 @@ def jax_run(monkeypatch, mesh, case):
     for i, b in enumerate(groups):
         p, s, loss = runner.train_step(p, s, runner.prepare_batch(b), i)
         losses.append(float(loss))
-    tables = jax_extract_tables(runner.plan, cfg, np.asarray(p["emb"]),
-                                np.asarray(p["emb_small"]))
+    tables = extract(np.asarray(p["emb"]),
+                     None if p["emb_small"] is None else np.asarray(p["emb_small"]))
     preds, _ = runner.eval_step(p, runner.prepare_batch(bs[0]))
     extra = {k: np.asarray(p[k]) for k in ("vw", "vw_small", "qr_r") if p.get(k) is not None}
     extra.update({f"md_proj{i}": np.asarray(w) for i, w in enumerate(p.get("md_proj", []))})
@@ -158,5 +177,5 @@ def check_world_case(monkeypatch, got, mesh, name, cases=None):
     if case["kind"] == "multistep":
         np.testing.assert_array_equal(got[f"{name}/losses"], got[f"{name}/single_losses"])
         flat = np.concatenate([got[f"{name}/table{t}"].reshape(-1)
-                               for t in range(len(CONFIG["emb_rows"]))])
+                               for t in range(len(case.get("config", CONFIG)["emb_rows"]))])
         np.testing.assert_array_equal(flat, got[f"{name}/single_tables"])

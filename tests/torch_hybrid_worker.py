@@ -1,4 +1,4 @@
-"""One rank of a gloo world that runs the port's hybrid steps on the CPU.
+"""One rank of a gloo world that runs the port's sharded steps on the CPU.
 
     python tests/torch_hybrid_worker.py SPEC.json
 
@@ -6,7 +6,9 @@
 ``dlrm_yx_tpu_torch.parallel.multihost.spawn_local``). SPEC gives the mesh
 ``[D, M]``, the model (``DLRMConfig.build`` keywords), the batch seed, the
 routing constants to patch (``PALLAS_MIN_STORE_BYTES`` ...), the cases and
-the output path; a case may bring its own model (``config``). Each case builds a ``HybridRunner`` from ``seed``, its optimizer
+the output path; a case may bring its own model (``config``). Each case builds its
+runner (``mode``: ``table``, the default, a ``HybridRunner``; ``row`` or ``col``, a
+``RowShardedRunner`` or ``ColShardedRunner``) from ``seed``, its optimizer
 state raised to ``acc0``, and runs its steps on the port's random batches; rank 0 writes, per case, the losses,
 every table after the steps (gathered from the model shards and
 ``extract_tables``; and ``vw`` / ``vw_small`` gathered, ``qr_r``, ``md_proj``
@@ -37,9 +39,11 @@ from dlrm_yx_tpu_torch.data.synthetic import (  # noqa: E402
     make_random_batches,
 )
 from dlrm_yx_tpu_torch.optim.optimizer import OptConfig  # noqa: E402
+from dlrm_yx_tpu_torch.parallel.col_sharded import ColShardedRunner  # noqa: E402
 from dlrm_yx_tpu_torch.parallel.hybrid import HybridRunner  # noqa: E402
 from dlrm_yx_tpu_torch.parallel.multihost import init_multihost  # noqa: E402
 from dlrm_yx_tpu_torch.parallel.plan import extract_tables  # noqa: E402
+from dlrm_yx_tpu_torch.parallel.row_sharded import RowShardedRunner  # noqa: E402
 
 
 def batches_of(cfg, case, seed):
@@ -66,7 +70,19 @@ def leaves(tree):
     return []
 
 
+def make_runner(case, cfg, opt, kw):
+    """The case's runner: ``mode`` table (HybridRunner, the default), row or
+    col."""
+    mode = case.get("mode", "table")
+    if mode == "table":
+        return HybridRunner(cfg, opt, **kw)
+    cls = RowShardedRunner if mode == "row" else ColShardedRunner
+    return cls(cfg, opt, **{k: v for k, v in kw.items() if k != "sharder"})
+
+
 def tables(runner):
+    if not isinstance(runner, HybridRunner):
+        return [t.numpy() for t in runner.tables(runner.params)]
     mesh = runner.mesh
     big = mesh.all_gather_model(runner.params["emb"].unsqueeze(0))
     small = mesh.all_gather_model(runner.params["emb_small"].unsqueeze(0))
@@ -81,7 +97,7 @@ def run_case(spec, case, out):
     n_accum = case.get("n_accum", 1)
     kw = dict(data=data, model=model, sharder=case.get("sharder", "greedy"),
               seed=spec["seed"], n_accum=n_accum, device="cpu")
-    runner = HybridRunner(cfg, opt, **kw)
+    runner = make_runner(case, cfg, opt, kw)
     start(runner, spec)
     bs = batches_of(cfg, case, spec["batch_seed"])
     name = case["name"]
@@ -89,7 +105,7 @@ def run_case(spec, case, out):
         step = runner.make_multi_step(case["steps"])
         losses = step(runner.params, runner.opt_state,
                       runner.prepare_batch(stack_batches(bs)), 0)[2]
-        single = HybridRunner(cfg, opt, **kw)
+        single = make_runner(case, cfg, opt, kw)
         start(single, spec)
         out[f"{name}/single_losses"] = np.array(
             [float(single.train_step(single.params, single.opt_state,
@@ -110,9 +126,10 @@ def run_case(spec, case, out):
     for t, w in enumerate(tables(runner)):
         out[f"{name}/table{t}"] = w
     for key in ("vw", "vw_small"):
-        if runner.params.get(key) is not None:
-            out[f"{name}/{key}"] = runner.mesh.all_gather_model(
-                runner.params[key].unsqueeze(0)).numpy()
+        v = runner.params.get(key)
+        if v is not None:
+            out[f"{name}/{key}"] = (runner.mesh.all_gather_model(v.unsqueeze(0))
+                                    if key in runner.sharded_keys else v).numpy()
     if "qr_r" in runner.params:
         out[f"{name}/qr_r"] = runner.params["qr_r"].numpy()
     for i, w in enumerate(runner.params.get("md_proj", [])):
