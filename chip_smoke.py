@@ -8,10 +8,19 @@ no result):
   2. build: every kernel under dlrm_yx_tpu_torch/csrc, compiled with nvcc;
   3. kernel: K1 (fused interaction) against its plain PyTorch version on the
      card at the serving path's shapes, with its time, the plain version's
-     and the least time the card could take (the bound);
+     and the least time the card could take (the bound); each kernel's
+     main row is also timed cold (``device_time_ms(cold=True)``: a 128 MiB
+     write before each call empties the L2), and a cold reading below its
+     bound fails the phase (the byte count is wrong or work was skipped);
   a. kernel: K2 (sparse_rows_overwrite) and K3 (rwsadagrad_dense_finish)
      against their plain versions at the training path's shapes, with the
-     same numbers and, for K2, one PyTorch call's (``index_add_``); then K2
+     same numbers and, for K2, one PyTorch call's (``index_add_``); K3 timed
+     warm and cold, its cold reading held to the bound; then K3 on a store
+     of each width of FINISH_ROUTE_DIMS (every route of the kernel: lane
+     groups of 1 to 16 lanes, a warp per row), f32 and bf16, one launch a
+     store and in grouped launches (rwsadagrad_dense_finish_many: 48
+     stores in one launch, 70 in two), untouched rows bit-identical, the
+     launches counted; then K2
      on more traffic (TRAFFIC: all rows unique, a hot row on half of K, all
      K on one row, a skewed stream, no active item, K=1, K=32,768), each
      against the plain version run on the CPU over the touched rows (where
@@ -64,7 +73,7 @@ no result):
      K6), the mixed-dimension L=1 step (N=4: K1, K2, K3), the QR L=1 step
      (N=4: K1, K3, K4) and the L=100 step with learned pooling weights (N=4:
      K5; v_W 0, negative and random), each with the eager steps' launch
-     counts;
+     counts (K3 once an optimizer step, grouped, on the L=1 paths);
   6. throughput: the eager eval step at full width, CUDA-event timed, with
      the fused kernel and with the plain interaction, in turns;
   d. throughput: the eager train step at full width, CUDA-event timed over
@@ -76,7 +85,10 @@ no result):
      L=1 train, L=100 SGD and capacity (SR off) steps, and the captured eval
      step (one batch a replay) against the eager one; then the captured N=16
      L=1 step of the mixed-dimension and QR models against the plain one,
-     in turns;
+     in turns; before them, the MD and QR steps' K3 stores as one eager
+     step collects them, in one grouped launch against the plain version,
+     timed warm and cold and beside one launch a store (the QR row goes in
+     the kernels line as rwsadagrad_dense_finish_many);
   7. profile: a torch.profiler window over the eager serving step: device
      busy share and the kernels that take the time;
   e. profile: a torch.profiler window over the eager train step;
@@ -149,19 +161,24 @@ no result):
      one batch of pooled ids from the dataset the port's generator writes
      under build/chip_smoke_data: 12 tables, rows 500-10,000, pooling 1-32,
      10 batches of 2048, m_den 512); each with its time, the plain version's, index_add_'s (K2, K4)
-     and its bound;
+     and its bound; K3 warm and cold; then the processed model's groups as
+     one eager train step collects them, in one grouped launch, against the
+     plain version, timed warm and cold and beside one launch a store;
   y. variants: through ``cli.main``, launch counts set to 0 just before and
      read just after: Terabyte-MLPerf (1M cap) with --md-flag
-     --md-round-dims (K2 once a step on the dim-4 big group, K3 four times,
-     K1 per step and eval batch; no big-store row that no live lookup
+     --md-round-dims (K2 once a step on the dim-4 big group, K3 once: its
+     four small groups in one grouped launch, K1 per step and eval batch;
+     no big-store row that no live lookup
      touched changed), Kaggle's model with --md-flag --md-round-dims (SGD,
      B=128: K2 once a step on the dim-1 big group), Terabyte-MLPerf with
-     --qr-flag (K4 on the 7 quotient tables of 64 MiB or more, K3 on the
-     small group and the other 29 QR sub-tables, K1) and served again with
+     --qr-flag (K4 on the 7 quotient tables of 64 MiB or more, K3 once: the
+     small group and the other 29 QR sub-tables in one grouped launch, K1)
+     and served again with
      --inference-only, the L=100 benchmark with --weighted-pooling learned
      (K5 once a step and nothing else; v_W moved only on looked-up rows),
-     and phase x's processed dataset, trained (RWSAdagrad: K3 once a dim
-     group a step) and served with --load-processed;
+     and phase x's processed dataset, trained (RWSAdagrad: K3 once a step,
+     every dim group in one grouped launch) and served with
+     --load-processed;
   z. reference: small mixed-dimension (K2 at widths 1 and 2, K3, K4 on the
      momenta), QR (K4, K3, K1) and learned-pooling L=100 (K5, v_W 0 and
      negative on some rows) models, an eval step and three train steps on
@@ -233,8 +250,11 @@ no result):
      for bit against their plain versions on the CPU, with their times,
      the plain versions', ``index_add_``'s and the bounds.
 Then a JSON line of the kernels (launches from the path each kernel serves:
-K1-K3 phase b, K5 phase g, K6 phase h, K4 phase m), nvidia-smi's line, and
-the result line.
+K1-K3 phase b, K5 phase g, K6 phase h, K4 phase m; K3's grouped launch of
+many stores as its own row, timed on the QR step's stores, its launches
+from phase y's QR run; every row with its warm and cold times, ``ms`` the
+warm one),
+nvidia-smi's line, and the result line.
 
 Bound: bytes each input read once and each output written once over
 3.35 TB/s, or operations over the card's peak for their type (67 TFLOP/s
@@ -262,6 +282,7 @@ N_SERVE_BATCHES = 4
 N_TRAIN_BATCHES = 4  # the training run's steps; its eval takes as many batches
 BATCH = 2048
 LR = 0.01
+FLUSH_BYTES = 128 << 20  # the cold timer's scratch write: well past the 50 MB L2
 
 
 def fail(msg):
@@ -276,30 +297,59 @@ def say(phase, msg):
     print(f"[{phase}] {msg}", flush=True)
 
 
-def device_time_ms(fn, reps=20, samples=50):
+def device_time_ms(fn, reps=20, samples=50, cold=False):
     """Median device time of one fn() call: fn is captured ``reps`` times
     into a CUDA graph, and each of ``samples`` replays is timed with CUDA
-    events, so the host's per-call overhead is not in the number."""
+    events, so the host's per-call overhead is not in the number.
+
+    Warm (the default), a working set under the L2's 50 MB is read from the
+    L2 by every call after the first. Cold, the graph holds ``reps`` x (a
+    write of a FLUSH_BYTES scratch buffer, then the call), a second graph
+    the writes alone; the two replay in turns, and the call's time is the
+    median of their differences over ``reps``: each call finds its inputs
+    in device memory, as a train step finds a store it last touched a step
+    before."""
     import torch
 
     fn()
     torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
+    scratch = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda") if cold else None
+    graphs = []
+    for with_fn in (True, False) if cold else (True,):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                if cold:
+                    scratch.fill_(1)
+                if with_fn:
+                    fn()
+        graph.replay()
+        graphs.append(graph)
     torch.cuda.synchronize()
     times = []
     for _ in range(samples):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        graph.replay()
-        e1.record()
-        e1.synchronize()
-        times.append(e0.elapsed_time(e1) / reps)
+        sample = []
+        for graph in graphs:
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            graph.replay()
+            e1.record()
+            e1.synchronize()
+            sample.append(e0.elapsed_time(e1) / reps)
+        times.append(sample[0] - sample[1] if cold else sample[0])
+    del graphs, scratch
     return statistics.median(times)
+
+
+def cold_reading(what, fn, bound, reps=20, samples=50):
+    """fn's cold device time (``device_time_ms(cold=True)``); fails where it
+    is below ``bound``, the least time the card could take: the byte count
+    is wrong or the kernel skipped work."""
+    ms = device_time_ms(fn, reps, samples, cold=True)
+    if not ms >= bound:
+        fail(f"{what}: cold reading {ms:.5f} ms below its bound {bound:.5f} ms")
+    return ms
 
 
 def bound_ms(nbytes, flops):
@@ -353,8 +403,12 @@ def check_interaction_kernel():
                       f"kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, "
                       f"bound {bound_ms:.5f} ms ({bound_by})")
         if row is None:
-            row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                   "bound_ms": bound_ms, "bound_by": bound_by}
+            row = {"max_abs_err": err, "ms": ms, "warm_ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "cold_ms": cold_reading(f"fused_interaction B={b} {cdt}",
+                                           lambda: fused_interaction(x, ly, itself, cdt),
+                                           bound_ms)}
+            say("kernel", f"  cold (L2 flushed before each call): {row['cold_ms']:.5f} ms")
     return row
 
 
@@ -647,9 +701,12 @@ def check_overwrite_kernel(big):
                   f"{plain_ms:.5f} ms, index_add_ {library_ms:.5f} ms, bound {bound:.5f} ms "
                   f"({by}, {nbytes} B)")
     del masked, idx64
+    cold = cold_reading("sparse_rows_overwrite",
+                        lambda: sparse_rows_overwrite(store, idx, new_vals, delta, active), bound)
+    say("kernel", f"  cold (L2 flushed before each call): {cold:.5f} ms")
     check_overwrite_traffic(big, store, gen, tol)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": by, "library_ms": library_ms}
+    return {"max_abs_err": err, "ms": ms, "warm_ms": ms, "cold_ms": cold, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": library_ms}
 
 
 def check_finish_kernel(small):
@@ -663,13 +720,33 @@ def check_finish_kernel(small):
                        gen, (torch.float32, torch.bfloat16), acc_tol=1e-6)
 
 
+def finish_bytes(store, dense_g):
+    """K3's bytes on one store: the gradient read whole; each touched row's
+    store read and written and its accumulator entry read and written.
+    Returns (bytes, touched rows)."""
+    r, w = dense_g.shape
+    touched = int((dense_g != 0).any(dim=1).sum().item())
+    return 4 * r * w + touched * (2 * store.element_size() * w + 8), touched
+
+
+def finish_tols(dtype, want_a, acc_tol=None):
+    """(store, accumulator) tolerances of K3 against its plain version: both
+    sum g*g in f32 in other orders, so a bf16 store may round one ulp apart
+    (2^-8 of the value); the accumulators agree to ``acc_tol``, by default
+    1e-6 of the largest (pooled ids sum many rows)."""
+    import torch
+
+    tol = 1e-6 if dtype == torch.float32 else 2.0 ** -8
+    return tol, acc_tol if acc_tol is not None else 1e-6 * max(1.0, want_a.abs().max().item())
+
+
 def finish_case(what, group, ids, gen, dtypes=None, acc_tol=None):
     """K3 on a group's store (f32, or each of ``dtypes``), its padded
     accumulator and the coalesced gradient of the global row ids ``ids`` (a
-    random gradient row each): against the plain version, the accumulator's
-    padding kept, timed; returns the first dtype's row of the kernels line.
-    Both sum g*g in f32 in other orders: the accumulators agree to
-    ``acc_tol``, by default 1e-6 of the largest (pooled ids sum many rows)."""
+    random gradient row each): against the plain version (``finish_tols``),
+    the accumulator's padding kept, timed warm and cold (the cold reading
+    held to its bound); returns the first dtype's row of the kernels line.
+    ``acc_tol``: see ``finish_tols``."""
     import torch
 
     from dlrm_yx_tpu_torch.ops.dense_finish import (
@@ -682,45 +759,224 @@ def finish_case(what, group, ids, gen, dtypes=None, acc_tol=None):
     ids = ids.long()
     dense_g = torch.zeros(r, w, device="cuda")
     dense_g.index_add_(0, ids, torch.randn(ids.numel(), w, device="cuda", generator=gen))
-    touched = int((dense_g != 0).any(dim=1).sum().item())
     acc = torch.rand(acc_len(r), device="cuda", generator=gen)
     row = None
     for dtype in dtypes or (torch.float32,):
         store = (torch.rand(r, w, device="cuda", generator=gen) - 0.5).to(dtype)
-        got_s, got_a = rwsadagrad_dense_finish(store.clone(), acc.clone(), dense_g, LR, w,
-                                               1e-10)
-        want_s, want_a = rwsadagrad_dense_finish_reference(store.clone(), acc.clone(),
-                                                           dense_g, LR, w, 1e-10)
+        got = rwsadagrad_dense_finish(store.clone(), acc.clone(), dense_g, LR, w, 1e-10)
+        want = rwsadagrad_dense_finish_reference(store.clone(), acc.clone(), dense_g, LR, w,
+                                                 1e-10)
         torch.cuda.synchronize()
-        # a bf16 store may then round one ulp apart (2^-8 of the value)
-        tol = 1e-6 if dtype == torch.float32 else 2.0 ** -8
-        atol = acc_tol if acc_tol is not None else 1e-6 * max(1.0, want_a.abs().max().item())
-        err = (got_s.float() - want_s.float()).abs().max().item()
-        aerr = (got_a - want_a).abs().max().item()
-        if not (err <= tol and aerr <= atol and torch.equal(got_a[r:], acc[r:])):
-            fail(f"rwsadagrad_dense_finish {what} {dtype}: store err {err} > {tol} or acc err "
-                 f"{aerr} > {atol}, or the accumulator's padding changed")
+        err, aerr, tol, atol = check_finished(f"rwsadagrad_dense_finish {what}", [got], [want],
+                                              [(store, acc, dense_g)], acc_tol)
+        del got, want
+        nbytes, touched = finish_bytes(store, dense_g)
+        bound, by = bound_ms(nbytes, touched * 5 * w)
         # the lr on the card, as the train step passes it (a float would add a fill a call)
         lr = torch.full((), LR, device="cuda")
-        ms = device_time_ms(lambda: rwsadagrad_dense_finish(store, acc, dense_g, lr, w, 1e-10))
+
+        def call():
+            rwsadagrad_dense_finish(store, acc, dense_g, lr, w, 1e-10)
+
+        warm = device_time_ms(call)
+        cold = cold_reading(f"rwsadagrad_dense_finish {what} {dtype}", call, bound)
         plain_ms = device_time_ms(
             lambda: rwsadagrad_dense_finish_reference(store, acc, dense_g, LR, w, 1e-10))
-        # the gradient read whole; each touched row's store read and
-        # written and its accumulator entry read and written
-        esize = store.element_size()
-        nbytes = 4 * r * w + touched * (2 * esize * w + 8)
-        bound, by = bound_ms(nbytes, touched * 5 * w)
         say("kernel", f"rwsadagrad_dense_finish {what}: store [{r}, {w}] {dtype}, acc "
                       f"{acc.numel()}, {touched} rows touched by {ids.numel()} ids: max_abs_err "
                       f"{err:.3e} (tol {tol:.3e}), acc err {aerr:.3e} (tol {atol:.3e}); kernel "
-                      f"{ms:.5f} ms, plain {plain_ms:.5f} ms, bound {bound:.5f} ms ({by}, "
-                      f"{nbytes} B)")
+                      f"cold {cold:.5f} ms, warm {warm:.5f} ms, plain {plain_ms:.5f} ms, "
+                      f"bound {bound:.5f} ms ({by}, {nbytes} B)")
         if row is None:
-            row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                   "bound_ms": bound, "bound_by": by,
+            row = {"max_abs_err": err, "ms": warm, "cold_ms": cold, "warm_ms": warm,
+                   "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
                    # no single PyTorch call does a row-wise Adagrad step
                    "library_ms": None}
     return row
+
+
+# K3's routes by row width (the kernel's narrow_lanes): on the 16-byte route
+# (dim % 4 == 0) lane groups of G = 1, 2, 4 (dim 12: a lane idle), 4, 8, 16
+# lanes up to 64 columns, a warp per row from 68 (dim 100: lanes idle; 160
+# and past: a second chunk for some lanes, 640: five); on the scalar route
+# lane groups of G = 1, 2, 4, 8, 16 up to 15 columns (dim 3: a lane idle),
+# a warp per row from 17 (dims 31 and 33 about one pass of the warp, 130
+# several)
+FINISH_ROUTE_DIMS = (4, 8, 12, 16, 32, 64, 68, 100, 128, 160, 256, 384, 512, 640,
+                     1, 2, 3, 5, 9, 15, 17, 31, 33, 130)
+
+
+def finish_inputs(r, w, dtype, gen, live=0.2):
+    """(store [r, w] of ``dtype``, a padded accumulator, a gradient whose
+    rows are nonzero on a ``live`` share of the rows and zero elsewhere)."""
+    import torch
+
+    from dlrm_yx_tpu_torch.optim.optimizer import acc_len
+
+    store = (torch.rand(r, w, device="cuda", generator=gen) - 0.5).to(dtype)
+    acc = torch.rand(acc_len(r), device="cuda", generator=gen)
+    g = torch.randn(r, w, device="cuda", generator=gen)
+    g *= (torch.rand(r, 1, device="cuda", generator=gen) < live).float()
+    return store, acc, g
+
+
+def check_finished(what, got, want, before, acc_tol=None):
+    """K3's (store, acc) pairs against the plain version's (``finish_tols``),
+    with each untouched row's store and accumulator entry and each
+    accumulator's padding bit-identical to ``before`` (store, acc, g).
+    Returns the largest store and accumulator errors, with the last
+    item's tolerances."""
+    import torch
+
+    worst = (0.0, 0.0)
+    for (gs, ga), (ws, wa), (s0, a0, g) in zip(got, want, before):
+        r, w = s0.shape
+        tol, atol = finish_tols(s0.dtype, wa, acc_tol)
+        err = (gs.float() - ws.float()).abs().max().item()
+        aerr = (ga - wa).abs().max().item()
+        idle = ~(g != 0).any(dim=1)
+        kept = (torch.equal(bits(gs[idle]), bits(s0[idle]))
+                and torch.equal(bits(ga[:r][idle]), bits(a0[:r][idle]))
+                and torch.equal(bits(ga[r:]), bits(a0[r:])))
+        if not (err <= tol and aerr <= atol and kept):
+            fail(f"{what}, store [{r}, {w}] {s0.dtype}: store err {err} > {tol} or acc err "
+                 f"{aerr} > {atol}, or an untouched row or the padding changed: {not kept}")
+        worst = (max(worst[0], err), max(worst[1], aerr))
+    return worst + (tol, atol)
+
+
+def check_finish_routes():
+    """Phase a, K3's routes: a store of each width of FINISH_ROUTE_DIMS, f32
+    and bf16, 3,001 rows (a ragged last tile), a fifth of them touched,
+    each finished alone (one launch each) and all together in one grouped
+    launch, then 70 of them grouped (two launches: 64 stores a launch), each
+    against the plain version with the untouched rows and the padding
+    bit-identical and the launches counted."""
+    import torch
+
+    from dlrm_yx_tpu_torch.ops.dense_finish import (
+        rwsadagrad_dense_finish,
+        rwsadagrad_dense_finish_many,
+        rwsadagrad_dense_finish_many_reference,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    lr = torch.full((), LR, device="cuda")
+    cases = [finish_inputs(3001, w, dtype, gen)
+             for w in FINISH_ROUTE_DIMS for dtype in (torch.float32, torch.bfloat16)]
+    want = rwsadagrad_dense_finish_many_reference(
+        [(s.clone(), a.clone(), g) for s, a, g in cases], LR, 1e-10)
+    n0 = rwsadagrad_dense_finish.launches
+    got = [rwsadagrad_dense_finish(s.clone(), a.clone(), g, lr, s.shape[1], 1e-10)
+           for s, a, g in cases]
+    torch.cuda.synchronize()
+    check_finished("rwsadagrad_dense_finish (one store a launch)", got, want, cases)
+    singles = rwsadagrad_dense_finish.launches - n0
+    for n_stores, launches in ((len(cases), 1), (70, 2)):
+        # each a copy of case i % len(cases)
+        pick = [i % len(cases) for i in range(n_stores)]
+        items = [(cases[i][0].clone(), cases[i][1].clone(), cases[i][2]) for i in pick]
+        m0, k0 = rwsadagrad_dense_finish_many.launches, rwsadagrad_dense_finish.launches
+        got = rwsadagrad_dense_finish_many(items, lr, 1e-10)
+        torch.cuda.synchronize()
+        ran = (rwsadagrad_dense_finish_many.launches - m0, rwsadagrad_dense_finish.launches - k0)
+        check_finished(f"rwsadagrad_dense_finish_many, {n_stores} stores", got,
+                       [want[i] for i in pick], [cases[i] for i in pick])
+        if ran != (launches, launches):
+            fail(f"rwsadagrad_dense_finish_many of {n_stores} stores: {ran} launches (grouped, "
+                 f"K3), want {launches}")
+    if singles != len(cases):
+        fail(f"rwsadagrad_dense_finish: {singles} launches for {len(cases)} stores")
+    say("kernel", f"rwsadagrad_dense_finish routes: widths {FINISH_ROUTE_DIMS}, f32 and bf16, "
+                  f"3001 rows a fifth touched: {len(cases)} single launches and grouped "
+                  f"launches of {len(cases)} stores (1 launch) and 70 (2 launches) equal the "
+                  "plain version within tolerance, untouched rows and padding bit-identical")
+
+
+def grouped_finish_case(what, items):
+    """K3's grouped launch on ``items``, (store, acc, g) as a train step
+    collected them: against the plain version (``check_finished``), timed
+    warm and cold (the cold reading held to the bound: the sum of the
+    stores' bytes), beside the stores finished one launch each (cold) and
+    the plain version. Returns its row of the kernels line."""
+    import torch
+
+    from dlrm_yx_tpu_torch.ops.dense_finish import (
+        rwsadagrad_dense_finish,
+        rwsadagrad_dense_finish_many,
+        rwsadagrad_dense_finish_many_reference,
+    )
+
+    got = rwsadagrad_dense_finish_many([(s.clone(), a.clone(), g) for s, a, g in items], LR,
+                                       1e-10)
+    want = rwsadagrad_dense_finish_many_reference(
+        [(s.clone(), a.clone(), g) for s, a, g in items], LR, 1e-10)
+    torch.cuda.synchronize()
+    err = check_finished(f"rwsadagrad_dense_finish_many, {what}", got, want, items)[0]
+    del got, want
+    nbytes = touched = ops = 0
+    for s, _, g in items:
+        b, t = finish_bytes(s, g)
+        nbytes, touched, ops = nbytes + b, touched + t, ops + t * 5 * s.shape[1]
+    bound, by = bound_ms(nbytes, ops)
+    lr = torch.full((), LR, device="cuda")
+
+    def grouped():
+        rwsadagrad_dense_finish_many(items, lr, 1e-10)
+
+    def one_by_one():
+        for s, a, g in items:
+            rwsadagrad_dense_finish(s, a, g, lr, s.shape[1], 1e-10)
+
+    warm = device_time_ms(grouped)
+    cold = cold_reading(f"rwsadagrad_dense_finish_many, {what}", grouped, bound)
+    singles = cold_reading(f"rwsadagrad_dense_finish one launch a store, {what}", one_by_one,
+                           bound)
+    plain_ms = device_time_ms(
+        lambda: rwsadagrad_dense_finish_many_reference(items, LR, 1e-10))
+    widths = sorted({s.shape[1] for s, _, _ in items})
+    say("kernel", f"rwsadagrad_dense_finish_many, {what}: {len(items)} stores (widths {widths}, "
+                  f"{sum(s.shape[0] for s, _, _ in items)} rows, {touched} touched): "
+                  f"max_abs_err {err:.3e}; one launch cold {cold:.5f} ms, warm {warm:.5f} ms; "
+                  f"one launch a store cold {singles:.5f} ms; plain {plain_ms:.5f} ms; bound "
+                  f"{bound:.5f} ms ({by}, {nbytes} B)")
+    return {"max_abs_err": err, "ms": warm, "cold_ms": cold, "warm_ms": warm,
+            "one_launch_a_store_cold_ms": singles, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by, "library_ms": None, "what": what}
+
+
+def record_finish_stores(cfg, opt, params, state, batch):
+    """The (store, acc, g) items that one eager train step of ``cfg`` on
+    ``params`` and ``state`` (updated by the step) finishes with K3, as
+    copies taken before the finish ran: the grouped finish's stores, or
+    the stores finished one a call (a checkout without the grouped
+    finish)."""
+    from dlrm_yx_tpu_torch.optim import optimizer
+    from dlrm_yx_tpu_torch.train.train_step import make_train_step
+
+    seen, real = [], {}
+
+    def keep(stores):
+        seen.extend((s.clone(), a.clone(), g.clone()) for s, a, g in stores)
+
+    def many(stores, lr, eps):
+        keep(stores)
+        return real["rwsadagrad_dense_finish_many"](stores, lr, eps)
+
+    def one(store, acc, g, lr, dim, eps):
+        keep([(store, acc, g)])
+        return real["rwsadagrad_dense_finish"](store, acc, g, lr, dim, eps)
+
+    for name, fn in (("rwsadagrad_dense_finish_many", many), ("rwsadagrad_dense_finish", one)):
+        if hasattr(optimizer, name):
+            real[name] = getattr(optimizer, name)
+            setattr(optimizer, name, fn)
+    try:
+        make_train_step(cfg, opt, device="cuda")(params, state, batch, 0)
+    finally:
+        for name, fn in real.items():
+            setattr(optimizer, name, fn)
+    return seen
 
 
 def terabyte_argv(rows):
@@ -737,7 +993,10 @@ def terabyte_argv(rows):
 
 
 def launch_counters():
-    from dlrm_yx_tpu_torch.ops.dense_finish import rwsadagrad_dense_finish
+    from dlrm_yx_tpu_torch.ops.dense_finish import (
+        rwsadagrad_dense_finish,
+        rwsadagrad_dense_finish_many,
+    )
     from dlrm_yx_tpu_torch.ops.fused_interaction import fused_interaction
     from dlrm_yx_tpu_torch.ops.sparse_rows_add import sparse_rows_add
     from dlrm_yx_tpu_torch.ops.sparse_rows_overwrite import sparse_rows_overwrite
@@ -746,14 +1005,21 @@ def launch_counters():
     return {"fused_interaction": fused_interaction,
             "sparse_rows_overwrite": sparse_rows_overwrite,
             "rwsadagrad_dense_finish": rwsadagrad_dense_finish,
+            "rwsadagrad_dense_finish_many": rwsadagrad_dense_finish_many,
             "sorted_stream_apply": sorted_stream_apply,
             "sorted_stream_add": sorted_stream_add,
             "sparse_rows_add": sparse_rows_add}
 
 
 def only(**launched):
-    """A launch-count dict: the named kernels' counts, every other kernel 0."""
-    return {name: launched.get(name, 0) for name in launch_counters()}
+    """A launch-count dict: the named kernels' counts, every other kernel 0.
+    K3's grouped launches (``rwsadagrad_dense_finish_many``, counted in K3's
+    launches too) are all of K3's unless named: the train steps finish their
+    dense-branch stores in one grouped launch a step."""
+    want = {name: launched.get(name, 0) for name in launch_counters()}
+    if "rwsadagrad_dense_finish_many" not in launched:
+        want["rwsadagrad_dense_finish_many"] = want["rwsadagrad_dense_finish"]
+    return want
 
 
 def cli_training_run(phase, what, argv, n_steps, want, big_index, n_prints=None, out=None):
@@ -1164,8 +1430,11 @@ def check_stream_kernels(cfg):
                   f"(reference only), bound {bound:.5f} ms ({by}, {nbytes} B); the whole SGD "
                   f"update (sort, segment ids, weights, K5; CUDA events, host launches "
                   f"included) {statistics.mean(update_ms):.5f} ms (runs {update_ms})")
-    k5 = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-          "bound_by": by, "library_ms": None}
+    cold = cold_reading("sorted_stream_apply",
+                        lambda: sorted_stream_apply(store, pos, seg, w_eff, gtab), bound)
+    say("kernel", f"  cold (L2 flushed before each call): {cold:.5f} ms")
+    k5 = {"max_abs_err": err, "ms": ms, "warm_ms": ms, "cold_ms": cold, "plain_ms": plain_ms,
+          "bound_ms": bound, "bound_by": by, "library_ms": None}
     del g_pooled, pos64
     check_stream_apply_traffic(group, store, b, gidx, gtab, compare)
     check_stream_apply_capture(store, pos, seg, w_eff, gtab)
@@ -1189,8 +1458,10 @@ def check_stream_kernels(cfg):
                   f"{tol}), kernel {ms:.5f} ms (the wrapper launches only the kernel), plain "
                   f"{plain_ms:.5f} ms, index_add_ {library_ms:.5f} ms, bound {bound:.5f} ms "
                   f"({by}, {nbytes} B)")
-    k6 = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-          "bound_by": by, "library_ms": library_ms}
+    cold = cold_reading("sorted_stream_add", lambda: sorted_stream_add(store, pos, upd), bound)
+    say("kernel", f"  cold (L2 flushed before each call): {cold:.5f} ms")
+    k6 = {"max_abs_err": err, "ms": ms, "warm_ms": ms, "cold_ms": cold, "plain_ms": plain_ms,
+          "bound_ms": bound, "bound_by": by, "library_ms": library_ms}
     return k5, k6
 
 
@@ -1656,8 +1927,12 @@ def check_rows_add_kernel(cap_big, big):
                       f"{'none' if library_ms is None else f'{library_ms:.5f} ms'}, bound "
                       f"{bound:.5f} ms ({by}, {nbytes} B)")
         if row is None:
-            row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                   "bound_by": by, "library_ms": library_ms}
+            cold = cold_reading(f"sparse_rows_add {what}", lambda: sparse_rows_add(
+                store, ids, upd, active, sr, seed=seed), bound)
+            say("kernel", f"  cold (L2 flushed before each call): {cold:.5f} ms")
+            row = {"max_abs_err": err, "ms": ms, "warm_ms": ms, "cold_ms": cold,
+                   "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                   "library_ms": library_ms}
         if sr:
             check_rows_add_traffic(group, store, gen)
     del store
@@ -1781,14 +2056,18 @@ def count_k1_k5_ops(bench_cfg, small):
     (bf16 and f32), of one K5 and one K6 call at the benchmark's shapes and
     of one K3 call at the small group's (with the lr on the device, as the
     train step passes it), the nodes of a CUDA graph that captures the
-    call (graph_ops, which fails on a host synchronisation): K1, K3 and K6
-    one kernel; K5 at most 5 operations (its flags, count, compaction and
+    call (graph_ops, which fails on a host synchronisation), and of one
+    grouped K3 call on that store and a narrow one: K1, K3 (either entry)
+    and K6 one kernel; K5 at most 5 operations (its flags, count, compaction and
     walk); no sort. Returns the counts."""
     import torch
 
     from dlrm_yx_tpu_torch.models.dlrm import model_groups
     from dlrm_yx_tpu_torch.ops.embedding import global_row_ids
-    from dlrm_yx_tpu_torch.ops.dense_finish import rwsadagrad_dense_finish
+    from dlrm_yx_tpu_torch.ops.dense_finish import (
+        rwsadagrad_dense_finish,
+        rwsadagrad_dense_finish_many,
+    )
     from dlrm_yx_tpu_torch.ops.fused_interaction import fused_interaction
     from dlrm_yx_tpu_torch.ops.stream_update import sorted_stream_add, sorted_stream_apply
     from dlrm_yx_tpu_torch.optim.optimizer import acc_len
@@ -1809,6 +2088,7 @@ def count_k1_k5_ops(bench_cfg, small):
     fin_store = torch.zeros(small.total_rows, small.dim, device="cuda")
     fin_acc = torch.zeros(acc_len(small.total_rows), device="cuda")
     fin_g = torch.randn(small.total_rows, small.dim, device="cuda", generator=gen)
+    narrow = finish_inputs(4096, 8, torch.float32, gen)
     lr = torch.full((), LR, device="cuda")
     cases = [  # (what, a name its kernels carry, shape, most operations, one call)
         ("fused_interaction bf16", "fused_interaction", f"[{BATCH}, 26, 128]", 1,
@@ -1824,6 +2104,9 @@ def count_k1_k5_ops(bench_cfg, small):
         ("rwsadagrad_dense_finish", "dense_finish",
          f"store [{small.total_rows}, {small.dim}] f32, lr on the device", 1,
          lambda: rwsadagrad_dense_finish(fin_store, fin_acc, fin_g, lr, small.dim, 1e-10)),
+        ("rwsadagrad_dense_finish_many", "dense_finish",
+         "the same store and one [4096, 8], grouped", 1,
+         lambda: rwsadagrad_dense_finish_many([(fin_store, fin_acc, fin_g), narrow], lr, 1e-10)),
     ]
     counts = {}
     for what, pattern, shape, most, fn in cases:
@@ -1841,7 +2124,7 @@ def count_k1_k5_ops(bench_cfg, small):
                    f"({', '.join(f'{kind} {n}' for kind, n in nodes)}), no sort, no host "
                    f"synchronisation (captured whole)")
         counts[what.split()[0]] = max(counts.get(what.split()[0], 0), len(nodes))
-    del store, x, ly, gtab, upd6, fin_store, fin_acc, fin_g
+    del store, x, ly, gtab, upd6, fin_store, fin_acc, fin_g, narrow
     torch.cuda.empty_cache()
     return counts
 
@@ -2076,7 +2359,7 @@ def counted(run):
 
 
 def capture_parity(what, cfg, opt, n_steps, params, state, seed, batch=BATCH, lookups=1,
-                   accum=0):
+                   accum=0, k3_per_step=None):
     """Phase r, one path: three dispatches of ``n_steps`` steps (or, with
     ``accum``, three accumulated steps of ``accum`` micro-batches) through
     the captured step (the first runs eagerly as the warm-up, the second is
@@ -2084,7 +2367,9 @@ def capture_parity(what, cfg, opt, n_steps, params, state, seed, batch=BATCH, lo
     eagerly from a clone of the params and optimizer state (the eager step
     takes a float lr and an int seed), each on its own batch, with an LR
     policy that warms up over all of them. Losses, every store, accumulator
-    and MLP tensor must be equal bit for bit, and the launches equal."""
+    and MLP tensor must be equal bit for bit, and the launches equal; with
+    ``k3_per_step``, K3 launched that many times an optimizer step, each a
+    grouped launch."""
     import torch
 
     from dlrm_yx_tpu_torch.data.batch import stack_batches
@@ -2123,6 +2408,12 @@ def capture_parity(what, cfg, opt, n_steps, params, state, seed, batch=BATCH, lo
     n_elems = sum(a.numel() for _, a, _ in pairs)
     del eager_p, eager_s, batches, groups
     torch.cuda.empty_cache()
+    n_opt = 3 if accum else 3 * n_steps  # optimizer steps
+    k3 = (eager_launches["rwsadagrad_dense_finish"],
+          eager_launches["rwsadagrad_dense_finish_many"])
+    if k3_per_step is not None and k3 != (k3_per_step * n_opt,) * 2:
+        fail(f"capture parity, {what}: K3 launched {k3} times (all, grouped) in {n_opt} "
+             f"optimizer steps, want {k3_per_step} a step, grouped")
     if differ or replay_launches != eager_launches or replays < 2:
         fail(f"capture parity, {what}: {len(differ)} of {len(pairs)} tensors differ from the "
              f"eager steps ({differ[:5]}), launches {replay_launches} against the eager "
@@ -2193,10 +2484,10 @@ def check_capture(rows):
         state = init_opt_state(rws, params, model_groups(base))
         capture_parity(f"L=1 train, 26 tables <=1M rows x 128 f32, B={BATCH}, bf16 compute, "
                        "rwsadagrad, sparse-update pallas, pallas interaction (K1, K2, K3)",
-                       base, rws, N_CAPTURE, params, state, seed=32)
+                       base, rws, N_CAPTURE, params, state, seed=32, k3_per_step=1)
         eval_capture_parity(base, params)
         capture_parity(f"L=1 gradient accumulation, the same model (K1, K4 on the f32 store, "
-                       "K3)", base, rws, 0, params, state, seed=33, accum=2)
+                       "K3)", base, rws, 0, params, state, seed=33, accum=2, k3_per_step=1)
         del params, state
         torch.cuda.empty_cache()
         sr = dataclasses.replace(base, emb_dtype="bfloat16", stochastic_rounding=True)
@@ -2204,7 +2495,8 @@ def check_capture(rows):
         state = init_opt_state(rws, params, model_groups(sr))
         capture_parity("L=1 train on bf16 stores with stochastic rounding (K1, K4 with SR, K3; "
                        "a seed frozen at its captured steps would round other bits than the "
-                       "eager steps' own seeds)", sr, rws, N_CAPTURE, params, state, seed=34)
+                       "eager steps' own seeds)", sr, rws, N_CAPTURE, params, state, seed=34,
+                       k3_per_step=1)
         del params, state
         torch.cuda.empty_cache()
         bench = benchmark_config()
@@ -2233,7 +2525,7 @@ def check_capture(rows):
             state = init_opt_state(rws, params, model_groups(cfg))
             capture_parity(f"L=1 train, Terabyte-MLPerf <=1M rows with {name} tables, B={BATCH}, "
                            f"bf16, rwsadagrad, sparse-update pallas ({kernels})", cfg, rws,
-                           N_CAPTURE, params, state, seed=37)
+                           N_CAPTURE, params, state, seed=37, k3_per_step=1)
             del params, state
             torch.cuda.empty_cache()
         weighted = dataclasses.replace(bench, weighted_pooling="learned")
@@ -2795,6 +3087,35 @@ def kaggle_md_argv():
 PROCESSED_DIR = os.path.join(DATA_DIR, "processed")
 
 
+def variant_finish_shapes(rows, gen):
+    """K3's stores on the variants' paths: (what, group, global row ids) of
+    every small group of the two mixed-dimension models (one batch's ids)
+    and of every group of the processed model (its dataset's first batch of
+    pooled ids, live items only), and that first batch; writes the
+    processed dataset."""
+    import torch
+
+    from dlrm_yx_tpu_torch.models.dlrm import model_groups
+    from dlrm_yx_tpu_torch.ops.embedding import global_row_ids
+
+    shapes = []
+    for name, cfg, batch in (("Terabyte MD", config_of(md_terabyte_argv(rows)), BATCH),
+                             ("Kaggle MD", config_of(kaggle_md_argv()), KAGGLE_BATCH)):
+        for group in model_groups(cfg):
+            if group.size_class == 0:
+                shapes.append((f"{name} small group dim {group.dim}", group,
+                               batch_rows(group, gen, batch, repeats=False)))
+    first = write_processed_dataset()
+    for group in model_groups(config_of(processed_argv())):
+        t = list(group.table_ids)
+        idx = torch.as_tensor(first.indices[t], device="cuda").long()
+        live = torch.as_tensor(first.weights[t], device="cuda") != 0
+        n = group.num_tables
+        shapes.append((f"processed group dim {group.dim} ({n} table{'s' * (n > 1)}, one batch "
+                       "of pooled ids)", group, global_row_ids(group, idx)[live]))
+    return shapes, first
+
+
 def write_processed_dataset():
     """Phase x: the port's generator writes the processed dataset under
     build/chip_smoke_data; returns its first batch."""
@@ -2886,15 +3207,17 @@ def check_variant_kernels(rows):
     coalesced batch that updates row 249,999, bit for bit, the last row
     kept and its update on the row before (the JAX kernel's clip); K3 on
     every small group of both MD models (dims 1 to 128) and on every group
-    of the processed model (dims 64 to 512: the kernel's loop over a row's
-    columns runs more than once) with the dataset's first batch of pooled
-    ids."""
+    of the processed model (dims 64 to 512: one to four 16-byte chunks a
+    lane) with the dataset's first batch of pooled ids, then the processed
+    model's groups as one eager train step collects them, in one grouped
+    launch (``grouped_finish_case``; returns its row)."""
     import torch
 
-    from dlrm_yx_tpu_torch.models.dlrm import model_groups
+    from dlrm_yx_tpu_torch.data.batch import to_device
+    from dlrm_yx_tpu_torch.models.dlrm import init_dlrm, model_groups
     from dlrm_yx_tpu_torch.ops.coalesce import coalesce_rows
-    from dlrm_yx_tpu_torch.ops.embedding import global_row_ids
     from dlrm_yx_tpu_torch.ops.sparse_rows_add import sparse_rows_add, sparse_rows_add_reference
+    from dlrm_yx_tpu_torch.optim.optimizer import OptConfig, init_opt_state
 
     gen = torch.Generator(device="cuda").manual_seed(41)
     md_tb, md_kg = config_of(md_terabyte_argv(rows)), config_of(kaggle_md_argv())
@@ -2947,34 +3270,37 @@ def check_variant_kernels(rows):
     del store, masked
     torch.cuda.empty_cache()
 
-    for name, cfg, batch in (("Terabyte MD", md_tb, BATCH), ("Kaggle MD", md_kg, KAGGLE_BATCH)):
-        for group in model_groups(cfg):
-            if group.size_class == 0:
-                finish_case(f"{name} small group dim {group.dim}", group,
-                            batch_rows(group, gen, batch, repeats=False), gen)
-    first = write_processed_dataset()
-    for group in model_groups(config_of(processed_argv())):
-        t = list(group.table_ids)
-        idx = torch.as_tensor(first.indices[t], device="cuda").long()
-        live = torch.as_tensor(first.weights[t], device="cuda") != 0
-        n = group.num_tables
-        finish_case(f"processed group dim {group.dim} ({n} table{'s' * (n > 1)}, one batch of "
-                    "pooled ids)", group, global_row_ids(group, idx)[live], gen)
+    shapes, first = variant_finish_shapes(rows, gen)
+    for what, group, ids in shapes:
+        finish_case(what, group, ids, gen)
+    # the processed step's groups in one grouped launch, as its train step
+    # collects them
+    processed_cfg = config_of(processed_argv())
+    rws = OptConfig("rwsadagrad", LR)
+    params = init_dlrm(processed_cfg, seed=0, device="cuda")
+    state = init_opt_state(rws, params, model_groups(processed_cfg))
+    items = record_finish_stores(processed_cfg, rws, params, state,
+                                  to_device(first, torch.device("cuda")))
+    del params, state
+    return grouped_finish_case("the processed step's groups", items)
 
 
 def variant_main_paths(rows):
     """Phase y: the variants and the processed dataset through ``cli.main``,
     each with the launch counts set to 0 just before and read just after:
     Terabyte-MLPerf with mixed dims (K2 once a step on the dim-4 big group,
-    K3 on the four small groups, K1 per step and eval batch; no row of the
+    K3 once a step on the four small groups, grouped, K1 per step and eval
+    batch; no row of the
     big store that no live lookup touched moved), Kaggle's model with mixed
     dims (K2 once a step on the dim-1 big group), Terabyte-MLPerf with QR
-    tables (K4 on the seven quotient tables of 64 MiB or more, K3 on the
-    small group and the other QR sub-tables, K1) and served again with
+    tables (K4 on the seven quotient tables of 64 MiB or more, K3 once a
+    step on the small group and the other QR sub-tables, grouped, K1) and
+    served again with
     --inference-only (K1), the L=100 benchmark with learned pooling weights
     (K5 once a step and nothing else; v_W moved only on rows a live lookup
     touched), and a processed dataset written by the port's generator,
-    trained (K3 once a dim group a step) and served with --load-processed.
+    trained (K3 once a step on every dim group, grouped) and served with
+    --load-processed.
     Returns the launch counts by run."""
     import torch
 
@@ -2992,7 +3318,7 @@ def variant_main_paths(rows):
                     f"{sorted(set(md.emb_dims))}), B={BATCH}, L=1, bf16, rwsadagrad, "
                     "sparse-update pallas, pallas interaction",
         md_terabyte_argv(rows) + ["--num-batches", str(n), "--print-freq", "1"], n,
-        only(fused_interaction=2 * n, sparse_rows_overwrite=n, rwsadagrad_dense_finish=4 * n),
+        only(fused_interaction=2 * n, sparse_rows_overwrite=n, rwsadagrad_dense_finish=n),
         big_index=0)
     kg = config_of(kaggle_md_argv())
     groups = model_groups(kg)
@@ -3007,10 +3333,11 @@ def variant_main_paths(rows):
     launched["qr"] = cli_training_run(
         "variants", f"cli Terabyte-MLPerf (<=1M rows) with --qr-flag ({len(qr.qr_table_ids)} "
                     "QR tables: 7 quotient tables on K4; the other 29 QR sub-tables and the "
-                    f"small group on K3), B={BATCH}, L=1, bf16, rwsadagrad, sparse-update "
+                    f"small group on K3, one grouped launch a step), B={BATCH}, L=1, bf16, "
+                    "rwsadagrad, sparse-update "
                     "pallas, pallas interaction",
         qr_terabyte_argv(rows) + ["--num-batches", str(n), "--print-freq", "1"], n,
-        only(fused_interaction=2 * n, sparse_rows_add=7 * n, rwsadagrad_dense_finish=30 * n),
+        only(fused_interaction=2 * n, sparse_rows_add=7 * n, rwsadagrad_dense_finish=n),
         big_index=None)
     launched["qr serve"] = serve_run(
         "variants", "cli --inference-only, the same QR model",
@@ -3030,7 +3357,7 @@ def variant_main_paths(rows):
     launched["processed"] = cli_training_run(
         "variants", f"cli --load-processed (12 tables, dims {dims}: {len(dims)} small groups), "
                     "rwsadagrad, sparse-update pallas", argv, 10,
-        only(rwsadagrad_dense_finish=10 * len(dims)), big_index=None)
+        only(rwsadagrad_dense_finish=10), big_index=None)
     launched["processed serve"] = serve_run(
         "variants", "cli --load-processed --inference-only", argv + ["--inference-only"], only())
     torch.cuda.empty_cache()
@@ -3179,13 +3506,13 @@ def check_variants_against_cpu():
     rws = OptConfig("rwsadagrad", 0.05)
     # K4 on the big groups' 1-D momenta (ACC_KERNEL_MIN_BYTES at 0)
     card_vs_cpu(f"MD dims {dims}, rwsadagrad", md, rws, batches(md, 4, 1),
-                only(sparse_rows_overwrite=6, rwsadagrad_dense_finish=6, sparse_rows_add=6),
+                only(sparse_rows_overwrite=6, rwsadagrad_dense_finish=3, sparse_rows_add=6),
                 learns=("md_proj",))
     qr = DLRMConfig.build(emb_rows=(3000, 40, 60, 5000), ln_bot=(4, 64, 128), ln_top=(64, 1),
                           emb_split_threshold=100, loss="bce", interaction_impl="pallas",
                           qr_flag=True, sparse_update_impl="pallas")
     card_vs_cpu("QR mult, rwsadagrad", qr, rws, batches(qr, 4, 1),
-                only(fused_interaction=4, sparse_rows_add=6, rwsadagrad_dense_finish=9),
+                only(fused_interaction=4, sparse_rows_add=6, rwsadagrad_dense_finish=3),
                 learns=("qr",))
 
     def zero_some(params):
@@ -3215,11 +3542,13 @@ VARIANT_KINDS = {
 }
 
 
-def variant_throughput(plain_fn, rows):
+def variant_throughput(plain_fn, rows, grouped):
     """Phase s, the variants: the captured N=16 L=1 train step of the MD
-    and QR Terabyte models against the plain one (``plain_fn``), in turns.
-    Returns the MD and QR dispatches as functions of nothing (phase t
-    profiles them)."""
+    and QR Terabyte models against the plain one (``plain_fn``), in turns;
+    first, each model's stores as one eager step collects them for the
+    grouped finish go through ``grouped_finish_case``, whose row goes into
+    ``grouped`` under "MD" and "QR". Returns the MD and QR dispatches as
+    functions of nothing (phase t profiles them)."""
     from dlrm_yx_tpu_torch.data.batch import stack_batches
     from dlrm_yx_tpu_torch.models.dlrm import init_dlrm, model_groups
     from dlrm_yx_tpu_torch.optim.optimizer import OptConfig, init_opt_state
@@ -3232,6 +3561,8 @@ def variant_throughput(plain_fn, rows):
         params = init_dlrm(cfg, seed=0, device="cuda")
         state = init_opt_state(rws, params, model_groups(cfg))
         batch = drawn_batches(cfg, 1, seed=4)[0]
+        grouped[name] = grouped_finish_case(
+            f"the {name} step's stores", record_finish_stores(cfg, rws, params, state, batch))
         step = make_multistep_train_step(cfg, rws, N_DISPATCH)
         fns[name] = train_step_fn(step, params, state, stack_batches([batch] * N_DISPATCH))
     times = time_in_turns(fns, check_loss)
@@ -4424,6 +4755,7 @@ def main():
     small, big = terabyte_groups()
     k2 = check_overwrite_kernel(big)
     k3 = check_finish_kernel(small)
+    check_finish_routes()
     bench_cfg = benchmark_config()
     k5, k6 = check_stream_kernels(bench_cfg)
     from dlrm_yx_tpu_torch.models.dlrm import model_groups
@@ -4432,7 +4764,7 @@ def main():
     k4 = check_rows_add_kernel(cap_big, big)
     rows = DLRMConfig.terabyte_mlperf(max_ind_range=1_000_000).emb_rows
     # x. the kernels on the variants' shapes (and the processed dataset)
-    check_variant_kernels(rows)
+    grouped = {"processed": check_variant_kernels(rows)}
 
     # 4, b, g, h, m. the main paths: serving, training at L=1, the L=100
     # benchmark (K5), its batch-4096 RWSAdagrad run (K6) and training on
@@ -4444,7 +4776,7 @@ def main():
         big_launches = big_batch_main_path()
         bf16_launches = train_bf16_sr_main_path(rows, big_index=1)
         # y. the embedding variants and the processed dataset
-        variant_main_paths(rows)
+        variant_launches = variant_main_paths(rows)
         # 8. quantized serving
         quantized_main_paths(rows)
 
@@ -4497,7 +4829,8 @@ def main():
             "rwsadagrad, sparse-update pallas), sr off", *cap_parts, cap_steps["sr off"]),
             N_DISPATCH),
     }
-    for name, fn in variant_throughput(captured["L=1 train"][0], rows).items():
+    variant_fns = variant_throughput(captured["L=1 train"][0], rows, grouped)
+    for name, fn in variant_fns.items():
         captured[f"L=1 train, {name} tables"] = (fn, N_DISPATCH)
     quantized = quantized_throughput(serve_cfg, params, batch)
     profile_step(lambda: step(params, batch), "serving (eager)",
@@ -4563,6 +4896,12 @@ def main():
                                   launches, None),
         "rwsadagrad_dense_finish": ("dlrm_yx_tpu/ops/pallas_dense_finish.py:119", k3,
                                     launches, "no single call does a row-wise Adagrad step"),
+        # K3's grouped launch of many stores: timed on the QR step's 30
+        # stores, its launches those of phase y's QR run (phase b's step
+        # launches it too, with its one small-group store: K3's row above)
+        "rwsadagrad_dense_finish_many": ("dlrm_yx_tpu/ops/pallas_dense_finish.py:119",
+                                         grouped["QR"], variant_launches["qr"],
+                                         "no single call does a row-wise Adagrad step"),
         "sorted_stream_apply": ("dlrm_yx_tpu/ops/pallas_stream_update.py:257", k5,
                                 l100_launches, "no single call expands and adds"),
         "sorted_stream_add": ("dlrm_yx_tpu/ops/pallas_stream_update.py:343", k6,
@@ -4576,7 +4915,8 @@ def main():
         kernels.append({
             "name": name,
             "route": "cuda",
-            "source": f"dlrm_yx_tpu_torch/csrc/{name}.cu",
+            "source": "dlrm_yx_tpu_torch/csrc/rwsadagrad_dense_finish.cu"
+                      if name.startswith("rwsadagrad") else f"dlrm_yx_tpu_torch/csrc/{name}.cu",
             "replaces": replaces,
             "launches": path_launches[name],
             "max_abs_err": row["max_abs_err"],
@@ -4585,7 +4925,14 @@ def main():
             "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
             "library_ms": row.get("library_ms"),
+            # ms is every kernel's warm reading, as the earlier lines had it;
+            # cold_ms has the L2 emptied before each call (held to the bound)
+            "cold_ms": row["cold_ms"],
+            "warm_ms": row["warm_ms"],
         })
+        if name == "rwsadagrad_dense_finish_many":
+            kernels[-1].update(launches_from="phase y: the QR model's CLI training run",
+                               timed_on="the QR step's 30 stores, one launch")
         if no_library:
             say("kernel", f"{name}: library_ms null ({no_library})")
     say("done", f"chip_smoke.py wall time {time.perf_counter() - T_START:.1f} s")

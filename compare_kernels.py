@@ -1,12 +1,14 @@
 """Times the port's K1, K3, K4, K5 and K6 kernels of one or more checkouts
-on one NVIDIA card, in turns, each against its plain PyTorch version.
+on one NVIDIA card, in turns, each against its plain PyTorch version, and
+the captured train steps whose K3 work changes between checkouts.
 
     python3 compare_kernels.py [REPO ...]
 
 Each REPO is the root of a checkout of this repository (default: this
 one); its ``dlrm_yx_tpu_torch`` builds its own kernels into its own
-``build/``. With two checkouts A and B the runs go A, B, B, A, each in a
-process of its own, so both are timed on one card in one call. Every run
+``build/``. With checkouts A, B, ... the runs go A, B, ..., then back
+(two: A, B, B, A; three: A, B, C, C, B, A), each in a process of its own,
+so all are timed on one card in one call. Every run
 prints one JSON line (``{"repo": ..., "cases": {name: {"ms", "plain_ms",
 "rel_err", ...}}}``) and the script ends with the card's name and power
 limit. Cases, at the main path's shapes:
@@ -20,50 +22,74 @@ limit. Cases, at the main path's shapes:
     table's row 0, as host batches (``--data-generation random``) pad;
   * K6 on the same store with a batch-4096 device batch's update rows;
   * K3 on the Terabyte-MLPerf small group's store [121,232, 128] (f32 and
-    bf16) with one batch's coalesced gradient;
+    bf16) with one batch's coalesced gradient, on every small group of the
+    two mixed-dimension models (dims 1 to 128) and on every group of the
+    processed model (dims 64 to 512), warm and cold (``cold_ms``: the L2
+    flushed before each call, chip_smoke.py's cold timer);
+  * K3 on the stores that one eager train step of the MD, QR and processed
+    models finishes with it (recorded from the checkout's own step): in
+    one grouped launch where the checkout has one, and one launch a store,
+    warm and cold;
   * K4 on the capacity config's bf16 store [53,942,848, 128] with one
     batch's 16,384 ids, SR off and on (held to its plain version bit for
-    bit; the plain version syncs, so only the kernel is timed).
+    bit; the plain version syncs, so only the kernel is timed);
+  * the captured N=16 L=1 train step (``make_multistep_train_step``) of the
+    plain, MD and QR Terabyte-MLPerf models and of the processed model
+    (its first batch), ms a step over CUDA events, with K3's launches a
+    step; in a checkout with the grouped finish, also the processed step
+    with its stores finished one at a time (a zero-fill, a scatter and a
+    launch a store, in the order of a checkout before it), in turns; then each step under torch.profiler (``chip_smoke.profile_step``),
+    its device time a step by kind of kernel (``STEP_KINDS``: K3, the
+    zero-fills, the scatters, the rest) and in all.
 
 A checkout whose K3 reads its lr, and K4 its SR step, from device memory
 gets them as device scalars, as its train step passes them; an older one
 gets a float and an int, as its train step passed them.
 
-Times are CUDA-graph replays of ``REPS`` wrapper calls, median of
-``SAMPLES`` replays, CUDA events. Needs a card; exits 1 without one.
+Kernel times are CUDA-graph replays of ``REPS`` wrapper calls, median of
+``SAMPLES`` replays (K3's: 20 calls, 50 replays), CUDA events
+(``chip_smoke.device_time_ms`` of this script's checkout). Needs a card;
+exits 1 without one.
 """
 
+import functools
 import json
 import os
-import statistics
 import subprocess
 import sys
 
 REPS, SAMPLES = 5, 15
 TOL = {"K1": 1e-5, "K3": 1e-6, "K5": 1e-6, "K6": 1e-6}  # max |kernel - plain| / max |plain|
+# the captured steps' kernels by kind (names as torch 2.x gives them)
+STEP_KINDS = {"K3": "dense_finish", "zero-fill": "fillfunctor",
+              "scatter": "indexfunc|index_add|scatter|index_put|indexing_backward"}
 
 
-def device_time_ms(fn):
-    import torch
+HERE = os.path.dirname(os.path.abspath(__file__))
 
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(REPS):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(SAMPLES):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        graph.replay()
-        e1.record()
-        e1.synchronize()
-        times.append(e0.elapsed_time(e1) / REPS)
-    return statistics.median(times)
+
+@functools.lru_cache(maxsize=None)
+def smoke():
+    """This script's chip_smoke.py (its timers, shapes and model flags),
+    whichever checkout is timed: its functions import the timed checkout's
+    ``dlrm_yx_tpu_torch``, first on ``sys.path``."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke_here",
+                                                  os.path.join(HERE, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def device_time_ms(fn, cold=False, reps=REPS, samples=SAMPLES):
+    return smoke().device_time_ms(fn, reps, samples, cold=cold)
+
+
+def finish_time_ms(fn, cold=False):
+    """K3's time with chip_smoke.py's own counts: its calls take a few µs,
+    where 5 replays of 5 calls leave the cold difference noisy."""
+    return device_time_ms(fn, cold, reps=20, samples=50)
 
 
 def eager_ms(fn, calls=200):
@@ -81,6 +107,21 @@ def eager_ms(fn, calls=200):
     e1.record()
     e1.synchronize()
     return e0.elapsed_time(e1) / calls
+
+
+def by_kind(per_kernel):
+    """Device ms a step of each of STEP_KINDS, of the other kernels and of
+    all, from ``chip_smoke.profile_step``'s ms a step by kernel name."""
+    import re
+
+    out, seen = {}, set()
+    for kind, pattern in STEP_KINDS.items():
+        names = [k for k in per_kernel if k not in seen and re.search(pattern, k.lower())]
+        seen.update(names)
+        out[kind] = sum(per_kernel[k] for k in names)
+    out["other"] = sum(v for k, v in per_kernel.items() if k not in seen)
+    out["busy"] = sum(per_kernel.values())
+    return out
 
 
 def rel_err(got, want):
@@ -162,7 +203,10 @@ def run_one(repo):
          lambda s: sorted_stream_add_reference(s, pos, upd), store.clone, TOL["K6"])
     del store, upd, pos, b
     torch.cuda.empty_cache()
-    row_update_cases(repo, cases, case, gen)
+    finish_cases(repo, cases, gen)
+    torch.cuda.empty_cache()
+    step_cases(repo, cases)
+    row_update_cases(repo, cases, gen)
     print(json.dumps({"repo": repo, "device": torch.cuda.get_device_name(0), "cases": cases}),
           flush=True)
 
@@ -177,33 +221,158 @@ def uniform_ids(group, gen, batch=2048):
     return (offs + (u * n).long()).reshape(-1).int()
 
 
-def row_update_cases(repo, cases, case, gen):
-    """K3 and K4, each called as this checkout's train step calls it."""
+def finish_cases(repo, cases, gen):
+    """K3 on single stores (the main shape, the MD small groups, the
+    processed groups), warm and cold, each held to its plain version."""
+    import torch
+
+    import dlrm_yx_tpu_torch.ops.dense_finish as dense_finish
+    from dlrm_yx_tpu_torch.optim.optimizer import acc_len
+
+    cs = smoke()
+    on_device = hasattr(dense_finish, "device_lr")
+    lr = torch.full((), 0.01, device="cuda") if on_device else 0.01
+    small, _ = cs.terabyte_groups()
+    ids = uniform_ids(small, gen)
+    shapes = [("K3 f32", small, ids, torch.float32), ("K3 bf16", small, ids, torch.bfloat16)]
+    shapes += [(f"K3 {what}", group, ids, torch.float32)
+               for what, group, ids in cs.variant_finish_shapes(cs.terabyte_rows(), gen)[0]]
+    for name, group, ids, dtype in shapes:
+        r, d = group.total_rows, group.dim
+        g = torch.zeros(r, d, device="cuda")
+        g.index_add_(0, ids.long(), torch.randn(ids.numel(), d, device="cuda", generator=gen))
+        acc = torch.rand(acc_len(r), device="cuda", generator=gen)
+        store = (torch.rand(r, d, device="cuda", generator=gen) - 0.5).to(dtype)
+        got = dense_finish.rwsadagrad_dense_finish(store.clone(), acc.clone(), g, lr, d, 1e-10)[0]
+        want = dense_finish.rwsadagrad_dense_finish_reference(store.clone(), acc.clone(), g, 0.01,
+                                                              d, 1e-10)[0]
+        torch.cuda.synchronize()
+        err = rel_err(got, want)
+        # bf16: the two sum g * g in other orders, and may round one ulp apart
+        tol = TOL["K3"] if dtype == torch.float32 else 8e-3
+        if not err <= tol:
+            raise SystemExit(f"{repo} {name}: relative error {err} > {tol}")
+
+        def call():
+            dense_finish.rwsadagrad_dense_finish(store, acc, g, lr, d, 1e-10)
+
+        nbytes, touched = cs.finish_bytes(store, g)
+        cases[name] = {"shape": [r, d], "touched": touched, "rel_err": err,
+                       "ms": finish_time_ms(call), "cold_ms": finish_time_ms(call, cold=True),
+                       "plain_ms": device_time_ms(
+                           lambda: dense_finish.rwsadagrad_dense_finish_reference(
+                               store, acc, g, 0.01, d, 1e-10)),
+                       "bound_ms": cs.bound_ms(nbytes, 0)[0]}
+
+
+def step_cases(repo, cases):
+    """The MD, QR and processed steps' K3 stores (one grouped launch where
+    the checkout has one, and one launch a store), then the captured N=16
+    train steps of the plain, MD, QR and processed models with K3's
+    launches a step (with the grouped finish, also the processed step with
+    a finish a store: ``store_at_a_time``), each profiled by kind."""
+    import torch
+
+    import dlrm_yx_tpu_torch.ops.dense_finish as dense_finish
+    from dlrm_yx_tpu_torch.data.batch import stack_batches, to_device
+    from dlrm_yx_tpu_torch.models.dlrm import init_dlrm, init_dlrm_on_device, model_groups
+    from dlrm_yx_tpu_torch.optim.optimizer import OptConfig, init_opt_state
+    from dlrm_yx_tpu_torch.train import train_step
+    from dlrm_yx_tpu_torch.train.train_step import make_multistep_train_step
+
+    cs = smoke()
+    rws = OptConfig("rwsadagrad", cs.LR)
+    lr = torch.full((), cs.LR, device="cuda")
+    rows = cs.terabyte_rows()
+    first = cs.write_processed_dataset()
+    models = {"plain": cs.config_of(cs.terabyte_argv(rows) + [
+                  "--optimizer", "rwsadagrad", "--sparse-update-impl", "pallas"]),
+              "MD": cs.config_of(cs.md_terabyte_argv(rows)),
+              "QR": cs.config_of(cs.qr_terabyte_argv(rows)),
+              "processed": cs.config_of(cs.processed_argv())}
+    steps = {}
+    for name, cfg in models.items():
+        init = init_dlrm_on_device if name == "plain" else init_dlrm
+        params = init(cfg, seed=0, device="cuda")
+        state = init_opt_state(rws, params, model_groups(cfg))
+        batch = (to_device(first, torch.device("cuda")) if name == "processed"
+                 else cs.drawn_batches(cfg, 1, seed=4)[0])
+        if name != "plain":
+            items = cs.record_finish_stores(cfg, rws, params, state, batch)
+            fns = {"one launch a store": lambda items=items: [
+                dense_finish.rwsadagrad_dense_finish(s, a, g, lr, s.shape[1], 1e-10)
+                for s, a, g in items]}
+            if hasattr(dense_finish, "rwsadagrad_dense_finish_many"):
+                fns["grouped"] = lambda items=items: dense_finish.rwsadagrad_dense_finish_many(
+                    items, lr, 1e-10)
+            for how, fn in fns.items():
+                cases[f"K3 {name} step's stores, {how}"] = {
+                    "stores": len(items), "ms": finish_time_ms(fn),
+                    "cold_ms": finish_time_ms(fn, cold=True)}
+            del items
+        step = make_multistep_train_step(cfg, rws, cs.N_DISPATCH)
+        fn = cs.train_step_fn(step, params, state, stack_batches([batch] * cs.N_DISPATCH))
+        steps[name] = (fn, params, state)
+        if name == "processed" and hasattr(train_step, "finish_dense"):
+            # the same step with its stores finished in the order of a
+            # checkout before the grouped finish, timed in turns with it
+            steps["processed, a store at a time"] = (store_at_a_time(cs.train_step_fn(
+                make_multistep_train_step(cfg, rws, cs.N_DISPATCH), params, state,
+                stack_batches([batch] * cs.N_DISPATCH))), params, state)
+    launches = {}
+    for name, (fn, _, _) in steps.items():
+        before = dense_finish.rwsadagrad_dense_finish.launches
+        for _ in range(3):  # warm-up, capture + replay, replay
+            fn()
+        torch.cuda.synchronize()
+        launches[name] = (dense_finish.rwsadagrad_dense_finish.launches - before) / (
+            3 * cs.N_DISPATCH)
+    times = cs.time_in_turns({name: fn for name, (fn, _, _) in steps.items()}, cs.check_loss)
+    for name, ts in times.items():
+        cases[f"captured N={cs.N_DISPATCH} {name} step"] = {
+            "ms_a_step": [t / cs.N_DISPATCH for t in ts], "k3_launches_a_step": launches[name]}
+    for name, (fn, _, _) in steps.items():
+        per_kernel = cs.profile_step(fn, f"captured N={cs.N_DISPATCH} {name}", (),
+                                     steps=cs.N_DISPATCH)
+        cases[f"captured N={cs.N_DISPATCH} {name} step"]["device_ms_a_step"] = by_kind(per_kernel)
+    del steps
+    torch.cuda.empty_cache()
+
+
+def store_at_a_time(fn):
+    """``fn`` (a train step's call) with the step's grouped finish cut into
+    one ``finish_dense`` call a store, as a checkout before the grouped
+    finish ran it: a zero-fill, a scatter and a K3 launch a store, with
+    this checkout's kernel. Patched around every call (only the calls up to
+    the capture read it)."""
+    from dlrm_yx_tpu_torch.train import train_step
+
+    grouped = train_step.finish_dense
+
+    def one_by_one(collected, lr, eps):
+        for item in collected:
+            grouped([item], lr, eps)
+
+    def call():
+        train_step.finish_dense = one_by_one
+        try:
+            return fn()
+        finally:
+            train_step.finish_dense = grouped
+
+    return call
+
+
+def row_update_cases(repo, cases, gen):
+    """K4, called as this checkout's train step calls it."""
     import torch
 
     import dlrm_yx_tpu_torch.ops.dense_finish as dense_finish
     import dlrm_yx_tpu_torch.ops.sparse_rows_add as rows_add
     from dlrm_yx_tpu_torch.config import DLRMConfig
     from dlrm_yx_tpu_torch.models.dlrm import model_groups
-    from dlrm_yx_tpu_torch.optim.optimizer import acc_len
 
     on_device = hasattr(dense_finish, "device_lr")
-    small, _ = model_groups(DLRMConfig.terabyte_mlperf(max_ind_range=1_000_000))
-    r, d = small.total_rows, small.dim
-    g = torch.zeros(r, d, device="cuda")
-    ids = uniform_ids(small, gen).long()
-    g.index_add_(0, ids, torch.randn(ids.numel(), d, device="cuda", generator=gen))
-    acc = torch.rand(acc_len(r), device="cuda", generator=gen)
-    lr = torch.full((), 0.01, device="cuda") if on_device else 0.01
-    for dtype in (torch.float32, torch.bfloat16):
-        store = (torch.rand(r, d, device="cuda", generator=gen) - 0.5).to(dtype)
-        case(f"K3 {str(dtype)[6:]}",
-             lambda sa: dense_finish.rwsadagrad_dense_finish(sa[0], sa[1], g, lr, d, 1e-10)[0],
-             lambda sa: dense_finish.rwsadagrad_dense_finish_reference(
-                 sa[0], sa[1], g, 0.01, d, 1e-10)[0],
-             # bf16: the two sum g * g in other orders, and may round one ulp apart
-             lambda: (store.clone(), acc.clone()), TOL["K3"] if dtype == torch.float32 else 8e-3)
-    del g, acc, store
     _, big = model_groups(DLRMConfig.terabyte_mlperf(max_ind_range=10_000_000))
     store = torch.empty(big.total_rows, big.dim, dtype=torch.bfloat16, device="cuda").uniform_(
         -0.5, 0.5, generator=gen)
@@ -232,7 +401,7 @@ def main():
         print("FAIL: torch.cuda.is_available() is False: this needs the card", flush=True)
         sys.exit(1)
     repos = sys.argv[1:] or [os.path.dirname(os.path.abspath(__file__))]
-    order = repos if len(repos) == 1 else [repos[0], repos[1], repos[1], repos[0]]
+    order = repos if len(repos) == 1 else repos + repos[::-1]
     for repo in order:
         subprocess.run([sys.executable, os.path.abspath(__file__), "--one", repo], check=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -17,8 +17,11 @@ gradients, routed by the JAX package's gates, copied as they are:
     ``ACC_KERNEL_MIN_BYTES``, RWSAdagrad's 1-D momentum viewed as
     ``[len, 1]`` rows;
   * the dense branch builds the exactly coalesced gradient with a
-    zeros-plus-scatter and finishes RWSAdagrad with K3
-    (``ops/dense_finish.py``) under ``impl='pallas'``;
+    zeros-plus-scatter; under ``impl='pallas'`` RWSAdagrad's finish is K3
+    (``ops/dense_finish.py``), run by ``finish_dense``, which builds every
+    store's gradient in one buffer and finishes the stores in one launch:
+    the one store at once, or, given a collector (``finish=``), every
+    store a step collected;
   * ``sparse_update_stream``, which the train step chooses for the high-L
     dense regime, sorts the occurrences by row and applies them with K5 or
     K6 (``ops/stream_update.py``).
@@ -45,15 +48,15 @@ Differences of form from the JAX package, none of result:
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Sequence, Union
+from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from dlrm_yx_tpu_torch.ops import stream_update
 from dlrm_yx_tpu_torch.ops.coalesce import coalesce_rows
-from dlrm_yx_tpu_torch.ops.dense_finish import rwsadagrad_dense_finish
-from dlrm_yx_tpu_torch.ops.embedding import TableGroup, dim_pack
+from dlrm_yx_tpu_torch.ops.dense_finish import rwsadagrad_dense_finish_many
+from dlrm_yx_tpu_torch.ops.embedding import TableGroup, device_ints, dim_pack
 from dlrm_yx_tpu_torch.ops.sparse_rows_add import sparse_rows_add
 from dlrm_yx_tpu_torch.ops.sparse_rows_overwrite import sparse_rows_overwrite
 
@@ -285,6 +288,7 @@ def sparse_update(
     density_hint: float = -1.0,
     packed: bool = True,
     row_dim=None,
+    finish: Optional[List] = None,
 ):
     """Sparse row update of one group store, in place; returns (store, acc).
 
@@ -303,8 +307,11 @@ def sparse_update(
     dim of each row, for a hybrid store of zero-padded narrower tables
     (mixed-dimension or k*D mixes): RWSAdagrad's row momentum is
     sum(g^2) / row_dim (rwsadagrad.py:108), not over the padded width, and
-    the dense branch then skips K3, as in the JAX package. See the module
-    docstring for the routes.
+    the dense branch then skips K3, as in the JAX package; finish: a list
+    that collects a store which takes the dense branch's K3 finish, as
+    ``(store, acc, flat_idx, flat_g, sentinel)``, instead of finishing it:
+    the store and acc are unchanged until ``finish_dense`` runs the
+    collected ones. See the module docstring for the routes.
     """
     d = store.shape[1]
     if dim is not None and dim != d:
@@ -347,6 +354,21 @@ def sparse_update(
         # the scatter into zeros IS the coalesced gradient; untouched rows
         # see zero and their update is a no-op. A spare row takes the
         # sentinel ids, so nothing is masked.
+        k3 = (
+            opt.name == "rwsadagrad"
+            and impl in ("pallas", "stream")
+            and row_dim is None
+            and store.dtype in (torch.float32, torch.bfloat16)
+            and acc.dim() == 1
+            and layout_ok
+        )
+        if k3:
+            item = (store, acc, flat_idx, flat_g, sentinel)
+            if finish is None:
+                finish_dense([item], lr, opt.eps)
+            else:
+                finish.append(item)
+            return store, acc
         r = store.shape[0]
         dense_g = torch.zeros(r + 1, d, dtype=torch.float32, device=store.device)
         _add_at(dense_g, flat_idx, flat_g, sentinel)
@@ -355,14 +377,6 @@ def sparse_update(
             acc.add_(dense_g * dense_g)
             store.copy_(store.float() - lr * dense_g / (acc.sqrt() + opt.eps))
             return store, acc
-        if (
-            impl in ("pallas", "stream")
-            and row_dim is None
-            and store.dtype in (torch.float32, torch.bfloat16)
-            and acc.dim() == 1
-            and layout_ok
-        ):
-            return rwsadagrad_dense_finish(store, acc, dense_g, lr, d, opt.eps)
         head = acc[:r]
         sq = dense_g * dense_g
         head.add_(sq.mean(dim=1) if row_dim is None else sq.sum(dim=1) / row_dim[:r])
@@ -382,6 +396,53 @@ def sparse_update(
     denom = _take_fill(acc, uniq, 1.0, sentinel).sqrt() + opt.eps
     _add_at(store, uniq, (-lr * sg / denom[:, None]).to(store.dtype), sentinel)
     return store, acc
+
+
+def finish_dense(collected: Sequence, lr: Scalar, eps: float) -> None:
+    """Finish the stores that ``sparse_update`` collected (``finish=``), in
+    place, as it would have finished each: one f32 buffer holds every
+    store's exactly coalesced gradient, each store's rows and a spare row
+    that takes its sentinel ids, the stores of one width side by side and
+    each width's region 16-byte aligned; the buffer is zero-filled once,
+    each width's row gradients are scattered into it at once, and K3
+    finishes every store in one launch (``rwsadagrad_dense_finish_many``).
+    On the CPU the scatter adds each row's items in their order, so the
+    result equals ``sparse_update``'s without a collector bit for bit.
+
+    A caller may defer a store's finish only while nothing reads the store
+    or its accumulator before ``finish_dense``, and may collect a store
+    once a step."""
+    if not collected:
+        return
+    device = collected[0][0].device
+    by_width: Dict[int, list] = {}
+    for item in collected:
+        by_width.setdefault(item[0].shape[1], []).append(item)
+    regions, size = [], 0
+    for d, items in by_width.items():
+        starts = np.cumsum([0] + [it[0].shape[0] + 1 for it in items])
+        regions.append((d, size, starts, items))
+        size += -(-int(starts[-1]) * d // 4) * 4
+    buf = torch.zeros(size, dtype=torch.float32, device=device)
+    stores = []
+    for d, base, starts, items in regions:
+        seg = buf[base:base + int(starts[-1]) * d].view(-1, d)
+        ids = []
+        for store, _, flat_idx, _, sentinel in items:
+            r = store.shape[0]
+            # ids past the store's rows (XLA's mode='drop') go to its spare row
+            ids.append(flat_idx.clamp(max=r) if sentinel > r else flat_idx)
+        counts = tuple(i.shape[0] for i in ids)
+        ids = torch.cat(ids) if len(ids) > 1 else ids[0]
+        if len(items) > 1:
+            ids = ids + torch.repeat_interleave(
+                device_ints(tuple(int(x) for x in starts[:-1]), device),
+                device_ints(counts, device), output_size=ids.shape[0])
+        grads = [it[3] for it in items]
+        seg.index_add_(0, ids, torch.cat(grads) if len(grads) > 1 else grads[0])
+        stores += [(store, acc, seg[int(o):int(o) + store.shape[0]])
+                   for (store, acc, *_), o in zip(items, starts)]
+    rwsadagrad_dense_finish_many(stores, lr, eps)
 
 
 def sparse_update_1d(opt: OptConfig, vec: torch.Tensor, acc, flat_idx: torch.Tensor,

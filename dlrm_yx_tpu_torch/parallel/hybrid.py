@@ -78,6 +78,7 @@ from dlrm_yx_tpu_torch.optim.optimizer import (
     DENSE_ACCUM_FACTOR,
     OptConfig,
     acc_len,
+    finish_dense,
     sparse_update,
     sparse_update_1d,
     sparse_update_stream,
@@ -631,6 +632,9 @@ def _sparse_updates(rk: _Rank, opt: OptConfig, params: Dict, opt_state: Dict, b:
                             for p, (_, sl, *_r) in zip(parts, rk.sections())]) * b.weights
 
     shim = _StreamGroupShim(plan.dim, plan.pack, plan.r_big_pad)
+    # the sections' dense-branch K3 finishes, in one launch after both
+    # updates: nothing in between reads the two stores, which are disjoint
+    dense = []
     for p, (si, sl, key, rows, vw_key) in zip(parts, rk.sections()):
         acc = None if sgd else opt_state[key]
         if si == 0 and (
@@ -669,9 +673,10 @@ def _sparse_updates(rk: _Rank, opt: OptConfig, params: Dict, opt_state: Dict, b:
             # small tables: the exact dense accumulate over the small store
             sparse_update(opt, params[key], acc, idx_f, g_f, lr, rows,
                           impl=c.sparse_update_impl, dim=plan.dim, packed=rk.packed,
-                          row_dim=rk.row_dim[si], **kw)
+                          row_dim=rk.row_dim[si], finish=dense, **kw)
         if learned:
             _update_vw(rk, opt, params, opt_state, vw_key, rows, p.gidx, gv_all[sl], lr)
+    finish_dense(dense, lr, opt.eps)
 
 
 def hybrid_train_body(config: DLRMConfig, plan: ShardingPlan, opt: OptConfig, mesh: Mesh):
@@ -701,6 +706,7 @@ def _accum_updates(rk: _Rank, opt: OptConfig, params: Dict, opt_state: Dict, bat
     sgd = opt.name == "sgd"
     learned = params.get("vw") is not None and c.weighted_pooling == "learned"
     qr_parts = []
+    dense = []  # one K3 launch after both sections, as in _sparse_updates
     for si, sl, key, rows, vw_key in rk.sections():
         gidx = gidx_stk[si]  # [n, s, bd, l]
         safe = gidx.clamp(max=rows - 1)
@@ -736,9 +742,10 @@ def _accum_updates(rk: _Rank, opt: OptConfig, params: Dict, opt_state: Dict, bat
                       impl=c.sparse_update_impl, size_class=1 if big else 0, dim=plan.dim,
                       exact_momentum=c.exact_row_momentum if big else False,
                       density_hint=c.dup_density_hint if big else -1.0,
-                      packed=rk.packed, row_dim=rk.row_dim[si])
+                      packed=rk.packed, row_dim=rk.row_dim[si], finish=dense)
         if learned:
             _update_vw(rk, opt, params, opt_state, vw_key, rows, gidx, gv, lr)
+    finish_dense(dense, lr, opt.eps)
     if qr_parts:
         # JAX's mode='drop': the non-QR slots' remainder ids point past the store
         ridx = torch.cat([r.reshape(-1) for r, _ in qr_parts])

@@ -48,16 +48,20 @@ from dlrm_yx_tpu_torch.data.batch import Batch, copy_batch, empty_like_batch, si
 
 
 def launch_counters() -> Dict[str, Callable]:
-    """The kernel wrappers, by name, whose ``.launches`` a capture corrects."""
-    from dlrm_yx_tpu_torch.ops.dense_finish import rwsadagrad_dense_finish
+    """The kernel wrappers, by name, whose ``.launches`` a capture corrects
+    (K3's grouped wrapper has a count of its own beside K3's)."""
+    from dlrm_yx_tpu_torch.ops.dense_finish import (
+        rwsadagrad_dense_finish,
+        rwsadagrad_dense_finish_many,
+    )
     from dlrm_yx_tpu_torch.ops.fused_interaction import fused_interaction
     from dlrm_yx_tpu_torch.ops.sparse_rows_add import sparse_rows_add
     from dlrm_yx_tpu_torch.ops.sparse_rows_overwrite import sparse_rows_overwrite
     from dlrm_yx_tpu_torch.ops.stream_update import sorted_stream_add, sorted_stream_apply
 
     return {f.__name__: f for f in (fused_interaction, sparse_rows_overwrite,
-                                    rwsadagrad_dense_finish, sorted_stream_apply,
-                                    sorted_stream_add, sparse_rows_add)}
+                                    rwsadagrad_dense_finish, rwsadagrad_dense_finish_many,
+                                    sorted_stream_apply, sorted_stream_add, sparse_rows_add)}
 
 
 def _tensors(tree):

@@ -66,6 +66,7 @@ from dlrm_yx_tpu_torch.ops.qr_embedding import qr_row_grads
 from dlrm_yx_tpu_torch.optim.optimizer import (
     DENSE_ACCUM_FACTOR,
     OptConfig,
+    finish_dense,
     sparse_update,
     sparse_update_1d,
     sparse_update_stream,
@@ -85,17 +86,18 @@ def _qr_grads(config: DLRMConfig, params: Dict, indices, weights, g_qr_pooled):
 
 
 def _update_qr(config: DLRMConfig, opt: OptConfig, params: Dict, opt_state: Dict,
-               qr_grads, lr) -> None:
+               qr_grads, lr, finish) -> None:
     """The sparse updates of every QR sub-table, in place: natural-layout
     stores with no sentinel tail (their sentinels are ``q_rows`` and
-    ``collisions``), routed as the JAX package routes them."""
+    ``collisions``), routed as the JAX package routes them; ``finish``
+    collects the dense branch's K3 finishes."""
     for i, (spec, ((qi, gq), (ri, gr))) in enumerate(zip(qr_specs(config), qr_grads)):
         q, r = params["qr"][i]
         q_acc, r_acc = opt_state["qr"][i] if opt.name != "sgd" else (None, None)
         sparse_update(opt, q, q_acc, qi, gq, lr, spec.q_rows, impl=config.sparse_update_impl,
-                      packed=False)
+                      packed=False, finish=finish)
         sparse_update(opt, r, r_acc, ri, gr, lr, spec.collisions,
-                      impl=config.sparse_update_impl, packed=False)
+                      impl=config.sparse_update_impl, packed=False, finish=finish)
 
 
 def _update_vw(opt: OptConfig, params: Dict, opt_state: Dict, gi: int, g, vidx, vg,
@@ -118,10 +120,16 @@ def apply_gradients(config: DLRMConfig, opt: OptConfig, groups, params: Dict,
     pooled cotangents."""
     with phase_scope("optimizer"):
         update_dense_towers(opt, params, opt_state, g_dense, lr)
+        # the dense branch's K3 stores, finished in one launch after the last
+        # sparse update: nothing in between reads them (the QR and learned
+        # vw grads are taken from the tables before any update, and the
+        # stores are disjoint)
+        dense = []
         if g_qr_pooled:
             # both sub-tables' grads first: each reads the other table
             _update_qr(config, opt, params, opt_state,
-                       _qr_grads(config, params, batch.indices, batch.weights, g_qr_pooled), lr)
+                       _qr_grads(config, params, batch.indices, batch.weights, g_qr_pooled), lr,
+                       dense)
         vw = params.get("vw")
         for gi, g in enumerate(groups):
             idx_g = group_indices(g, batch.indices)
@@ -161,10 +169,11 @@ def apply_gradients(config: DLRMConfig, opt: OptConfig, groups, params: Dict,
                     stochastic_round=config.stochastic_rounding, sr_seed=sr_seed,
                     size_class=g.size_class, dim=g.dim,
                     exact_momentum=config.exact_row_momentum,
-                    old_rows=old_rows, density_hint=config.dup_density_hint,
+                    old_rows=old_rows, density_hint=config.dup_density_hint, finish=dense,
                 )
             if vw_grads is not None:
                 _update_vw(opt, params, opt_state, gi, g, *vw_grads, lr)
+        finish_dense(dense, lr, opt.eps)
 
 
 def _dense_grads(config: DLRMConfig, groups, params: Dict, b: Batch, pooled, qr_pooled=()):
@@ -390,6 +399,8 @@ def make_accum_train_step(config: DLRMConfig, opt: OptConfig, n_accum: int,
                         vg_all[gi].append(vg)
         with torch.no_grad(), phase_scope("optimizer"):
             update_dense_towers(opt, params, opt_state, g_sum, lr)
+            # one K3 launch after the last sparse update, as in apply_gradients
+            dense = []
             if g_qr_all:
                 # the micro axis folded into the batch axis, as in JAX: one
                 # coalesced update a sub-table over every micro-batch's rows
@@ -398,7 +409,7 @@ def make_accum_train_step(config: DLRMConfig, opt: OptConfig, n_accum: int,
 
                 grads = _qr_grads(config, params, fold(batches.indices), fold(batches.weights),
                                   [torch.cat(g) for g in g_qr_all])
-                _update_qr(config, opt, params, opt_state, grads, lr)
+                _update_qr(config, opt, params, opt_state, grads, lr, dense)
             for gi, g in enumerate(groups):
                 sparse_update(
                     opt, params["emb"][gi], opt_state["emb"][gi] if opt.name != "sgd" else None,
@@ -407,11 +418,12 @@ def make_accum_train_step(config: DLRMConfig, opt: OptConfig, n_accum: int,
                     stochastic_round=config.stochastic_rounding, sr_seed=seed,
                     size_class=g.size_class, dim=g.dim,
                     exact_momentum=config.exact_row_momentum,
-                    density_hint=config.dup_density_hint,
+                    density_hint=config.dup_density_hint, finish=dense,
                 )
                 if learned:
                     _update_vw(opt, params, opt_state, gi, g, torch.cat(vidx_all[gi]),
                                torch.cat(vg_all[gi]), lr)
+            finish_dense(dense, lr, opt.eps)
         return loss_sum / n_accum
 
     graph_step = GraphStep(body, 1, _lr_fn(opt, lr_fn), dev, _capture_default(capture, dev))

@@ -199,7 +199,8 @@ def test_capture_needs_a_cuda_device():
 def test_launch_counters_name_every_kernel_wrapper():
     assert sorted(launch_counters()) == sorted([
         "fused_interaction", "sparse_rows_overwrite", "rwsadagrad_dense_finish",
-        "sorted_stream_apply", "sorted_stream_add", "sparse_rows_add"])
+        "rwsadagrad_dense_finish_many", "sorted_stream_apply", "sorted_stream_add",
+        "sparse_rows_add"])
     assert all(isinstance(f.launches, int) for f in launch_counters().values())
 
 

@@ -112,7 +112,9 @@ def test_sparse_update_matches_jax(monkeypatch, optname, impl, hint, size_class)
     t = torch.from_numpy
     args = (OptConfig(optname, 0.05), t(store.copy()),
             None if acc is None else t(acc.copy()), t(idx), t(g), 0.05, rows)
-    calls = _counted(monkeypatch, "sparse_rows_overwrite", "rwsadagrad_dense_finish",
+    # K3: the optimizer finishes a dense-branch store through the grouped
+    # wrapper (finish_dense), one call for the store
+    calls = _counted(monkeypatch, "sparse_rows_overwrite", "rwsadagrad_dense_finish_many",
                      "sparse_rows_add")
     got_s, got_a = port_opt.sparse_update(*args, old_rows=t(old), **kw)
     want_s, want_a = jax_opt.sparse_update(
@@ -124,8 +126,8 @@ def test_sparse_update_matches_jax(monkeypatch, optname, impl, hint, size_class)
         np.testing.assert_allclose(got_a.numpy(), np.asarray(want_a), **TOL)
     kernel_route = impl == "pallas" and size_class == 1
     assert calls["sparse_rows_overwrite"] == int(kernel_route)
-    assert calls["rwsadagrad_dense_finish"] == int(impl == "pallas" and size_class == 0
-                                                   and optname == "rwsadagrad")
+    assert calls["rwsadagrad_dense_finish_many"] == int(impl == "pallas" and size_class == 0
+                                                        and optname == "rwsadagrad")
     # Adagrad's per-element accumulator takes K4 on the kernel route
     assert calls["sparse_rows_add"] == int(kernel_route and optname == "adagrad")
     assert np.abs(got_s.numpy() - store).max() > 0

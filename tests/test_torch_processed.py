@@ -77,6 +77,8 @@ CLI = ["--arch-mlp-bot", "4-32-16", "--arch-sparse-feature-size", "16",
 
 @pytest.mark.parametrize("dims,extra", [
     ((16, 32), ["--optimizer", "rwsadagrad", "--sparse-update-impl", "pallas"]),
+    # three dim groups: the dense branch's three K3 stores in one grouped finish
+    ((16, 32, 64), ["--optimizer", "rwsadagrad", "--sparse-update-impl", "pallas"]),
     ((16, 32), ["--optimizer", "sgd", "--data-generation", "processed"]),
     ((4, 8, 16), ["--md-flag", "--optimizer", "rwsadagrad", "--sparse-update-impl",
                   "pallas"]),

@@ -124,6 +124,13 @@ def _finish_case(seed, r, w, acc_extra, touched=None):
         (1024, 32, 128, 24),
         (384, 256, 256, 0),
         (BLOCK_ROWS, 128, 128, 128),
+        # the widths of K3's lane-group route (JAX's packed layout) and 512
+        (64, 1, 128, 0),
+        (96, 2, 128, 8),
+        (128, 4, 128, 0),
+        (160, 8, 128, 24),
+        (200, 16, 128, 0),
+        (300, 512, 512, 16),
     ],
 )
 def test_finish_plain_matches_jax_kernel(r, dim, w, acc_extra):
@@ -195,7 +202,9 @@ def test_cuda_overwrite_matches_plain_version(cuda_device, w):
 
 
 @pytest.mark.parametrize("dim,dtype", [(128, torch.float32), (128, torch.bfloat16),
-                                       (2, torch.float32), (64, torch.float32)])
+                                       (2, torch.float32), (64, torch.float32),
+                                       (1, torch.float32), (8, torch.bfloat16),
+                                       (512, torch.float32)])
 def test_cuda_finish_matches_plain_version(cuda_device, dim, dtype):
     store, acc, g = _finish_case(4, 3000, dim, 100)
     s = torch.from_numpy(store).to(cuda_device, dtype)

@@ -173,7 +173,7 @@ def test_accum_step_matches_jax(monkeypatch, optname):
     pstep = make_accum_train_step(pcfg, opt, 2, LRPolicy(**pol), device="cpu")
     assert pstep.graph_step.capture is False  # eager on the CPU
     calls = []
-    for name in ("rwsadagrad_dense_finish", "sparse_rows_add", "sparse_rows_overwrite"):
+    for name in ("rwsadagrad_dense_finish_many", "sparse_rows_add", "sparse_rows_overwrite"):
         monkeypatch.setattr(port_opt, name, lambda *a, _f=getattr(port_opt, name), _n=name:
                             calls.append(_n) or _f(*a))
     jl, pl = [], []
@@ -186,7 +186,8 @@ def test_accum_step_matches_jax(monkeypatch, optname):
     np.testing.assert_allclose(pl, jl, **TOL)
     _assert_matches_jax(jp, js, pp, ps, pcfg)
     rws = optname == "rwsadagrad"
-    assert sorted(calls) == ["rwsadagrad_dense_finish"] * 3 * rws + ["sparse_rows_add"] * 3
+    # K3: one grouped finish a step
+    assert sorted(calls) == ["rwsadagrad_dense_finish_many"] * 3 * rws + ["sparse_rows_add"] * 3
 
 
 @pytest.mark.parametrize("optname", ["sgd", "rwsadagrad"])

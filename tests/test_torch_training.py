@@ -85,7 +85,8 @@ def _run_both(monkeypatch, optname, impl, cdt="float32", hint=-1.0, dim=128, b=6
     pp = params_from_jax(_np(jp), pcfg, "cpu")
     ps = opt_state_from_jax(_np(js), opt, pcfg, "cpu")
     calls = {"k2": 0, "k3": 0, "k4": 0}
-    for name, attr in (("k2", "sparse_rows_overwrite"), ("k3", "rwsadagrad_dense_finish"),
+    # K3: the train step finishes its dense-branch stores in one grouped call
+    for name, attr in (("k2", "sparse_rows_overwrite"), ("k3", "rwsadagrad_dense_finish_many"),
                        ("k4", "sparse_rows_add")):
         fn = getattr(port_opt, attr)
 

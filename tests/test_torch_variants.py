@@ -113,17 +113,25 @@ def _force_routes(monkeypatch, gtab_max=None):
 KERNELS = {  # name: (JAX module, port module)
     "sparse_rows_overwrite": (jax_psu, port_opt),
     "sparse_rows_add": (jax_psu, port_opt),
-    "rwsadagrad_dense_finish": (jax_k3, port_opt),
+    # the port's K3 runs through its grouped finish, counted store by store
+    # in _count_kernels
+    "rwsadagrad_dense_finish": (jax_k3, None),
     "sorted_stream_apply": (jax_stream, port_stream),
     "sorted_stream_add": (jax_stream, port_stream),
 }
 
 
 def _count_kernels(monkeypatch):
-    """Counts of each kernel's calls in JAX (at trace time) and the port."""
-    calls = {"jax": dict.fromkeys(KERNELS, 0), "port": dict.fromkeys(KERNELS, 0)}
+    """Counts of each kernel's calls in JAX (at trace time) and the port.
+    The port's K3 count is of the stores its grouped finish finishes
+    (``finish_dense``: one call a step for every dense-branch store), whose
+    calls ``calls["grouped"]`` counts."""
+    calls = {"jax": dict.fromkeys(KERNELS, 0), "port": dict.fromkeys(KERNELS, 0),
+             "grouped": 0}
     for name, mods in KERNELS.items():
         for side, mod in zip(("jax", "port"), mods):
+            if mod is None:
+                continue
             fn = getattr(mod, name)
 
             def counted(*a, _fn=fn, _side=side, _name=name, **k):
@@ -131,6 +139,14 @@ def _count_kernels(monkeypatch):
                 return _fn(*a, **k)
 
             monkeypatch.setattr(mod, name, counted)
+    many = port_opt.rwsadagrad_dense_finish_many
+
+    def grouped(stores, *a, **k):
+        calls["port"]["rwsadagrad_dense_finish"] += len(stores)
+        calls["grouped"] += 1
+        return many(stores, *a, **k)
+
+    monkeypatch.setattr(port_opt, "rwsadagrad_dense_finish_many", grouped)
     return calls
 
 
@@ -372,6 +388,7 @@ def test_qr_train_steps_match_jax(monkeypatch, optname, cdt, op):
     rws = optname == "rwsadagrad"
     assert per["sparse_rows_add"] == 2
     assert per["rwsadagrad_dense_finish"] == 3 * rws
+    assert calls["grouped"] == 3 * rws  # the three stores in one call a step
     # the last quotient row (table 3's id 4999 -> q row 1249) never moves:
     # K4 clips it onto row 1248 in both packages (ROADMAP Queue C, fault 4)
     start = np.asarray(jax_init_dlrm(JaxConfig.build(**kw), seed=3)["qr"][1][0])
@@ -393,6 +410,7 @@ def test_md_train_steps_match_jax(monkeypatch, optname, cdt):
     assert [g.dim for g in model_groups(cfg)] == [1, 2, 8, 16]
     assert per["sparse_rows_overwrite"] == 2
     assert per["rwsadagrad_dense_finish"] == 2 * (optname == "rwsadagrad")
+    assert calls["grouped"] == 3 * (optname == "rwsadagrad")  # both in one call a step
     # the MD projections trained
     start = jax_init_dlrm(JaxConfig.build(**kw), seed=3)["md_proj"]
     assert all((p.numpy() != np.asarray(s)).any()
