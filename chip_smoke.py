@@ -248,12 +248,37 @@ no result):
      slice of the big space at M = 2 ([~7.0M, 64]) and M = 4 ([~7.0M, 32])
      with one batch's ids, as drawn and with a hot row on half of K, bit
      for bit against their plain versions on the CPU, with their times,
-     the plain versions', ``index_add_``'s and the bounds.
+     the plain versions', ``index_add_``'s and the bounds;
+  12. mesh: the mesh paths as one world of NCCL ranks, one a card, where
+     there are 4 cards (2 or 3: a world of 2, without hybrid 2 x 2; one:
+     a line that says it did not run), started by ``spawn_local``
+     (``--mesh-rank``) after the single-device references on card 0:
+     (a) on phase 10's model and ACC0 accumulators, hybrid 1 x 4 and
+     2 x 2, row and column 1 x 4, each run eagerly and then captured
+     (N=4, three dispatches) on the same batches, captured equal to eager
+     bit for bit on every rank, K1, K2 and K3 once a step on each rank,
+     and the eager run held to card 0's single-device steps (losses within
+     rtol 1e-4, each table's change over the run on the same rows and
+     within TWO_RANK_CHANGE); (b) MLPerf's 40M-row model (187,767,399
+     rows x 128, 96.1 GB of f32 tables) as hybrid, row and column 1 x 4,
+     each rank drawing only its own shard on its card: K1, K2 and K3 at
+     the rank's shapes against their plain versions, timed warm and cold;
+     Trainer.fit (captured steps and an eval) with the launches counted;
+     only rows that the rank's own live lookups read changed (against
+     the draw, with no copy of the store); max_memory_allocated; the
+     captured N=16 step timed at B=2048 and 8192; the hybrid eager step's
+     NCCL kernel time and its all-to-all issued before the bottom MLP in
+     a profiler trace; (c) ``cli.main`` with phase b's flags and
+     --distributed --mesh-model=4 (1M cap), bf16 and f32 compute: each
+     rank's launches, rank 0's f32 losses within rtol 1e-4 of card 0's
+     single-device CLI run, the bf16 ones read (see ``mesh_cli_argvs``).
+     ``python3 chip_smoke.py --phase 12`` runs phases 1, 2 and 12 alone.
 Then a JSON line of the kernels (launches from the path each kernel serves:
 K1-K3 phase b, K5 phase g, K6 phase h, K4 phase m; K3's grouped launch of
 many stores as its own row, timed on the QR step's stores, its launches
 from phase y's QR run; every row with its warm and cold times, ``ms`` the
-warm one),
+warm one; on 2 or more cards K1-K3 also carry phase 12's launches per
+rank and times at its shapes, under ``mesh``),
 nvidia-smi's line, and the result line.
 
 Bound: bytes each input read once and each output written once over
@@ -4299,19 +4324,21 @@ def sharded_mode(mode):
     return col_sharded, col_sharded.ColShardedRunner, col_sharded.make_col_plan
 
 
-def live_rows(plan, batches, n_rows):
-    """[n_rows] bool: the rows of a model-rank-0 shard of the big space (at
-    M = 1: the whole space) that the batches' live lookups read."""
+def live_rows(plan, batches, n_rows, lo=0, hi=None):
+    """[n_rows] bool: the rows of a shard of the big space (its rows [lo, lo
+    + hi) at row 0; by default a model-rank-0 shard of n_rows, at M = 1 the
+    whole space) that the batches' live lookups read."""
     import torch
 
     from dlrm_yx_tpu_torch.ops.embedding import device_ints
 
+    hi = n_rows if hi is None else hi
     big = device_ints(plan.big_ids, "cuda").long()
     offs = device_ints(plan.row_offsets, "cuda")
     rows = torch.zeros(n_rows, dtype=torch.bool, device="cuda")
     for b in batches:
-        ids = (b.indices.index_select(0, big) + offs[:, None, None]).long()
-        rows[ids[(b.weights.index_select(0, big) != 0) & (ids < n_rows)]] = True
+        ids = (b.indices.index_select(0, big) + offs[:, None, None]).long() - lo
+        rows[ids[(b.weights.index_select(0, big) != 0) & (ids >= 0) & (ids < hi)]] = True
     return rows
 
 
@@ -4616,6 +4643,8 @@ def rows_add_case(what, store, ids, active, gen):
                   f"bit-equal to the plain version on the CPU; wrapper {ms:.5f} ms, plain "
                   f"{plain_ms:.5f} ms (one call, host sync included), index_add_ "
                   f"{library_ms:.5f} ms, bound {bound:.5f} ms ({by}, {nbytes} B)")
+    return {"shape": [r, w], "k": k, "max_abs_err": err, "ms": ms, "warm_ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "library_ms": library_ms}
 
 
 def check_slice_kernels(rows):
@@ -4710,13 +4739,914 @@ def two_rank_verdict(note, cfg, opt, single, tables, batches, losses, got_tables
         raise SystemExit("rank 0: the two-rank run disagrees with (a) beyond the limits")
 
 
+# ------------------------------- phase 12: the mesh paths on several cards
+
+MESH_N = 4            # (a): steps a dispatch of the captured runs, three dispatches
+MESH_STEPS = 3 * MESH_N
+MESH_TERABYTE_CAP = 40_000_000  # MLPerf's cap: 187,767,399 rows, 96.1 GB of f32 tables
+MESH_BATCHES = (BATCH, 4 * BATCH)  # (b)'s timed batches: 2048, and 2048 a card of four
+MESH_WORLD_TIMEOUT_S = 1100  # the whole world of ranks
+DRAW_BLOCK_ROWS = 1 << 20    # rows of one seeded draw of a 40M shard (512 MB at dim 128)
+
+
+def mesh_world(count):
+    """The ranks of phase 12 on ``count`` cards: 4, else 2, else none."""
+    return 4 if count >= 4 else 2 if count >= 2 else 0
+
+
+def mesh_parity_cases(world):
+    """(a)'s meshes: (mode, data, model)."""
+    return ([("hybrid", 1, world)] + [("hybrid", 2, 2)] * (world == 4)
+            + [("row", 1, world), ("col", 1, world)])
+
+
+def mesh_mode(mode):
+    """(the mode's module, its runner class, its plan maker (config, n_model))."""
+    from dlrm_yx_tpu_torch.parallel import hybrid
+    from dlrm_yx_tpu_torch.parallel.plan import make_plan
+
+    if mode == "hybrid":
+        return hybrid, hybrid.HybridRunner, lambda cfg, n: make_plan(cfg, n, "greedy")
+    return sharded_mode(mode)
+
+
+def momentum_k4(runner, mode):
+    """K4's launches a step on ``runner``'s path at L=1: one where RWSAdagrad's
+    row momentum of the big store takes the row-RMW kernel
+    (``optimizer._acc_update_1d``'s gate: ACC_KERNEL_MIN_BYTES or more, as
+    the JAX package gates it), else none; the column path adds its row norms
+    by a scatter."""
+    from dlrm_yx_tpu_torch.optim.optimizer import ACC_KERNEL_MIN_BYTES
+
+    acc = runner.opt_state["emb"]
+    sentinel = runner.plan.r_big_pad if mode == "hybrid" else getattr(
+        runner.plan, "rows_local", 0)
+    return int(mode != "col" and acc.shape[0] % 128 == 0 and acc.shape[0] >= sentinel + 129
+               and acc.shape[0] * 4 >= ACC_KERNEL_MIN_BYTES)
+
+
+def mesh_cli_argvs(rows):
+    """(c)'s command lines: phase b's, and the same with f32 compute. The bf16
+    towers round each rank's dense grads to bf16 before the sum (one card
+    rounds the whole batch's once), and RWSAdagrad's first step from zero
+    accumulators moves every element by lr * sign(g), so a gradient element
+    at rounding-noise size moves by the full lr either way: in a run
+    on the CPU (26 tables capped at 100,000 rows, four gloo ranks) the
+    losses read up to 4.6e-4 relative apart at bf16 and 1.2e-7 at f32. The
+    f32 run is the one held at rtol 1e-4."""
+    argv = terabyte_argv(rows) + [
+        "--num-batches", str(N_TRAIN_BATCHES), "--optimizer", "rwsadagrad",
+        "--learning-rate", str(LR), "--sparse-update-impl", "pallas", "--print-freq", "1"]
+    f32 = list(argv)
+    f32[f32.index("--compute-dtype") + 1] = "float32"
+    return {"bf16": argv, "f32": f32}
+
+
+def mesh_reference(rows):
+    """Phase 12 (a), first: the single-device steps on card 0, from phase
+    10's device draw with every accumulator at ACC0, over (a)'s batches.
+    Writes their losses and, for each table, the rows that moved and their
+    change; returns the file's path."""
+    import gc
+
+    import torch
+
+    from dlrm_yx_tpu_torch.models.dlrm import init_dlrm_on_device, model_groups
+    from dlrm_yx_tpu_torch.optim.optimizer import init_opt_state
+    from dlrm_yx_tpu_torch.train.train_step import make_train_step
+
+    cfg, opt = hybrid_config(rows)
+    torch.use_deterministic_algorithms(True)
+    try:
+        single = init_dlrm_on_device(cfg, seed=HYBRID_SEED)
+        before = [s.clone() for s in single["emb"]]
+        state = fill_state(init_opt_state(opt, single, model_groups(cfg)))
+        ref = make_train_step(cfg, opt)
+        losses = torch.stack([ref(single, state, b, i)[2] for i, b in
+                              enumerate(drawn_batches(cfg, MESH_STEPS, seed=44))])
+    finally:
+        torch.use_deterministic_algorithms(False)
+    moved = {}
+    for g, b0, b1 in zip(model_groups(cfg), before, single["emb"]):
+        for t, n, off in zip(g.table_ids, g.rows, g.row_offsets):
+            d = b1[off: off + n] - b0[off: off + n]
+            r = (d != 0).any(dim=1).nonzero()[:, 0]
+            moved[t] = (r.cpu(), d[r].cpu())
+    os.makedirs(DATA_DIR, exist_ok=True)
+    path = os.path.join(DATA_DIR, "mesh_reference.pt")
+    torch.save({"losses": losses.cpu(), "moved": moved}, path)
+    say("mesh", f"(a) the single-device steps on card 0 (make_train_step, {MESH_STEPS} steps, "
+                f"every accumulator at {ACC0}): losses {losses.tolist()}; "
+                f"{sum(r.numel() for r, _ in moved.values())} table rows moved")
+    del single, before, state, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return path
+
+
+def mesh_cli_reference(rows):
+    """Phase 12 (c), first: the single-device CLI runs of (c)'s command lines
+    on card 0; returns name -> their printed losses."""
+    want = only(fused_interaction=2 * N_TRAIN_BATCHES, sparse_rows_overwrite=N_TRAIN_BATCHES,
+                rwsadagrad_dense_finish=N_TRAIN_BATCHES)
+    losses = {}
+    with SharedInit():
+        for name, argv in mesh_cli_argvs(rows).items():
+            out = {}
+            cli_training_run("mesh", f"(c) single-device cli, phase b's flags, {name} compute",
+                             argv, N_TRAIN_BATCHES, want, None, out=out)
+            losses[name] = out["losses"]
+    return losses
+
+
+def mesh_paths(count):
+    """Phase 12: the mesh paths as one world of NCCL ranks, one a card (4, or
+    2 on 2-3 cards); on one card a line that says it did not run. Returns
+    each rank's results, or None."""
+    import gc
+
+    import torch
+
+    from dlrm_yx_tpu_torch.parallel.multihost import spawn_local
+
+    world = mesh_world(count)
+    if not world:
+        say("mesh", f"phase 12: needs 2 or more cards, found {count}: not run")
+        return None
+    t0 = time.perf_counter()
+    if world < 4:
+        say("mesh", f"phase 12: {count} cards, so a world of 2 (hybrid, row and column 1 x 2; "
+                    "hybrid 2 x 2 needs 4)")
+    rows = terabyte_rows()
+    spec = {"world": world, "cases": mesh_parity_cases(world),
+            "reference": mesh_reference(rows), "cli": mesh_cli_reference(rows)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    path = os.path.join(DATA_DIR, "mesh_ranks.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    # NCCL_DEBUG=WARN: a failed communicator says why in the ranks' output
+    env = dict(os.environ, NCCL_DEBUG=os.environ.get("NCCL_DEBUG", "WARN"))
+    try:
+        outs = spawn_local([os.path.abspath(__file__), "--mesh-rank", path], world,
+                           timeout=MESH_WORLD_TIMEOUT_S, env=env, capture=True)
+    except RuntimeError as e:
+        # which rank failed first, then the end of each rank's output
+        head, *parts = str(e).split("\n--- rank ")
+        fail(f"phase 12: {head}" + "".join(f"\n--- rank {p[:12]}...{p[-2500:]}" for p in parts))
+    results = []
+    for rank, out in enumerate(outs):
+        for line in out.splitlines():
+            if line.startswith("[mesh-rank]"):
+                say("mesh", f"rank {rank}: {line[len('[mesh-rank] '):]}")
+            elif line.startswith("[kernel]"):
+                say("kernel", f"rank {rank}: {line[len('[kernel] '):]}")
+            elif line.startswith("[mesh-result]"):
+                results.append(json.loads(line[len("[mesh-result] "):]))
+    if len(results) != world or not all("[mesh-rank] ok" in out for out in outs):
+        fail("phase 12: a rank did not finish its checks")
+    say("mesh", f"phase 12 in {time.perf_counter() - t0:.1f} s")
+    return results
+
+
+# --- the ranks
+
+
+def mesh_note(msg):
+    print(f"[mesh-rank] {msg}", flush=True)
+
+
+def mesh_tables(mode, runner, params):
+    """Every table (canonical order) from the model group's shards, on
+    every rank of the group (a collective; the 1M-cap model only)."""
+    if mode != "hybrid":
+        return dict(enumerate(runner.tables(params)))
+    from dlrm_yx_tpu_torch.models.dlrm import model_groups
+
+    gathered = runner.single_device_params(params)["emb"]
+    return {t: store[off: off + n] for g, store in zip(model_groups(runner.config), gathered)
+            for t, n, off in zip(g.table_ids, g.rows, g.row_offsets)}
+
+
+def sparse_change_gap(got, before, moved):
+    """The tables' change over a run (``got`` minus ``before``) against the
+    single-device run's (``moved``: per table the rows that moved and their
+    change): the tables whose moved rows differ, the rows each moved, and
+    |change - the single-device change| / |the single-device change|."""
+    other, n_got, n_want, diff, norm = [], 0, 0, 0.0, 0.0
+    for t, (rows_w, d_w) in moved.items():
+        d = got[t] - before[t]
+        rows_g = (d != 0).any(dim=1).nonzero()[:, 0]
+        rows_w, d_w = rows_w.to(d.device), d_w.to(d.device).double()
+        if not (rows_g.numel() == rows_w.numel() and bool((rows_g == rows_w).all())):
+            other.append(t)
+        n_got += rows_g.numel()
+        n_want += rows_w.numel()
+        d_g = d.double()
+        diff += ((d_g[rows_w] - d_w).square().sum() + d_g.square().sum()
+                 - d_g[rows_w].square().sum()).item()
+        norm += d_w.square().sum().item()
+    return {"other_rows": other, "moved": n_got, "moved_want": n_want,
+            "rel": (diff / (norm or float("nan"))) ** 0.5}
+
+
+def mesh_parity(spec, rank):
+    """Phase 12 (a) on a rank: each mesh of ``spec["cases"]`` on phase 10's
+    model (1M cap) from the single-device stores drawn on this card, every
+    accumulator at ACC0, run eagerly and then captured (N=MESH_N, three
+    dispatches) on (a)'s batches: captured equal to eager bit for bit, the
+    launches of each, and (rank 0) the eager run held to the single-device
+    run of card 0 by its losses and each table's change. Returns the
+    launches per case."""
+    import gc
+
+    import torch
+
+    from dlrm_yx_tpu_torch.data.batch import stack_batches
+    from dlrm_yx_tpu_torch.models.dlrm import init_dlrm_on_device, model_groups
+
+    ref = torch.load(spec["reference"])
+    cfg, opt = hybrid_config(terabyte_rows())
+    single = init_dlrm_on_device(cfg, seed=HYBRID_SEED)
+    before = {t: store[off: off + n] for g, store in zip(model_groups(cfg), single["emb"])
+              for t, n, off in zip(g.table_ids, g.rows, g.row_offsets)}
+    batches = drawn_batches(cfg, MESH_STEPS, seed=44)
+    out = {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for mode, data, model in spec["cases"]:
+            name = f"{mode} {data} x {model}"
+            module, runner_cls, plan_of = mesh_mode(mode)
+            plan = plan_of(cfg, model)
+
+            def start():
+                runner = runner_cls(cfg, opt, data, model, params=module.params_from_single_device(
+                    cfg, plan, single, rank % model))
+                fill_state(runner.opt_state)
+                return runner
+
+            def eager_run(runner):
+                p, s = clone_tree(runner.params), clone_tree(runner.opt_state)
+                step = runner.eager_step()
+                losses, launches = counted(lambda: torch.stack(
+                    [step(p, s, runner.prepare_batch(b), i)[2] for i, b in enumerate(batches)]))
+                return p, s, losses, launches
+
+            runner = start()
+            eager_p, eager_s, want, eager_launches = eager_run(runner)
+            captured = runner.make_multi_step(MESH_N)
+            got, replay_launches = counted(lambda: torch.cat(
+                [captured(runner.params, runner.opt_state, runner.prepare_batch(
+                    stack_batches(batches[j * MESH_N:(j + 1) * MESH_N])), j * MESH_N)[2]
+                 for j in range(MESH_STEPS // MESH_N)]))
+            torch.cuda.synchronize()
+            replays = captured.graph_step.replays()
+            pairs = [("losses", want, got)] + [
+                (f"tensor {i}", a, b) for i, (a, b) in enumerate(
+                    zip(leaves((eager_p, eager_s)), leaves((runner.params, runner.opt_state))))]
+            differ = [n for n, a, b in pairs if not torch.equal(bits(a), bits(b))]
+            if differ:
+                # is the eager run itself repeatable on this rank?
+                again = eager_run(start())
+                same = [n for n, a, b in zip(
+                    [p[0] for p in pairs], [want] + list(leaves((eager_p, eager_s))),
+                    [again[2]] + list(leaves(again[:2]))) if not torch.equal(bits(a), bits(b))]
+                raise SystemExit(f"rank {rank}, {name}: captured against eager: {differ[:6]} of "
+                                 f"{len(pairs)} tensors differ; eager against itself: "
+                                 f"{same[:6] or 'none differ'}")
+            launched = only(fused_interaction=MESH_STEPS, sparse_rows_overwrite=MESH_STEPS,
+                            rwsadagrad_dense_finish=MESH_STEPS,
+                            sparse_rows_add=MESH_STEPS * momentum_k4(runner, mode))
+            if eager_launches != launched or replay_launches != launched or replays < 2:
+                raise SystemExit(f"rank {rank}, {name}: launched {eager_launches} eager and "
+                                 f"{replay_launches} captured ({replays} replays), want "
+                                 f"{launched} each")
+            width = runner.params["emb"].shape[1]
+            mesh_note(f"(a) {name} (mesh {runner.mesh.shape}, d {runner.mesh.d}, m "
+                      f"{runner.mesh.m}, big store {list(runner.params['emb'].shape)} f32): "
+                      f"{MESH_STEPS} eager steps, then {MESH_STEPS // MESH_N} captured "
+                      f"dispatches of {MESH_N} ({replays} replays) equal to them bit for bit "
+                      f"(losses and all {len(pairs)} tensors); K1, K2 (width {width}) and K3 "
+                      f"once a step, eager and captured: "
+                      f"{ {k: v for k, v in eager_launches.items() if v} }")
+            out[name] = eager_launches
+            del captured
+            tables = mesh_tables(mode, runner, eager_p)
+            if rank == 0:
+                gap = sparse_change_gap(tables, before, ref["moved"])
+                loss_ok = torch.allclose(want.cpu(), ref["losses"], **TWO_RANK_LOSS)
+                loss_diff = (want.cpu() - ref["losses"]).abs().max().item()
+                ok = (loss_ok and not gap["other_rows"] and gap["moved"] == gap["moved_want"] > 0
+                      and gap["rel"] <= TWO_RANK_CHANGE)
+                mesh_note(f"(a) {name} against the single-device steps of card 0: losses "
+                          f"max |diff| {loss_diff:.3e} "
+                          f"{'within' if loss_ok else 'BEYOND'} rtol {TWO_RANK_LOSS['rtol']}; "
+                          f"{gap['moved']} table rows moved ({gap['moved_want']} on card 0), "
+                          f"{'the same rows' if not gap['other_rows'] else 'other rows in tables ' + str(gap['other_rows'])}; "
+                          f"|change - card 0's| / |card 0's| {gap['rel']:.3e} "
+                          f"{'within' if gap['rel'] <= TWO_RANK_CHANGE else 'BEYOND'} "
+                          f"{TWO_RANK_CHANGE:.0e}")
+                if not ok:
+                    raise SystemExit(f"rank 0, {name}: disagrees with the single-device run")
+            del tables, eager_p, eager_s, runner
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    del single, before
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def shard_views(mode, cfg, plan, m):
+    """Where the tables' draw blocks lie in model rank ``m``'s stores: (store
+    key, first store row, table, block's first row r0 and end r1, the block's
+    rows [a, b) and columns [c0, c1) that the store holds there)."""
+    from dlrm_yx_tpu_torch.parallel.hybrid import _slot_places
+
+    def blocks(t):
+        n = cfg.emb_rows[t]
+        return [(r0, min(n, r0 + DRAW_BLOCK_ROWS)) for r0 in range(0, n, DRAW_BLOCK_ROWS)]
+
+    views, dim = [], plan.dim
+    if mode == "hybrid":
+        for pid, (section, off) in _slot_places(plan, m).items():
+            t = plan.pseudo_table[pid]
+            key = "emb" if section == "big" else "emb_small"
+            views += [(key, off + r0, t, r0, r1, 0, r1 - r0, 0, dim) for r0, r1 in blocks(t)]
+        return views
+    sg = plan.small_group
+    for t, off in zip(sg.table_ids if sg else (), sg.row_offsets if sg else ()):
+        views += [("emb_small", off + r0, t, r0, r1, 0, r1 - r0, 0, dim) for r0, r1 in blocks(t)]
+    for t, off in zip(plan.big_ids, plan.row_offsets):
+        for r0, r1 in blocks(t):
+            g0 = off + r0
+            if mode == "col":
+                c0 = m * plan.d_local
+                views.append(("emb", g0, t, r0, r1, 0, r1 - r0, c0, c0 + plan.d_local))
+                continue
+            lo = m * plan.rows_local
+            a, b = max(g0, lo), min(g0 + r1 - r0, lo + plan.rows_local)
+            if a < b:
+                views.append(("emb", a - lo, t, r0, r1, a - g0, b - g0, 0, dim))
+    return views
+
+
+def draw_block(cfg, seed, t, r0, r1):
+    """Rows [r0, r1) of table t as the 40M shards draw them on the card:
+    init_dlrm_on_device's distribution (U(+-1/sqrt n), f32) in one pass,
+    each block of DRAW_BLOCK_ROWS rows from its own torch.Generator seeded
+    from (seed, t, block), so a table's values do not depend on the mesh."""
+    import numpy as np
+    import torch
+
+    n, d = cfg.emb_rows[t], cfg.emb_dims[t]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(int(np.random.SeedSequence([seed, t, r0 // DRAW_BLOCK_ROWS]).generate_state(
+        1, np.uint64)[0] >> np.uint64(1)))
+    bound = float(np.float32(np.sqrt(1.0 / n)))
+    return torch.empty((r1 - r0, d), device="cuda").uniform_(-bound, bound, generator=gen)
+
+
+def drawn_shard_params(mode, cfg, plan, m, seed):
+    """Model rank ``m``'s params of ``mode`` drawn on its card (``draw_block``;
+    zero padding and sentinel rows), the towers from numpy's RandomState(seed)
+    as init_dlrm_on_device draws them: no rank draws or holds another's
+    shard."""
+    import numpy as np
+    import torch
+
+    from dlrm_yx_tpu_torch.models.dlrm import _dense_params
+    from dlrm_yx_tpu_torch.utils.device import resolve_device
+
+    dev = resolve_device("cuda")
+    if mode == "hybrid":
+        shapes = {"emb": (plan.r_big_pad, plan.dim), "emb_small": (plan.r_small_pad, plan.dim)}
+    else:
+        sg = plan.small_group
+        shapes = {"emb": (plan.store_rows, plan.dim) if mode == "row"
+                  else (plan.total_rows, plan.d_local),
+                  "emb_small": (sg.total_rows, sg.dim) if sg else None}
+    params = {k: None if s is None else torch.zeros(s, dtype=torch.float32, device=dev)
+              for k, s in shapes.items()}
+    for key, s0, t, r0, r1, a, b, c0, c1 in shard_views(mode, cfg, plan, m):
+        params[key][s0: s0 + b - a] = draw_block(cfg, seed, t, r0, r1)[a:b, c0:c1]
+    params.update(_dense_params(np.random.RandomState(seed), cfg, dev), vw=None)
+    if mode != "hybrid":
+        params["vw_small"] = None
+    return params
+
+
+def changed_big_rows(mode, cfg, plan, m, seed, store):
+    """[rows] bool: the rows of rank ``m``'s big store that differ from the
+    draw (``drawn_shard_params``), block by block, with no copy of the store:
+    padding and sentinel rows against zero."""
+    import torch
+
+    changed = torch.zeros(store.shape[0], dtype=torch.bool, device=store.device)
+    drawn = torch.zeros_like(changed)
+    for key, s0, t, r0, r1, a, b, c0, c1 in shard_views(mode, cfg, plan, m):
+        if key == "emb":
+            want = draw_block(cfg, seed, t, r0, r1)[a:b, c0:c1].contiguous()
+            changed[s0: s0 + b - a] = (bits(store[s0: s0 + b - a]) != bits(want)).any(dim=1)
+            drawn[s0: s0 + b - a] = True
+    for r0 in range(0, store.shape[0], DRAW_BLOCK_ROWS):
+        sl = slice(r0, r0 + DRAW_BLOCK_ROWS)
+        changed[sl] |= (bits(store[sl]) != 0).any(dim=1) & ~drawn[sl]
+    return changed
+
+
+def mesh_live_rows(mode, plan, runner, batches):
+    """[store rows] bool: the rows of this rank's big store that the batches'
+    live lookups read, from the rank's own ids (no gather)."""
+    if mode == "hybrid":
+        return looked_up_big_rows(runner, batches)
+    n = runner.params["emb"].shape[0]
+    if mode == "col":
+        return live_rows(plan, batches, n)
+    return live_rows(plan, batches, n, runner.mesh.m * plan.rows_local, plan.rows_local)
+
+
+def mesh_k2_items(mode, plan, runner, b):
+    """(ids, active) that this rank's K2 call takes from batch ``b``: the
+    rank's big slots (hybrid), every big id with those of other ranks at the
+    sentinel (row), or every big id (column)."""
+    import torch
+
+    from dlrm_yx_tpu_torch.ops.embedding import device_ints
+
+    if mode == "hybrid":
+        nb = plan.n_big_slots
+        lb = runner.prepare_batch(b)
+        offs = device_ints(plan.row_offsets[runner.mesh.m * plan.t_pad:][:nb], "cuda")
+        live = (lb.weights[:nb] != 0).reshape(-1)
+        gid = (lb.indices[:nb] + offs[:, None, None]).reshape(-1)
+        return torch.where(live, gid, 0).int(), live.int()
+    big = device_ints(plan.big_ids, "cuda").long()
+    gid = (b.indices.index_select(0, big)
+           + device_ints(plan.row_offsets, "cuda")[:, None, None]).reshape(-1)
+    if mode == "col":
+        return gid.int(), (b.weights.index_select(0, big) != 0).reshape(-1).int()
+    local = gid - runner.mesh.m * plan.rows_local
+    owned = (local >= 0) & (local < plan.rows_local) & (
+        b.weights.index_select(0, big) != 0).reshape(-1)
+    return torch.where(owned, local, plan.rows_local).int(), owned.int()
+
+
+def overwrite_in_place(what, store, ids, active):
+    """K2 on a store too large to copy (a 40M shard): the rows its items
+    name saved, the kernel against its plain version run on the CPU over
+    them (bit for bit), timed warm and cold beside the plain version and
+    index_add_, the rows put back. Returns the kernels line's numbers."""
+    import torch
+
+    from dlrm_yx_tpu_torch.ops.sparse_rows_overwrite import (
+        sparse_rows_overwrite,
+        sparse_rows_overwrite_reference,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(49)
+    r, w = store.shape
+    k = ids.numel()
+    delta = torch.randn(k, w, device="cuda", generator=gen) * 1e-2
+    new_vals = store[ids.long()] + delta
+    rows, want = overwrite_plain_on_cpu(store, ids, new_vals, delta, active)
+    saved = store[rows].clone()
+    sparse_rows_overwrite(store, ids, new_vals, delta, active)
+    torch.cuda.synchronize()
+    err = (store[rows] - want).abs().max().item()
+    if not torch.equal(bits(store[rows]), bits(want)):
+        fail(f"sparse_rows_overwrite {what}: not bit-equal to the plain version on the CPU "
+             f"(max abs err {err})")
+    live = ids[active > 0].long()
+    _, counts = torch.unique(live, return_counts=True)
+    n_once, n_dup_rows = int((counts == 1).sum()), int((counts > 1).sum())
+    n_dup_items = int(counts[counts > 1].sum())
+    nbytes = 8 * k + 2 * 4 * w * n_once + 4 * w * n_dup_items + 2 * 4 * w * n_dup_rows
+    bound, by = bound_ms(nbytes, w * n_dup_items)
+
+    def call():
+        sparse_rows_overwrite(store, ids, new_vals, delta, active)
+
+    warm = device_time_ms(call)
+    cold = cold_reading(f"sparse_rows_overwrite {what}", call, bound)
+    plain_ms = device_time_ms(
+        lambda: sparse_rows_overwrite_reference(store, ids, new_vals, delta, active))
+    masked, ids64 = delta * active[:, None], ids.long()
+    library_ms = device_time_ms(lambda: store.index_add_(0, ids64, masked))
+    store[rows] = saved
+    say("kernel", f"sparse_rows_overwrite {what} [{r}, {w}] f32, K={k} ({n_once} unique live "
+                  f"rows, {n_dup_items} items on {n_dup_rows} duplicated rows): bit-equal to the "
+                  f"plain version on the CPU; warm {warm:.5f} ms, cold {cold:.5f} ms, plain "
+                  f"{plain_ms:.5f} ms, index_add_ {library_ms:.5f} ms, bound {bound:.5f} ms "
+                  f"({by}, {nbytes} B)")
+    return {"shape": [r, w], "k": k, "max_abs_err": err, "ms": warm, "warm_ms": warm,
+            "cold_ms": cold, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": library_ms}
+
+
+def interaction_row(b, s, d):
+    """K1 at [b, s + 1, d] bf16 against its plain version, timed warm and
+    cold; returns the kernels line's numbers."""
+    import torch
+
+    from dlrm_yx_tpu_torch.ops.fused_interaction import (
+        fused_interaction,
+        fused_interaction_reference,
+        num_pairs,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(b + s + d)
+    x = torch.randn(b, d, device="cuda", generator=gen)
+    ly = torch.randn(b, s, d, device="cuda", generator=gen)
+    got = fused_interaction(x, ly, False, torch.bfloat16)
+    want = fused_interaction_reference(x, ly, False, torch.bfloat16)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    rel = err / want.abs().max().item()
+    if got.shape != want.shape or not rel <= 1e-5 or not torch.equal(got[:, :d], x):
+        fail(f"fused_interaction {b}x{s}x{d} bf16: max abs err {err}, relative {rel} > 1e-5")
+    bound, by = interaction_bound_ms(b, s, d, num_pairs(s + 1, False))
+
+    def call():
+        fused_interaction(x, ly, False, torch.bfloat16)
+
+    warm = device_time_ms(call)
+    cold = cold_reading(f"fused_interaction B={b} bf16", call, bound)
+    plain_ms = device_time_ms(lambda: fused_interaction_reference(x, ly, False, torch.bfloat16))
+    say("kernel", f"fused_interaction B={b} S={s} D={d} bf16: max_abs_err {err:.3e} (relative "
+                  f"{rel:.3e} <= 1e-05), warm {warm:.5f} ms, cold {cold:.5f} ms, plain "
+                  f"{plain_ms:.5f} ms, bound {bound:.5f} ms ({by})")
+    return {"shape": [b, s + 1, d], "max_abs_err": err, "ms": warm, "warm_ms": warm,
+            "cold_ms": cold, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": None}
+
+
+def mesh_kernel_rows(mode, cfg, plan, runner, batch):
+    """Phase 12 (b), before the fit: the kernels at this rank's shapes where
+    they differ from the single card's: K2 on its store with its items of
+    ``batch``, K4 on its row momentum where the step takes K4 there
+    (``momentum_k4``); on the hybrid path also K1 on its tower slice and K3
+    on its small store (the row and column paths' small store is the single
+    card's [121,232, 128])."""
+    import types
+
+    import torch
+
+    from dlrm_yx_tpu_torch.ops.embedding import device_ints
+    from dlrm_yx_tpu_torch.ops.sparse_rows_add import sparse_rows_add
+
+    world = runner.mesh.size
+    ids, active = mesh_k2_items(mode, plan, runner, batch)
+    rows = {"sparse_rows_overwrite": overwrite_in_place(
+        f"{mode} 1 x {world}, rank {runner.mesh.rank}'s store", runner.params["emb"], ids,
+        active)}
+    if momentum_k4(runner, mode):
+        # K4 on a copy of the row momentum viewed [len, 1], with the same items
+        acc = runner.opt_state["emb"].clone().view(-1, 1)
+        what = f"{mode} 1 x {world}, rank {runner.mesh.rank}'s row momentum"
+        gen = torch.Generator(device="cuda").manual_seed(51)
+        row = rows_add_case(what, acc, ids, active, gen)
+        inc = torch.rand(ids.numel(), 1, device="cuda", generator=gen)
+        row.update(cold_ms=cold_reading(f"sparse_rows_add {what}",
+                                        lambda: sparse_rows_add(acc, ids, inc, active),
+                                        row["bound_ms"]))
+        say("kernel", f"  cold (L2 flushed before each call): {row['cold_ms']:.5f} ms")
+        rows["sparse_rows_add"] = row
+        del acc
+    if mode == "hybrid":
+        rows["fused_interaction"] = interaction_row(BATCH // world, len(cfg.emb_rows),
+                                                    cfg.emb_dims[0])
+        nb, m = plan.n_big_slots, runner.mesh.m
+        lb = runner.prepare_batch(batch)
+        offs = device_ints(plan.row_offsets[m * plan.t_pad:][nb:plan.t_pad], "cuda")
+        small = (lb.indices[nb:] + offs[:, None, None])[lb.weights[nb:] != 0]
+        gen = torch.Generator(device="cuda").manual_seed(50)
+        group = types.SimpleNamespace(total_rows=plan.r_small_pad, dim=plan.dim)
+        rows["rwsadagrad_dense_finish"] = dict(
+            finish_case(f"hybrid 1 x {world}, rank {runner.mesh.rank}'s small store", group,
+                        small, gen), shape=[plan.r_small_pad, plan.dim])
+    return rows
+
+
+def nccl_window(fn, steps, trace=None):
+    """One torch.profiler window over fn() (``steps`` steps) after two
+    warm-up calls: (the NCCL kernels' device µs a step by kernel (their
+    ``ncclDevKernel`` names: the ranges NCCL's calls open hold the same time
+    again), every kernel's and copy's device µs a step), and the window's
+    Chrome trace written to ``trace``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    if trace:
+        prof.export_chrome_trace(trace)
+    device = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    return ({e.key: e.self_device_time_total / steps for e in device
+             if e.key.startswith("ncclDevKernel")},
+            sum(e.self_device_time_total for e in device) / steps)
+
+
+def mesh_overlap(eager_step, captured_step, rank):
+    """Phase 12 (b), hybrid: a profiler window over an eager step on each
+    rank, as phase 10's: the all-to-all issued before the bottom MLP's first
+    GEMM (``check_a2a_overlap``; the device side read) and the NCCL kernels'
+    device time, which holds each rank's wait for the last to arrive; then
+    one over a captured dispatch of N_DISPATCH steps, where the ranks
+    launch in step and the kernels' time is the exchange's (with the
+    dispatch's device-busy µs a step)."""
+    from dlrm_yx_tpu_torch.parallel.overlap import check_a2a_overlap
+
+    path = os.path.join(DATA_DIR, f"mesh_hybrid_step_rank{rank}.json")
+    eager, _ = nccl_window(eager_step, 1, path)
+    got = check_a2a_overlap(path)
+    if not got["issued_before"]:
+        raise SystemExit(f"rank {rank}: the all-to-all is not issued before the bottom MLP's "
+                         f"first GEMM: {got}")
+    return got, eager, nccl_window(captured_step, N_DISPATCH)
+
+
+def mesh_terabyte(spec, rank):
+    """Phase 12 (b) on a rank: MLPerf's 40M-row Terabyte model as hybrid,
+    row and column 1 x world, each rank's shard drawn on its card; the
+    kernels at the rank's shapes; Trainer.fit (captured steps, an eval) with
+    the launches counted; only looked-up rows changed; the peak memory; the
+    captured N=16 step timed at each of MESH_BATCHES; the hybrid step's
+    NCCL time and overlap. Returns the numbers."""
+    import contextlib
+    import gc
+    import io
+
+    import torch
+
+    from dlrm_yx_tpu_torch.config import DLRMConfig
+    from dlrm_yx_tpu_torch.data.batch import stack_batches
+    from dlrm_yx_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    world = spec["world"]
+    cfg, opt = hybrid_config(DLRMConfig.terabyte_mlperf(max_ind_range=MESH_TERABYTE_CAP).emb_rows)
+    out = {}
+    for mode in ("hybrid", "row", "col"):
+        name = f"{mode} 1 x {world}"
+        module, runner_cls, plan_of = mesh_mode(mode)
+        plan = plan_of(cfg, world)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = drawn_shard_params(mode, cfg, plan, rank, HYBRID_SEED)
+        torch.cuda.synchronize()
+        draw_s = time.perf_counter() - t0
+        runner = runner_cls(cfg, opt, 1, world, params=params)
+        store = runner.params["emb"]
+        mesh_note(f"(b) {name}: {sum(cfg.emb_rows)} rows, this rank's big store "
+                  f"{list(store.shape)} f32 ({store.numel() * 4} B), small store "
+                  f"{list(runner.params['emb_small'].shape)}, drawn on {store.device} in "
+                  f"{draw_s:.1f} s")
+        train = drawn_batches(cfg, HYBRID_STEPS, seed=42)
+        test = drawn_batches(cfg, HYBRID_STEPS, seed=43)
+        kernels = mesh_kernel_rows(mode, cfg, plan, runner, test[0])
+        trainer = Trainer(cfg, opt, TrainerConfig(print_freq=1, seed=HYBRID_SEED), runner=runner)
+        losses = []
+        step = trainer.train_step
+
+        def recording(*a):
+            got = step(*a)
+            losses.append(got[2])
+            return got
+
+        trainer.train_step = recording
+        counters = launch_counters()
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            metrics = trainer.fit(train, lambda: test)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = {n: c.launches for n, c in counters.items()}
+        want = only(fused_interaction=2 * HYBRID_STEPS, sparse_rows_overwrite=HYBRID_STEPS,
+                    rwsadagrad_dense_finish=HYBRID_STEPS,
+                    sparse_rows_add=HYBRID_STEPS * momentum_k4(runner, mode))
+        got_losses = torch.cat([x.reshape(-1) for x in losses])
+        if launches != want or not bool(torch.isfinite(got_losses).all()):
+            raise SystemExit(f"rank {rank}, (b) {name}: launched {launches}, want {want}; "
+                             f"losses {got_losses.tolist()}")
+        changed = changed_big_rows(mode, cfg, plan, runner.mesh.m, HYBRID_SEED, store)
+        live = mesh_live_rows(mode, plan, runner, train)
+        if (changed & ~live).any() or not changed.any():
+            raise SystemExit(f"rank {rank}, (b) {name}: {int(changed.sum())} big-store rows "
+                             f"changed, {int((changed & ~live).sum())} that no live lookup "
+                             f"of this rank touched")
+        peak = torch.cuda.max_memory_allocated()
+        shown = {k: round(v, 6) for k, v in metrics.items() if isinstance(v, float)}
+        mesh_note(f"(b) {name}: Trainer.fit, {HYBRID_STEPS} captured steps + {HYBRID_STEPS} "
+                  f"eval batches in {fit_s:.1f} s: losses {got_losses.tolist()}, eval {shown}; "
+                  f"{int(changed.sum())} big-store rows changed, all among the "
+                  f"{int(live.sum())} that this rank's live lookups read; launches "
+                  f"{ {k: v for k, v in launches.items() if v} }; max_memory_allocated "
+                  f"{peak} B")
+        del trainer
+        fns = {}
+        for bsz in MESH_BATCHES:
+            stacked = stack_batches([drawn_batches(cfg, 1, seed=45, batch=bsz)[0]] * N_DISPATCH)
+            fns[bsz] = train_step_fn(runner.make_multi_step(N_DISPATCH), runner.params,
+                                     runner.opt_state, runner.prepare_batch(stacked))
+        times = time_in_turns(fns, check_loss)
+        timed = {}
+        for bsz, ts in times.items():
+            ms = statistics.mean(ts) / N_DISPATCH
+            timed[bsz] = {"ms_per_step": ms, "examples_per_s": bsz / ms * 1e3,
+                          "examples_per_s_per_card": bsz / ms * 1e3 / world,
+                          "ms_a_call": ts}
+            mesh_note(f"(b) {name}, captured N={N_DISPATCH}, B={bsz} ({bsz // world} a card's "
+                      f"towers): {ms:.4f} ms/step, {bsz / ms * 1e3:.0f} examples/s, "
+                      f"{bsz / ms * 1e3 / world:.0f} a card (ms a call {ts})")
+        entry = {"launches": launches, "peak_bytes": peak, "store": list(store.shape),
+                 "draw_s": draw_s, "fit_s": fit_s, "losses": got_losses.tolist(),
+                 "times": timed, "kernels": kernels, "changed_rows": int(changed.sum())}
+        if mode == "hybrid":
+            eager = runner.eager_step()
+            batch = runner.prepare_batch(drawn_batches(cfg, 1, seed=45)[0])
+            overlap, nccl, (nccl_captured, busy) = mesh_overlap(
+                train_step_fn(eager, runner.params, runner.opt_state, batch), fns[BATCH], rank)
+            idle = 1 - busy / 1e3 / timed[BATCH]["ms_per_step"]
+            entry.update(overlap=overlap, nccl_us=nccl, nccl_captured_us=nccl_captured,
+                         busy_us=busy, idle_share=idle)
+            for what, us in (("one eager step", nccl),
+                             (f"a captured dispatch of {N_DISPATCH} at B={BATCH}", nccl_captured)):
+                mesh_note(f"(b) {name}, {what} under torch.profiler: NCCL kernels "
+                          f"{ {k[:40]: round(v, 2) for k, v in us.items()} } (device us a "
+                          f"step, {sum(us.values()):.2f} in all)")
+            mesh_note(f"(b) {name}, the captured dispatch: {busy:.2f} device-busy us a step "
+                      f"(kernels and copies), idle share {idle:.3f} of the timed "
+                      f"{timed[BATCH]['ms_per_step']:.4f} ms/step")
+            mesh_note(f"(b) {name}: overlap (the eager step) {overlap}")
+        del fns
+        out[mode] = entry
+        del runner, params, store, changed, live
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_cli(spec, rank):
+    """Phase 12 (c) on a rank: ``cli.main`` with (c)'s command lines plus
+    --distributed --mesh-model=WORLD in the ranks' world, launches counted;
+    rank 0 holds the f32 run's losses to card 0's single-device run at rtol
+    1e-4 and reads the bf16 run's against its own."""
+    import contextlib
+    import io
+    import math
+    import re
+
+    import torch
+
+    from dlrm_yx_tpu_torch import cli
+
+    world = spec["world"]
+    want = only(fused_interaction=2 * N_TRAIN_BATCHES, sparse_rows_overwrite=N_TRAIN_BATCHES,
+                rwsadagrad_dense_finish=N_TRAIN_BATCHES)
+    out = {}
+    for name, argv in mesh_cli_argvs(terabyte_rows()).items():
+        counters = launch_counters()
+        for c in counters.values():
+            c.launches = 0
+        printed = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            metrics = cli.main(argv + ["--distributed", f"--mesh-model={world}"])
+        seconds = time.perf_counter() - t0
+        launches = {n: c.launches for n, c in counters.items()}
+        if launches != want:
+            raise SystemExit(f"rank {rank}, (c) {name}: launched {launches}, want {want}")
+        entry = {"launches": launches, "seconds": seconds}
+        if rank == 0:
+            losses = [float(x) for x in re.findall(r"loss ([-+.\deE]+|nan|inf)",
+                                                   printed.getvalue())]
+            ref = torch.tensor(spec["cli"][name], dtype=torch.float64)
+            got = torch.tensor(losses, dtype=torch.float64)
+            if got.shape != ref.shape or not all(map(math.isfinite, losses)) or not all(
+                    math.isfinite(metrics.get(k, math.nan)) for k in ("accuracy", "roc_auc")):
+                raise SystemExit(f"rank 0, (c) {name}: losses {losses}, eval {metrics}")
+            rel = ((got - ref).abs() / ref.abs()).max().item()
+            held = name == "f32"
+            if held and not torch.allclose(got, ref, rtol=1e-4, atol=0.0):
+                raise SystemExit(f"rank 0, (c) {name}: losses {losses} against card 0's "
+                                 f"{spec['cli'][name]}: relative {rel:.3e} beyond 1e-4")
+            entry.update(losses=losses, rel=rel)
+            mesh_note(f"(c) cli, phase b's flags, {name} compute, --distributed "
+                      f"--mesh-model={world}: {N_TRAIN_BATCHES} steps and an eval in "
+                      f"{seconds:.1f} s (host init included): losses {losses} against card "
+                      f"0's single-device run {spec['cli'][name]}: max relative "
+                      f"{rel:.3e}{' within rtol 1e-4' if held else ' (read, not held)'}")
+        mesh_note(f"(c) {name}: launches {launches}")
+        out[name] = entry
+    return out
+
+
+def mesh_rank_main(spec_path):
+    """One rank of phase 12: cuda:LOCAL_RANK over NCCL (``init_multihost``),
+    (a), (b) and (c) in turn; prints its results as one JSON line."""
+    import torch
+    import torch.distributed as dist
+
+    from dlrm_yx_tpu_torch.parallel.multihost import init_multihost
+    from dlrm_yx_tpu_torch.utils.device import resolve_device
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    rank, world = init_multihost(device="cuda")
+    dev = resolve_device("cuda")
+    if (dist.get_backend() != "nccl" or world != spec["world"]
+            or dev.index != int(os.environ["LOCAL_RANK"])):
+        raise SystemExit(f"rank {rank}: backend {dist.get_backend()}, world {world}, device "
+                         f"{dev}: want NCCL, {spec['world']} ranks, one a card")
+    mesh_note(f"rank {rank} of {world} on {dev} ({torch.cuda.get_device_name(dev)}), NCCL "
+              f"{'.'.join(map(str, torch.cuda.nccl.version()))}")
+    result = {"rank": rank, "device": str(dev)}
+    t0 = time.perf_counter()
+    result["a"] = mesh_parity(spec, rank)
+    mesh_note(f"(a) in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    result["b"] = mesh_terabyte(spec, rank)
+    mesh_note(f"(b) in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    result["c"] = mesh_cli(spec, rank)
+    mesh_note(f"(c) in {time.perf_counter() - t0:.1f} s")
+    # the cards this process made a CUDA context on (its own alone, unless
+    # something ran or allocated on another card; read, not held)
+    result["contexts"] = [i for i in range(torch.cuda.device_count())
+                          if torch._C._cuda_hasPrimaryContext(i)]
+    mesh_note(f"CUDA primary contexts of this process: cards {result['contexts']}")
+    print("[mesh-result] " + json.dumps(result), flush=True)
+    dist.barrier()
+    dist.destroy_process_group()
+    mesh_note("ok")
+
+
+# --- the kernels line
+
+MESH_KERNELS = {  # kernel -> (the TPU kernel it replaces, its source)
+    "fused_interaction": ("dlrm_yx_tpu/ops/pallas_interaction.py:84",
+                          "dlrm_yx_tpu_torch/csrc/fused_interaction.cu"),
+    "sparse_rows_overwrite": ("dlrm_yx_tpu/ops/pallas_sparse_update.py:505",
+                              "dlrm_yx_tpu_torch/csrc/sparse_rows_overwrite.cu"),
+    "rwsadagrad_dense_finish": ("dlrm_yx_tpu/ops/pallas_dense_finish.py:119",
+                                "dlrm_yx_tpu_torch/csrc/rwsadagrad_dense_finish.cu"),
+    "sparse_rows_add": ("dlrm_yx_tpu/ops/pallas_sparse_update.py:293",
+                        "dlrm_yx_tpu_torch/csrc/sparse_rows_add.cu"),
+}
+
+
+def mesh_kernel_entry(results, name):
+    """A kernels-line row's ``mesh`` part: the world, the kernel's launches
+    on each rank in every run of phase 12, and each rank's readings at the
+    shapes (b) gives it."""
+    ranks = sorted(results, key=lambda r: r["rank"])
+    launches = {}
+    for part in ("a", "b", "c"):
+        for run in ranks[0][part]:
+            launched = [r[part][run] if part == "a" else r[part][run]["launches"] for r in ranks]
+            launches[f"({part}) {run}"] = [x[name] for x in launched]
+    shapes = [dict(mode=mode, rank=r["rank"], **entry["kernels"][name])
+              for r in ranks for mode, entry in r["b"].items() if name in entry["kernels"]]
+    return {"world": len(ranks), "launches_per_rank": launches, "shapes": shapes}
+
+
+def mesh_kernels_line(results):
+    """The kernels line of ``--phase 12``: K1-K4 at the shapes of (b)'s hybrid
+    run, on the rank whose call has the most work (the largest bound; rank 0
+    may hold no small table), launched as that rank's Trainer.fit launched
+    them, each with its ``mesh`` part."""
+    kernels = []
+    for name, (replaces, source) in MESH_KERNELS.items():
+        rank = max((r for r in results if name in r["b"]["hybrid"]["kernels"]),
+                   key=lambda r: r["b"]["hybrid"]["kernels"][name]["bound_ms"])
+        hybrid = rank["b"]["hybrid"]
+        row = hybrid["kernels"][name]
+        kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                        "launches": hybrid["launches"][name], "rank": rank["rank"],
+                        **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                               "bound_by", "library_ms", "cold_ms",
+                                               "warm_ms")},
+                        "mesh": mesh_kernel_entry(results, name)})
+    return kernels
+
+
 def terabyte_rows():
     from dlrm_yx_tpu_torch.config import DLRMConfig
 
     return DLRMConfig.terabyte_mlperf(max_ind_range=1_000_000).emb_rows
 
 
-def main():
+def main(mesh_only=False):
+    """The smoke run; ``mesh_only`` (``--phase 12``): phases 1, 2 and 12 alone,
+    the kernels line of K1-K3 at phase 12's shapes."""
     import gc
     import re
 
@@ -4749,6 +5679,17 @@ def main():
         say("build", f"  {name}: {len(regs)} kernel instances, at most {max(regs, default=0)} "
                      f"registers and {max(spills, default=0)} bytes of spill stores a thread "
                      f"(ptxas)")
+    if mesh_only:
+        mesh = mesh_paths(count)
+        if mesh is None:
+            fail("--phase 12 needs 2 or more cards")
+        kernels = mesh_kernels_line(mesh)
+        say("done", f"chip_smoke.py --phase 12 wall time {time.perf_counter() - T_START:.1f} s")
+        print(json.dumps({"kernels": kernels}))
+        print(smi)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                 "count": count}}))
+        return
 
     # 3, a, f, l. kernels against their plain versions
     k1 = check_interaction_kernel()
@@ -4888,6 +5829,8 @@ def main():
     # 11. row and column sharding: the same, then the column slice's kernels
     sharded_two_ranks(sharded_world_of_one(rows, smi))
     check_slice_kernels(rows)
+    # 12. the mesh paths across the cards (one line on one card)
+    mesh = mesh_paths(count)
 
     sources = {
         "fused_interaction": ("dlrm_yx_tpu/ops/pallas_interaction.py:84", k1, launches,
@@ -4933,6 +5876,8 @@ def main():
         if name == "rwsadagrad_dense_finish_many":
             kernels[-1].update(launches_from="phase y: the QR model's CLI training run",
                                timed_on="the QR step's 30 stores, one launch")
+        if mesh and name in MESH_KERNELS:
+            kernels[-1]["mesh"] = mesh_kernel_entry(mesh, name)
         if no_library:
             say("kernel", f"{name}: library_ms null ({no_library})")
     say("done", f"chip_smoke.py wall time {time.perf_counter() - T_START:.1f} s")
@@ -4946,5 +5891,9 @@ if __name__ == "__main__":
         hybrid_rank_main(sys.argv[2])
     elif sys.argv[1:2] == ["--sharded-rank"]:
         sharded_rank_main(sys.argv[2])
+    elif sys.argv[1:2] == ["--mesh-rank"]:
+        mesh_rank_main(sys.argv[2])
+    elif sys.argv[1:] == ["--phase", "12"]:
+        main(mesh_only=True)
     else:
         main()

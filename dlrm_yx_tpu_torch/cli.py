@@ -634,9 +634,11 @@ def main(argv=None):
         args.device = "cpu"  # a world of one rank is this process
     joined = False
     if args.distributed or os.environ.get("COORDINATOR_ADDRESS"):
+        # a world the caller set up stays up after the run; one joined here goes
+        ours = not torch.distributed.is_initialized()
         pid, num = init_multihost(device=args.device)
         if num > 1:
-            joined = True
+            joined = ours
             args.device = str(local_device(args.device))
             rank0_print(f"multihost: process {pid}/{num}, {num} global devices")
     try:

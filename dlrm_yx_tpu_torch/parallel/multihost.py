@@ -9,7 +9,11 @@ rendezvous in ``COORDINATOR_ADDRESS`` (``host:port``), else ``MASTER_ADDR``
 / ``MASTER_PORT``, and initializes ``torch.distributed``: NCCL on the card,
 gloo on the CPU. On one host with no such env it returns ``(0, 1)`` and
 initializes nothing. Each rank's device is ``cuda:LOCAL_RANK``
-(``local_device``) unless the caller asks for the CPU.
+(``local_device``) unless the caller asks for the CPU; it is made the
+rank's current device before the process group exists, so that NCCL's
+communicators and every bare ``"cuda"`` allocation land on it. A
+collective that waits past ``TIMEOUT_S`` fails the rank with torch's
+message instead of hanging the world.
 
 ``spawn_local`` starts a world of N processes on localhost (a free port,
 one thread each, every child killed when one fails or the time runs out):
@@ -23,12 +27,16 @@ import socket
 import subprocess
 import sys
 import time
+from datetime import timedelta
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+# how long a collective may wait for the other ranks (torch's NCCL default;
+# gloo's is 30 min)
+TIMEOUT_S = 600.0
 
 
 def _env_int(names: Sequence[str], default: int = -1) -> int:
@@ -62,7 +70,8 @@ def init_multihost(
     """Join the multi-process world; returns (rank, world size). On one host
     with no launcher env it returns (0, 1), as the reference's
     init_distributed falls back to one process. ``backend`` defaults to
-    NCCL for a CUDA ``device`` and gloo for the CPU."""
+    NCCL for a CUDA ``device`` and gloo for the CPU; TIMEOUT_S bounds every
+    collective's wait, the first one's rendezvous included."""
     num = (num_processes if num_processes is not None else
            _env_int(["NUM_PROCESSES", "WORLD_SIZE", "PMI_SIZE", "OMPI_COMM_WORLD_SIZE"], -1))
     pid = (process_id if process_id is not None else
@@ -82,7 +91,8 @@ def init_multihost(
         backend = "nccl" if dev.type == "cuda" else "gloo"
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
-    dist.init_process_group(backend, init_method=f"tcp://{coord}", world_size=num, rank=pid)
+    dist.init_process_group(backend, init_method=f"tcp://{coord}", world_size=num, rank=pid,
+                            timeout=timedelta(seconds=TIMEOUT_S))
     return dist.get_rank(), dist.get_world_size()
 
 

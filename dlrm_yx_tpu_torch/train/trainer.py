@@ -111,14 +111,17 @@ def _auto_steps_per_dispatch(tcfg: "TrainerConfig") -> int:
     return 1
 
 
-def _prefetch_thread(gen, depth: int):
+def _prefetch_thread(gen, depth: int, device: Optional[torch.device] = None):
     """Run ``gen`` on a background thread into a bounded queue: the host
     batch stacking and the start of its copy to the card overlap the main
     thread's step dispatches. A consumer that stops early (break, early
     stop, exception) closes the generator, which ends the thread and joins
     it: no staging (pinned buffers, copies on the staging stream) and no
     last reference to the Trainer outlives the epoch on another thread
-    while the next run captures its graphs."""
+    while the next run captures its graphs. On a CUDA ``device`` the thread
+    first makes it its current device: a new thread starts on card 0, and
+    a rank of a multi-card world would otherwise stage (and make a CUDA
+    context) there."""
     q: "queue.Queue" = queue.Queue(maxsize=depth)
     stop = threading.Event()
     end = object()
@@ -126,6 +129,8 @@ def _prefetch_thread(gen, depth: int):
 
     def worker():
         try:
+            if device is not None and device.type == "cuda":
+                torch.cuda.set_device(device)
             for x in gen:
                 while not stop.is_set():
                     try:
@@ -411,7 +416,7 @@ class Trainer:
 
             stream = dispatch_stream()
             if tcfg.prefetch_depth > 0:
-                stream = _prefetch_thread(stream, tcfg.prefetch_depth)
+                stream = _prefetch_thread(stream, tcfg.prefetch_depth, self.device)
             for (batch, staged), n_it, use_multi in stream:
                 if not pending:
                     span_t0 = time.perf_counter()

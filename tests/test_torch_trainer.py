@@ -248,6 +248,26 @@ def test_prefetch_thread_raises_the_producers_error():
     assert got == [1]
 
 
+@pytest.mark.parametrize("device", [torch.device("cuda", 3), torch.device("cpu"), None])
+def test_prefetch_thread_stages_on_the_trainers_card(monkeypatch, device):
+    """The worker makes the trainer's card its current device before it
+    stages anything (a new thread starts on card 0); the card itself is
+    monkeypatched, so none is needed."""
+    calls = []
+    monkeypatch.setattr(torch.cuda, "set_device",
+                        lambda dev: calls.append((dev, threading.current_thread().name)))
+
+    def gen():
+        calls.append(("batch", threading.current_thread().name))
+        yield 1
+
+    assert list(_prefetch_thread(gen(), 2, device)) == [1]
+    worker = calls[-1][1]
+    assert worker != threading.current_thread().name
+    want = [(device, worker)] if device is not None and device.type == "cuda" else []
+    assert calls == want + [("batch", worker)]
+
+
 def test_group_microbatches_stacks_and_drops_the_tail():
     cfg = DLRMConfig.tiny()
     batches, _ = _data(cfg, 5)

@@ -100,18 +100,6 @@ def plan_fields(plan, extra=()):
                "canonical_perm": list(plan.canonical_perm)})
 
 
-def group_fields(g):
-    return None if g is None else (g.table_ids, g.rows, g.dim, g.row_offsets, g.total_rows,
-                                   g.size_class, g.pack)
-
-
-def plan_fields(plan, extra=()):
-    return ({f: getattr(plan, f) for f in ("n_model", "dim", "rows", "row_offsets", "pack",
-                                           "big_ids", "dups_in_big") + tuple(extra)}
-            | {"small_group": group_fields(plan.small_group),
-               "canonical_perm": list(plan.canonical_perm)})
-
-
 def check_init_matches_jax(mode, jax_mod, make_plan, jax_make_plan, init, jax_init,
                            layouts, kw, n_model, optname):
     """Each model rank's params (and zero optimizer state) equal its part of
