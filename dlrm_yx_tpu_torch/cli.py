@@ -25,7 +25,8 @@ and / or ``--quantize-mlp-with-bit 8|16`` serves from quantized tables
 (``ops/quantized.py``). ``--debug-mode`` prints the model and its
 parameters before and after training (``--print-precision`` digits);
 ``--enable-profiling`` writes a ``torch.profiler`` Chrome trace of the run
-into ``--profile-out-dir``; ``--collect-execution-graph`` (or
+and its counter deltas into ``--profile-out-dir``
+(``utils.profiling.trace``); ``--collect-execution-graph`` (or
 ``--plot-compute-graph``) writes the execution trace of one eager train
 step there; ``--save-onnx`` exports the inference forward with
 ``torch.export`` to ``<--save-model>/dlrm_torch.pt2`` (``export.py``). The

@@ -27,6 +27,8 @@ from typing import List, NamedTuple, Sequence, Tuple
 import numpy as np
 import torch
 
+from dlrm_yx_tpu_torch.utils.profiling import count
+
 
 class Batch(NamedTuple):
     dense: "np.ndarray | object"
@@ -122,15 +124,22 @@ def _pinned(a) -> torch.Tensor:
 
 def copy_batch(dst: Batch, src: Batch) -> None:
     """Fill device tensors ``dst`` from ``src`` on the current stream: host
-    arrays are pinned and copied without blocking the host, device tensors
-    copied device to device."""
+    arrays are pinned and copied without blocking the host (their bytes
+    counted as ``h2d.bytes``), device tensors copied device to device."""
+    pinned = 0
     for d, a in zip(dst, src):
         if tuple(d.shape) != tuple(a.shape):
             raise ValueError(f"batch field of shape {tuple(a.shape)} for a buffer of "
                              f"{tuple(d.shape)}")
         if not isinstance(a, torch.Tensor):
-            a = _pinned(a) if d.device.type == "cuda" else torch.from_numpy(np.asarray(a))
+            if d.device.type == "cuda":
+                a = _pinned(a)
+                pinned += a.nbytes
+            else:
+                a = torch.from_numpy(np.asarray(a))
         d.copy_(a, non_blocking=True)
+    if pinned:
+        count("h2d.bytes", pinned)
 
 
 def stage_batch(batch: Batch, device: torch.device, stream):
@@ -138,7 +147,7 @@ def stage_batch(batch: Batch, device: torch.device, stream):
     ``stream`` without blocking the host, with an event recorded after the
     copy; the consumer makes its stream wait for the event before it reads
     the batch. A batch already on the device is returned as it is, with no
-    event."""
+    event. The host arrays' bytes are counted as ``h2d.bytes``."""
     if all(isinstance(a, torch.Tensor) and a.device == device for a in batch):
         return batch, None
     with torch.cuda.stream(stream):
@@ -146,4 +155,6 @@ def stage_batch(batch: Batch, device: torch.device, stream):
                          else _pinned(a).to(device, non_blocking=True) for a in batch))
         event = torch.cuda.Event()
         event.record(stream)
+    count("h2d.bytes", sum(np.asarray(a).nbytes for a in batch
+                           if not isinstance(a, torch.Tensor)))
     return staged, event

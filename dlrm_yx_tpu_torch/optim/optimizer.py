@@ -26,6 +26,13 @@ gradients, routed by the JAX package's gates, copied as they are:
     dense regime, sorts the occurrences by row and applies them with K5 or
     K6 (``ops/stream_update.py``).
 
+Each call counts the route it takes (``utils.profiling.count``):
+``sparse_update.overwrite`` (K2), ``.row_add`` (K4), ``.scatter`` (SGD's
+scatter-add), ``.dense_k3`` (the dense branch finished by K3), ``.dense``
+(the dense branch in torch), ``.coalesce`` (coalesce first, then scatter)
+and ``.stream`` (``sparse_update_stream``); a captured step counts them
+per replay (``train/capture.py``).
+
 ``lr`` is a Python float or a 0-dim f32 tensor on the params' device, and
 ``sr_seed`` an int or a 0-dim integer tensor: a step captured in a CUDA
 graph (``train/capture.py``) passes tensors that the host refills before
@@ -59,6 +66,7 @@ from dlrm_yx_tpu_torch.ops.dense_finish import rwsadagrad_dense_finish_many
 from dlrm_yx_tpu_torch.ops.embedding import TableGroup, device_ints, dim_pack
 from dlrm_yx_tpu_torch.ops.sparse_rows_add import sparse_rows_add
 from dlrm_yx_tpu_torch.ops.sparse_rows_overwrite import sparse_rows_overwrite
+from dlrm_yx_tpu_torch.utils.profiling import count
 
 # the JAX package's routing constants (optimizer.py:129-211)
 PALLAS_MIN_STORE_BYTES = 64 << 20
@@ -201,6 +209,7 @@ def sparse_update_stream(opt: OptConfig, store: torch.Tensor, acc, group: TableG
     divides by the final accumulator. ``row_dim``: optional [R] f32 true
     dims of the rows (a hybrid store holding zero-padded narrower tables),
     which divide the momentum in place of ``dim``."""
+    count("sparse_update.stream")
     t, b, l = gidx.shape
     dim = group.dim
     rows_s, perm = torch.sort(gidx.reshape(-1).to(torch.int32), stable=True)
@@ -347,6 +356,7 @@ def sparse_update(
 
     if opt.name == "sgd":
         # linear: a scatter-add is exact on duplicates
+        count("sparse_update.scatter")
         _add_at(store, flat_idx, (-lr * flat_g).to(store.dtype), sentinel)
         return store, acc
 
@@ -362,6 +372,7 @@ def sparse_update(
             and acc.dim() == 1
             and layout_ok
         )
+        count("sparse_update.dense_k3" if k3 else "sparse_update.dense")
         if k3:
             item = (store, acc, flat_idx, flat_g, sentinel)
             if finish is None:
@@ -384,6 +395,7 @@ def sparse_update(
         store.copy_(store.float() - lr * (dense_g / denom))
         return store, acc
 
+    count("sparse_update.coalesce")
     uniq, sg = coalesce_rows(flat_idx, flat_g, sentinel)
     if opt.name == "adagrad":
         _add_at(acc, uniq, sg * sg, sentinel)
@@ -480,6 +492,7 @@ def _kernel_route(opt, store, acc, flat_idx, flat_g, lr, sentinel, impl,
         and not stochastic_round
         and store.dtype == torch.float32
     )
+    count("sparse_update.overwrite" if can_overwrite else "sparse_update.row_add")
 
     def apply_store(delta):
         if can_overwrite:

@@ -25,9 +25,16 @@ replay of a CUDA graph instead:
     with other tensors raises.
     Its outputs are overwritten by the next replay, so each call returns
     copies;
-  * the kernel wrappers' ``.launches`` counters count launches on the card:
-    the capture takes back what the wrappers counted while it recorded
-    (nothing ran) and every replay adds it once;
+  * counters count what ran on the card: the capture takes back what the
+    body counted while it recorded (nothing ran), the kernel wrappers'
+    ``.launches`` and the capturing thread's ``utils.profiling.count``
+    counters alike (``sparse_update.<route>``), and every replay adds it
+    once. A shape's first call counts ``graph.warm``, its second
+    ``graph.capture`` and ``graph.replay``, later ones ``graph.replay``.
+    The spans ``step.copy_in`` (the batch and the scalars refilled),
+    ``step.warm``, ``step.capture``, ``step.replay`` and ``step.copy_out``
+    (the outputs copied) carry the call's first iteration, or an eval
+    step's call number, as their ``req``;
   * a failed capture or replay raises: nothing falls back to the eager body
     on the card. Calls that share a kernel's scratch stay in one stream's
     order (``csrc/row_plan.cuh``): the side stream and the capture wait for
@@ -45,6 +52,7 @@ import numpy as np
 import torch
 
 from dlrm_yx_tpu_torch.data.batch import Batch, copy_batch, empty_like_batch, signature, to_device
+from dlrm_yx_tpu_torch.utils.profiling import count, phase_scope, thread_counts
 
 
 def launch_counters() -> Dict[str, Callable]:
@@ -93,6 +101,7 @@ class _Slot:
         self.out = None
         self.bound = ()
         self.launched: Dict[str, int] = {}
+        self.counted: Dict[str, int] = {}
         self.replays = 0
 
 
@@ -115,6 +124,7 @@ class GraphStep:
         self.device = device
         self.capture = capture
         self.inference = inference
+        self.calls = 0
         self._slots: Dict[tuple, _Slot] = {}
 
     def replays(self) -> int:
@@ -133,37 +143,51 @@ class GraphStep:
         return self._call(params, opt_state, batch, iteration)
 
     def _call(self, params, opt_state, batch, iteration):
+        self.calls += 1
+        req = iteration if self.n_scalars else self.calls
         if not self.capture:
-            its, lrs = self._host_scalars(iteration)
-            return self.body(params, opt_state, to_device(batch, self.device),
-                             torch.from_numpy(lrs).to(self.device),
-                             torch.from_numpy(its).to(self.device))
+            with phase_scope("step.copy_in", req):
+                its, lrs = self._host_scalars(iteration)
+                args = (params, opt_state, to_device(batch, self.device),
+                        torch.from_numpy(lrs).to(self.device), torch.from_numpy(its).to(self.device))
+            return self.body(*args)
         key = signature(batch)
         slot = self._slots.get(key)
         if slot is None:
             slot = self._slots[key] = _Slot(batch, self.n_scalars, self.device)
-        copy_batch(slot.batch, batch)
-        if self.n_scalars:
-            its, lrs = self._host_scalars(iteration)
-            host = np.concatenate([its.view(np.uint8), lrs.view(np.uint8)])
-            slot.scalars.copy_(torch.from_numpy(host).pin_memory(), non_blocking=True)
+        with phase_scope("step.copy_in", req):
+            copy_batch(slot.batch, batch)
+            if self.n_scalars:
+                its, lrs = self._host_scalars(iteration)
+                host = np.concatenate([its.view(np.uint8), lrs.view(np.uint8)])
+                slot.scalars.copy_(torch.from_numpy(host).pin_memory(), non_blocking=True)
         args = (params, opt_state, slot.batch, slot.lrs, slot.seeds)
         if not slot.warm:
-            out = self._warm_up(args)
+            count("graph.warm")
+            with phase_scope("step.warm", req):
+                out = self._warm_up(args)
             slot.warm = True
             return out
         bound = tuple(t.data_ptr() for t in _tensors((params, opt_state)))
         if slot.graph is None:
-            self._capture(slot, args)
+            count("graph.capture")
+            with phase_scope("step.capture", req):
+                self._capture(slot, args)
             slot.bound = bound
         elif bound != slot.bound:
             raise ValueError("a captured step is bound to the params and optimizer state it "
                              "was captured with; these are other tensors")
-        slot.graph.replay()
+        with phase_scope("step.replay", req):
+            slot.graph.replay()
         slot.replays += 1
+        count("graph.replay")
         for name, f in launch_counters().items():
             f.launches += slot.launched[name]
-        return _copy(slot.out)
+        counts = thread_counts()
+        for name, n in slot.counted.items():
+            counts[name] = counts.get(name, 0) + n
+        with phase_scope("step.copy_out", req):
+            return _copy(slot.out)
 
     def _warm_up(self, args):
         """The body run eagerly on a side stream: real steps that build the
@@ -181,6 +205,8 @@ class GraphStep:
     def _capture(self, slot: _Slot, args):
         counters = launch_counters()
         before = {name: f.launches for name, f in counters.items()}
+        counts = thread_counts()
+        counted = dict(counts)
         graph = torch.cuda.CUDAGraph()
         # thread-local: the trainer's prefetch thread may allocate and copy
         # on its own stream while this thread captures
@@ -189,4 +215,8 @@ class GraphStep:
         slot.launched = {name: f.launches - before[name] for name, f in counters.items()}
         for name, f in counters.items():
             f.launches = before[name]
+        slot.counted = {k: n - counted.get(k, 0) for k, n in counts.items()
+                        if n != counted.get(k, 0)}
+        for name, n in slot.counted.items():
+            counts[name] -= n
         slot.graph = graph

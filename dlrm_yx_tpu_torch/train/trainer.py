@@ -18,6 +18,14 @@ accumulation step and the eval step run as replays of CUDA graphs
 their copy to the card on a side stream, which the main stream waits for
 before it fills a graph's inputs.
 
+Spans (``utils.profiling.phase_scope``, ``req`` the dispatch's first
+iteration): ``fit.wait_batch`` (the main thread waits for the next
+prepared dispatch), ``fit.dispatch`` (the wait on its staged copy, then the
+step), ``fit.drain`` (the losses fetched) and, on the prefetch thread,
+``fit.stage`` (stacking and staging). Counters: ``feed.batches`` (prepared
+dispatches taken) and ``feed.empty`` (those the prefetch queue did not yet
+hold when asked).
+
 Checkpoints (``train/checkpoint.py``, the JAX package's npz format): with
 ``load_path`` the Trainer restores params, optimizer state and counters in
 ``__init__``, copying into its own tensors before any step, and ``fit``
@@ -56,7 +64,7 @@ from dlrm_yx_tpu_torch.train.train_step import (
 )
 from dlrm_yx_tpu_torch.utils.device import resolve_device
 from dlrm_yx_tpu_torch.utils.logging import EventLogger, ScalarWriter, rank0_print
-from dlrm_yx_tpu_torch.utils.profiling import StepTimer
+from dlrm_yx_tpu_torch.utils.profiling import StepTimer, count, phase_scope
 
 
 @dataclasses.dataclass
@@ -156,11 +164,14 @@ def _prefetch_thread(gen, depth: int, device: Optional[torch.device] = None):
     t.start()
     try:
         while True:
+            empty = q.empty()
             x = q.get()
             if x is end:
                 if err:
                     raise err[0]
                 return
+            if empty:
+                count("feed.empty")
             yield x
     finally:
         stop.set()
@@ -382,13 +393,14 @@ class Trainer:
                         continue
                     yield nb
 
-            def drain():
+            def drain(req=None):
                 """Fetch the pending losses and record their span in the
                 epoch timer (at every print, eval and epoch boundary)."""
                 nonlocal pending, pending_n
                 if not pending:
                     return []
-                losses = torch.cat([x.reshape(-1) for x in pending]).cpu().tolist()
+                with phase_scope("fit.drain", req):
+                    losses = torch.cat([x.reshape(-1) for x in pending]).cpu().tolist()
                 span = time.perf_counter() - span_t0
                 epoch_timer.times.extend([span / pending_n] * pending_n)
                 pending, pending_n = [], 0
@@ -397,39 +409,58 @@ class Trainer:
             def dispatch_stream():
                 """Yields (prepared batch, n_iters, use_multi). With a
                 multi-step: M host batches stack into one copy and one
-                dispatch; the tail (<M) runs single steps."""
+                dispatch; the tail (<M) runs single steps. Each dispatch's
+                preparation is the span ``fit.stage`` (on the prefetch
+                thread), with the dispatch's first iteration."""
+                it = self.iteration
+
+                def prepared(batches, n):
+                    """A list of host batches stacked, or an accumulation
+                    group as it is, prepared for a dispatch of n steps."""
+                    nonlocal it
+                    with phase_scope("fit.stage", it):
+                        out = self._prepare(stack_batches(batches) if isinstance(batches, list)
+                                            else batches, staging)
+                    it += n
+                    return out
+
                 src = host_stream()
                 if self.multi_step is not None:
                     group = []
                     for nb in src:
                         group.append(nb)
                         if len(group) == self.msteps:
-                            yield self._prepare(stack_batches(group), staging), self.msteps, True
+                            yield prepared(group, self.msteps), self.msteps, True
                             group = []
                     for nb in group:
-                        yield self._prepare(stack_batches([nb]), staging), 1, False
+                        yield prepared([nb], 1), 1, False
                 else:
                     for nb in src:
-                        if self.accum == 1:
-                            nb = stack_batches([nb])
-                        yield self._prepare(nb, staging), 1, False
+                        yield prepared([nb] if self.accum == 1 else nb, 1), 1, False
 
             stream = dispatch_stream()
             if tcfg.prefetch_depth > 0:
                 stream = _prefetch_thread(stream, tcfg.prefetch_depth, self.device)
-            for (batch, staged), n_it, use_multi in stream:
+            while True:
+                with phase_scope("fit.wait_batch", self.iteration):
+                    item = next(stream, None)
+                if item is None:
+                    break
+                (batch, staged), n_it, use_multi = item
+                count("feed.batches")
                 if not pending:
                     span_t0 = time.perf_counter()
-                if staged is not None:
-                    # the copy started on the staging stream; its tensors
-                    # are read on this one
-                    current = torch.cuda.current_stream(self.device)
-                    current.wait_event(staged)
-                    for t in batch:
-                        t.record_stream(current)
-                step_fn = self.multi_step if use_multi else self.train_step
-                self.params, self.opt_state, loss = step_fn(
-                    self.params, self.opt_state, batch, self.iteration)
+                with phase_scope("fit.dispatch", self.iteration):
+                    if staged is not None:
+                        # the copy started on the staging stream; its
+                        # tensors are read on this one
+                        current = torch.cuda.current_stream(self.device)
+                        current.wait_event(staged)
+                        for t in batch:
+                            t.record_stream(current)
+                    step_fn = self.multi_step if use_multi else self.train_step
+                    self.params, self.opt_state, loss = step_fn(
+                        self.params, self.opt_state, batch, self.iteration)
                 pending.append(loss)
                 pending_n += n_it
                 prev_it = self.iteration
@@ -437,7 +468,7 @@ class Trainer:
                 if tcfg.print_freq and (
                     self.iteration // tcfg.print_freq > prev_it // tcfg.print_freq
                 ):
-                    losses = drain()
+                    losses = drain(prev_it)
                     ms = epoch_timer.times[-1] * 1e3
                     avg_loss = sum(losses) / max(len(losses), 1)
                     rank0_print(f"Finished training it {self.iteration} of epoch "
@@ -449,7 +480,7 @@ class Trainer:
                     and tcfg.test_freq
                     and self.iteration // tcfg.test_freq > prev_it // tcfg.test_freq
                 ):
-                    drain()
+                    drain(prev_it)
                     stop, summary = self._run_eval(test_batches, epoch)
                     if stop:
                         break
