@@ -722,7 +722,7 @@ def check_overwrite_kernel(big):
     say("kernel", f"sparse_rows_overwrite store [{r}, {w}] f32, K={k} ({n_once} unique "
                   f"live rows, {n_dup_items} items on {n_dup_rows} duplicated rows, "
                   f"{k - len(ids)} inactive): max_abs_err {err:.3e} (tol {tol}), "
-                  f"wrapper (plan + apply + tail, CUDA graph) {ms:.5f} ms, plain "
+                  f"wrapper (plan + apply + place + tail, CUDA graph) {ms:.5f} ms, plain "
                   f"{plain_ms:.5f} ms, index_add_ {library_ms:.5f} ms, bound {bound:.5f} ms "
                   f"({by}, {nbytes} B)")
     del masked, idx64
@@ -1946,7 +1946,7 @@ def check_rows_add_kernel(cap_big, big):
         bound, by = bound_ms(nbytes, d * k)
         say("kernel", f"sparse_rows_add {what} [{r}, {d}] {dtype}, K={k} on {n_rows} distinct "
                       f"rows: bit-equal to the plain version (max_abs_err {err:.3e}), every "
-                      f"touched row changed; wrapper (plan + apply + tail, CUDA graph) {ms:.5f} ms, "
+                      f"touched row changed; wrapper (plan + apply + place + tail, CUDA graph) {ms:.5f} ms, "
                       f"plain {plain_ms:.5f} ms (CUDA events over 10 calls, host sync "
                       f"included), index_add_ "
                       f"{'none' if library_ms is None else f'{library_ms:.5f} ms'}, bound "

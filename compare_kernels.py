@@ -2,7 +2,7 @@
 on one NVIDIA card, in turns, each against its plain PyTorch version, and
 the captured train steps whose K3 work changes between checkouts.
 
-    python3 compare_kernels.py [REPO ...]
+    python3 compare_kernels.py [--only row_plan] [REPO ...]
 
 Each REPO is the root of a checkout of this repository (default: this
 one); its ``dlrm_yx_tpu_torch`` builds its own kernels into its own
@@ -33,6 +33,15 @@ limit. Cases, at the main path's shapes:
   * K4 on the capacity config's bf16 store [53,942,848, 128] with one
     batch's 16,384 ids, SR off and on (held to its plain version bit for
     bit; the plain version syncs, so only the kernel is timed);
+  * the row plan (``--only row_plan`` runs these alone): K2 at the
+    training shape (chip_smoke.py phase a's ids), on one step's items of
+    the benchmark's ``tb25m-train-zipf`` and ``tb25m-train-uniform`` cells
+    (their rows spread over a store of 2^24 rows) and with a hot row on
+    half of K at the variants' and the column slices' shapes, warm and
+    cold, beside its plain version, ``index_add_`` and its bound, held to
+    the plain version run on the CPU bit for bit, with the device time of
+    each of its kernels on the cells' steps; K4 with the same hot row on the
+    column slices;
   * the captured N=16 L=1 train step (``make_multistep_train_step``) of the
     plain, MD and QR Terabyte-MLPerf models and of the processed model
     (its first batch), ms a step over CUDA events, with K3's launches a
@@ -129,10 +138,18 @@ def rel_err(got, want):
     return ((got - want).abs().max() / want.abs().max()).item()
 
 
-def run_one(repo):
-    """One checkout's cases, in this process."""
+def run_one(repo, only=None):
+    """One checkout's cases, in this process (``only="row_plan"``: the row
+    plan's alone)."""
     sys.path.insert(0, os.path.abspath(repo))
     import torch
+
+    if only == "row_plan":
+        cases = {}
+        row_plan_cases(cases, torch.Generator(device="cuda").manual_seed(1))
+        print(json.dumps({"repo": repo, "device": torch.cuda.get_device_name(0),
+                          "cases": cases}), flush=True)
+        return
 
     from dlrm_yx_tpu_torch.config import DLRMConfig
     from dlrm_yx_tpu_torch.data.synthetic import make_device_random_batches
@@ -392,18 +409,146 @@ def row_update_cases(repo, cases, gen):
                 lambda: rows_add.sparse_rows_add(store, ids, upd, active, sr, seed))}
 
 
+ZIPF_BIG_TABLES = (0, 9, 10, 11, 19, 20, 21, 22)  # the 25M-cap model's tables past 65,536 rows
+SPREAD_ROWS = 1 << 24
+
+
+def cell_step_ids(traffic, seed):
+    """One step's K2 items of a ``tb25m-train-*`` cell (the benchmark's own
+    generator and configuration; 8 big tables x 2048), their distinct rows
+    spread at random over SPREAD_ROWS rows: the same duplicates, in a store
+    about an eighth the size of the cell's big group."""
+    import numpy as np
+    import torch
+
+    from benchmark.generate import make_batches
+
+    conf = json.load(open(os.path.join(HERE, "benchmark/configs/mlperf-dlrm-tb-25m.json")))
+    mix = json.load(open(os.path.join(HERE, f"benchmark/traffic/{traffic}.json")))
+    (b,) = make_batches(mix, conf["raw_rows"], 25_000_000, 2048, 1, seed)
+    ids = b[1][list(ZIPF_BIG_TABLES), :, 0].astype(np.int64)
+    ids = (ids + np.arange(len(ZIPF_BIG_TABLES))[:, None] * 25_000_000).reshape(-1)
+    uniq, inv = np.unique(ids, return_inverse=True)
+    rows = np.random.default_rng(seed).choice(SPREAD_ROWS, size=uniq.size, replace=False)
+    return torch.from_numpy(rows[inv].astype(np.int32)).cuda()
+
+
+def k2_needs(ids, active, w):
+    """(bytes, operations) K2 needs for these items (chip_smoke.py phase
+    a's count): ids and flags read; each unique row's new values read and
+    the row written; each duplicate's delta read, its row read and
+    written once; one add an element of a duplicate."""
+    import torch
+
+    _, counts = torch.unique(ids[active > 0].long(), return_counts=True)
+    n_once = int((counts == 1).sum())
+    dup = counts[counts > 1]
+    row = 4 * w
+    return (8 * ids.numel() + 2 * row * n_once + row * int(dup.sum()) + 2 * row * dup.numel(),
+            w * int(dup.sum()))
+
+
+def row_plan_cases(cases, gen):
+    """K2 (and K4 on the column slices) at the row plan's shapes; see the
+    module's docstring."""
+    import torch
+
+    from dlrm_yx_tpu_torch.ops import sparse_rows_add as rows_add
+    from dlrm_yx_tpu_torch.ops.sparse_rows_overwrite import (
+        CLIP_MARGIN,
+        sparse_rows_overwrite,
+        sparse_rows_overwrite_reference,
+    )
+
+    cs = smoke()
+
+    def hot(rows, k):
+        ids = torch.randint(0, rows - CLIP_MARGIN - 1, (k,), device="cuda", generator=gen,
+                            dtype=torch.int32)
+        ids[::2] = ids[0]
+        return ids
+
+    _, big = cs.terabyte_groups()
+    train_ids = cs.batch_rows(big, gen)
+    shapes = [  # (case, rows, width, ids, active)
+        ("K2 training shape", big.total_rows, big.dim, train_ids,
+         (torch.rand(train_ids.numel(), device="cuda", generator=gen) > 0.2).int()),
+        ("K2 tb25m-train-zipf step", SPREAD_ROWS + CLIP_MARGIN + 1, 128,
+         cell_step_ids("train-zipf", 1), None),
+        ("K2 tb25m-train-uniform step", SPREAD_ROWS + CLIP_MARGIN + 1, 128,
+         cell_step_ids("train-uniform", 1), None),
+        ("K2 W=1 [33,719,296, 1] K=1,024, hot row", 33_719_296, 1, hot(33_719_296, 1024), None),
+        ("K2 W=2 [6,990,848, 2], hot row", 6_990_848, 2, hot(6_990_848, 16384), None),
+        ("K2 W=4 [6,990,848, 4], hot row", 6_990_848, 4, hot(6_990_848, 16384), None),
+        ("K2 column slice [6,989,304, 64], hot row", 6_989_304, 64, hot(6_989_304, 16384), None),
+        ("K2 column slice [6,989,320, 32], hot row", 6_989_320, 32, hot(6_989_320, 16384), None),
+    ]
+    for name, rows, w, ids, active in shapes:
+        if active is None:
+            active = torch.ones(ids.numel(), dtype=torch.int32, device="cuda")
+        store = torch.rand(rows, w, device="cuda", generator=gen) - 0.5
+        delta = torch.randn(ids.numel(), w, device="cuda", generator=gen) * 1e-2
+        new_vals = store[ids.long()] + delta
+        got = sparse_rows_overwrite(store.clone(), ids, new_vals, delta, active)
+        uniq, inv = torch.unique(ids.long(), return_inverse=True)
+        want = torch.cat([store[uniq], store.new_zeros(CLIP_MARGIN + 1, w)]).cpu()
+        sparse_rows_overwrite_reference(want, inv.int().cpu(), new_vals.cpu(), delta.cpu(),
+                                        active.cpu())
+        equal = torch.equal(got[uniq].cpu().view(torch.int32),
+                            want[:uniq.numel()].view(torch.int32))
+        del got, want
+        if not equal:
+            raise SystemExit(f"{name}: the kernel and its plain version on the CPU differ")
+        nbytes, flops = k2_needs(ids, active, w)
+
+        def fn(store=store, ids=ids, new_vals=new_vals, delta=delta, active=active):
+            sparse_rows_overwrite(store, ids, new_vals, delta, active)
+
+        masked, ids64 = delta * active[:, None], ids.long()
+        case = cases[name] = {
+            "k": ids.numel(), "bit_equal": equal, "ms": device_time_ms(fn),
+            "cold_ms": device_time_ms(fn, cold=True),
+            "plain_ms": device_time_ms(lambda: sparse_rows_overwrite_reference(
+                store, ids, new_vals, delta, active)),
+            "library_ms": device_time_ms(lambda: store.index_add_(0, ids64, masked)),
+            "bound_ms": cs.bound_ms(nbytes, flops)[0]}
+        if name.endswith("step"):
+            per_kernel = cs.profile_step(fn, name, ())
+            case["kernels_ms"] = {k[:80]: v for k, v in per_kernel.items() if "row_plan" in k}
+        if name.startswith("K2 column slice"):
+            upd = delta.clone()
+            k4 = cases[name.replace("K2", "K4", 1) + ", f32"] = {
+                "ms": device_time_ms(lambda: rows_add.sparse_rows_add(store, ids, upd, active)),
+                "cold_ms": device_time_ms(
+                    lambda: rows_add.sparse_rows_add(store, ids, upd, active), cold=True)}
+            # ids and flags read, each item's update row read, each touched
+            # row read and written once
+            n_rows = int(torch.unique(ids[active > 0]).numel())
+            live = int((active > 0).sum())
+            k4["bound_ms"] = cs.bound_ms(8 * ids.numel() + 4 * w * (live + 2 * n_rows),
+                                         w * live)[0]
+            del upd
+        del store, delta, new_vals, masked, ids64
+        torch.cuda.empty_cache()
+
+
 def main():
-    if sys.argv[1:2] == ["--one"]:
-        return run_one(sys.argv[2])
+    args = sys.argv[1:]
+    only = None
+    if args[:1] == ["--only"]:
+        only, args = args[1], args[2:]
+    if args[:1] == ["--one"]:
+        return run_one(args[1], only)
     import torch
 
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is False: this needs the card", flush=True)
         sys.exit(1)
-    repos = sys.argv[1:] or [os.path.dirname(os.path.abspath(__file__))]
+    repos = args or [os.path.dirname(os.path.abspath(__file__))]
     order = repos if len(repos) == 1 else repos + repos[::-1]
     for repo in order:
-        subprocess.run([sys.executable, os.path.abspath(__file__), "--one", repo], check=True)
+        subprocess.run([sys.executable, os.path.abspath(__file__)]
+                       + (["--only", only] if only else []) + ["--one", repo], check=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
 

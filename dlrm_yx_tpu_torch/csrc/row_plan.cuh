@@ -12,10 +12,13 @@
 //   K2: a row that occurs once: store[row] = new_vals[k]; several times:
 //       store[row] += delta[k] in ascending k (K4's rule on an f32 store).
 //
-// Three launches per call, with no host sync; apply and tail are launched
-// programmatically (Hopper's programmatic dependent launch): each may start
-// while its predecessor drains and waits for it in griddepcontrol.wait, so
-// the gaps between the three shrink.
+// Four launches per call, with no host sync; apply, place and tail are
+// launched programmatically (Hopper's programmatic dependent launch): each
+// may start while its predecessor drains and waits for it in
+// griddepcontrol.wait, so the gaps between the four shrink. (Letting each
+// start as soon as its predecessor's blocks had all begun, with
+// griddepcontrol.launch_dependents, made a call 0.5-1 us slower on the
+// H100.)
 //
 //   plan   a thread per item: clips its id, computes K4's flag (an active
 //          item of the same unit among the 63 items before it, compared in
@@ -26,38 +29,54 @@
 //          atomicAdd of their count (linear probing; P >= 16K slots, sized
 //          from K, never from the store: the CAS round trips of the longest
 //          probe chain set the plan's time, and a fuller table made it
-//          several times slower on the H100);
+//          several times slower on the H100). The item whose CAS inserted
+//          the row is its owner;
 //   apply  a group of G lanes per item: reads its row and slot as the plan
 //          left them, prefetches its rows while it reads the count; a row
 //          that occurs once is applied straight away by its item (the
-//          unique functor); an item of a duplicated row appends the key
-//          (row * 2 + flag) << 32 | k to a list, one atomic a block;
-//   tail   one block: sorts the D listed keys by (row, flag, k), by rank
-//          for a few, else with a bitonic sort (in shared memory up to
-//          kSmemKeys, in the list itself past it), and walks each row's run
-//          in that order: a short run with G lanes a row, a long one
-//          (kLongRun items or more, a hot row of skewed traffic) with one
-//          thread a column and 32 loads in flight, since each column's adds
-//          are a serial chain. (A counting order, dense row ids and a stable
-//          scatter by k, made no hot-row case faster on the H100: the walk
-//          is their time.)
+//          unique functor); an item of a duplicated row is marked, and the
+//          row's owner takes a segment of n places in the key list and a
+//          place in the run list (one atomic a block for each), and leaves
+//          the segment's base in the row's slot, base << 32 | n;
+//   place  a thread per item: each marked item takes a place in its row's
+//          segment from the slot's count (one atomicAdd a row and warp) and
+//          writes its key (row * 2 + flag) << 32 | k there, in no order;
+//          the row's last items clear its slot;
+//   tail   a grid sized from K: each run (a duplicated row's segment) is
+//          ordered by its own keys, (flag, k), and walked in that order,
+//          each column's adds a serial chain rounded after every add. A
+//          short run (under kLongRun items) is ordered by rank by one warp
+//          and walked by G lanes, 32 / G runs a warp; a long one (a hot row
+//          of skewed traffic) by a block: ordered in place by a bitmap of
+//          its keys in shared memory (by a bitonic sort past kBitmapItems
+//          items), then walked a thread a column, kTailThreads columns at a
+//          time, the update elements copied into shared memory kStages - 1
+//          chunks ahead of the adds.
 //
 // So the common case, rows that occur once, sorts nothing, and the order
 // of a duplicated row's adds is fixed by the keys, not by the atomics: the
-// same inputs give the same bits. (A tail run by the apply kernel's last
-// block, picked by a ticket counter, was slower on the H100: the walk's
-// registers cut the apply kernel's occupancy, and every block waited for
-// its ticket.)
+// same inputs give the same bits. Runs are independent of each other, so
+// the tail spreads them over the card's SMs: what bounds it is the longest
+// run's serial chain (its sort and its adds), not D, the number of
+// duplicated items. (A tail of one block, which sorted all D keys and
+// walked every run, took 0.68 ms on power-law ids, D ~ 10,200 of K =
+// 16,384, while the other 131 SMs idled; a counting order, dense row ids, a
+// stable scatter by k and a tail run by the apply kernel's last block made
+// it no faster, since the one block was the limit.)
 //
 // The scratch (scratch_bytes(K), from the caching allocator) is zero
-// between calls: a row that occurs once clears its slot when its item is
-// applied, the tail clears the duplicated rows' slots and resets the
-// counter. So a call needs no clearing launch and can be captured in a
-// CUDA graph. Calls that share one scratch must run in stream order.
+// between calls where a call reads before it writes: a row that occurs once
+// clears its slot when its item is applied, the place kernel clears the
+// duplicated rows' slots, the tail's last block resets the counters. So a
+// call needs no clearing launch and can be captured in a CUDA graph. Calls
+// that share one scratch must run in stream order. The tail's last block
+// also adds the call's duplicated items, runs and long runs to the
+// wrapper's counts (three u64 on the device, when given).
 
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
@@ -65,32 +84,44 @@
 
 namespace row_plan {
 
-constexpr int kThreads = 256;       // plan and apply blocks
-constexpr int kTailThreads = 512;   // the tail's one block (1024 spilled the column walk)
+constexpr int kThreads = 256;       // plan, apply and place blocks
+constexpr int kTailThreads = 256;   // a tail block: a long run's team, or 8 warps of short runs
 constexpr int kWindow = 64;         // K4's look-back: an item sees the 63 before it
-constexpr int kRankKeys = 512;      // duplicate keys the tail sorts by rank
-constexpr long long kSmemKeys = 16384;  // ... or with a bitonic sort in shared memory
-constexpr int kLongRun = 64;        // runs this long are walked a column per thread
+constexpr int kLongRun = 64;        // runs this long take a block, a column a thread
+constexpr int kBitmapItems = 131072;  // K up to which a long run is ordered by a bitmap
+constexpr int kStages = 4;          // a long run's walk: chunks in flight
+constexpr int kStageFloats = 2048;  // ... of this many update elements
+constexpr int kMaxChunk = 128;      // ... and at most this many keys
+constexpr int kSpan = 2048;         // a long run's keys read into shared memory at once
+constexpr int kTailItems = 64;      // items of K a tail block, at most kMaxTailBlocks blocks
+constexpr int kMaxTailBlocks = 1024;
+constexpr unsigned kOwner = 1u << 30;  // item.x: the item that inserted its row
+constexpr unsigned kDup = 1u << 31;    // item.x: an item of a duplicated row
+constexpr unsigned kRowBits = kOwner - 1u;
+
+// counters, each on its own 128-byte line (a block's atomics on one do not
+// queue behind another's)
+enum Counter { kSegEnd = 0, kShortRuns = 1, kLongRuns = 2, kTicket = 3, kCounters = 4 };
+constexpr int kCounterStride = 32;  // ints
 
 using u64 = unsigned long long;
 
 // Scratch, in this order: u64 table[P] ((row + 1) << 32 | the row's active
-// occurrences; 0 = empty), int2 item[K] (each item's clipped row and
-// slot * 2 + flag, slot -1 if inactive), int ctr[2] (ctr[0]: duplicate
-// keys listed), u64 dup[pow2(K)] (the duplicate keys).
+// occurrences after the plan, base << 32 | occurrences left after apply;
+// 0 = empty), int2 item[K] (each item's clipped row with the kOwner and
+// kDup bits, and slot * 2 + flag, slot -1 if inactive), int ctr[...] (the
+// counters), u64 seg[K] (the duplicated items' keys, a segment a row),
+// int2 runs[K / 2 + 1] ((base, n): short runs from the front, long runs
+// from the back).
 struct Scratch {
   u64* table;
   int2* item;
   int* ctr;
-  u64* dup;
+  u64* seg;
+  int2* runs;
   int pbits;
+  int run_cap;
 };
-
-inline long long pow2_at_least(long long n) {
-  long long p = 1;
-  while (p < n) p <<= 1;
-  return p;
-}
 
 inline int table_bits(long long K) {
   int b = 6;
@@ -98,9 +129,13 @@ inline int table_bits(long long K) {
   return b;
 }
 
+inline long long run_cap(long long K) { return K / 2 + 1; }
+
+constexpr long long kCounterWords = kCounters * kCounterStride / 2;
+
 // in 8-byte words
 inline long long scratch_words(long long K) {
-  return (1LL << table_bits(K)) + K + 1 + pow2_at_least(K);
+  return (1LL << table_bits(K)) + K + kCounterWords + K + run_cap(K);
 }
 
 inline long long scratch_bytes(long long K) { return 8 * scratch_words(K); }
@@ -109,8 +144,15 @@ inline Scratch carve(void* base, long long K) {
   const int pbits = table_bits(K);
   u64* p = static_cast<u64*>(base);
   u64* item = p + (1LL << pbits);
-  return Scratch{p, reinterpret_cast<int2*>(item), reinterpret_cast<int*>(item + K),
-                 item + K + 1, pbits};
+  u64* ctr = item + K;
+  u64* seg = ctr + kCounterWords;
+  u64* runs = seg + K;
+  return Scratch{p, reinterpret_cast<int2*>(item), reinterpret_cast<int*>(ctr), seg,
+                 reinterpret_cast<int2*>(runs), pbits, static_cast<int>(run_cap(K))};
+}
+
+__device__ __forceinline__ int* counter(const Scratch& s, Counter c) {
+  return s.ctr + c * kCounterStride;
 }
 
 // Waits until the grid launched before this one on the stream has finished
@@ -215,10 +257,11 @@ __device__ __forceinline__ int clip_row(long long id, long long hi) {
   return static_cast<int>(id < 0 ? 0 : (id > hi ? hi : id));
 }
 
-// Plan: each item's row and slot * 2 + flag (slot -1 if inactive); the
-// table holds each active row once with its count. Flags (kFlags, K4
-// only): an active item is flagged when an active item among the
-// kWindow - 1 before it has the same unit (row / unit).
+// Plan: each item's row (with kOwner on the item that inserted it) and
+// slot * 2 + flag (slot -1 if inactive); the table holds each active row
+// once with its count. Flags (kFlags, K4 only): an active item is flagged
+// when an active item among the kWindow - 1 before it has the same unit
+// (row / unit).
 template <bool kFlags, class I>
 __global__ void __launch_bounds__(kThreads)
 plan_kernel(const I* __restrict__ idx, const int* __restrict__ active, long long K,
@@ -244,13 +287,17 @@ plan_kernel(const I* __restrict__ idx, const int* __restrict__ active, long long
   const unsigned peers = __match_any_sync(0xffffffffu, row >= 0 ? row : ~lane);
   const int leader = __ffs(peers) - 1;
   unsigned h = 0;
+  bool owner = false;  // only the leader's lane inserts
   if (row >= 0 && lane == leader) {
     const unsigned mask = (1u << s.pbits) - 1u;
     const u64 n = __popc(peers);
     h = (static_cast<unsigned>(row) * 2654435761u) >> (32 - s.pbits);
     for (;;) {
       const u64 prev = atomicCAS(&s.table[h], 0ull, (static_cast<u64>(row + 1) << 32) | n);
-      if (prev == 0) break;
+      if (prev == 0) {
+        owner = true;
+        break;
+      }
       if ((prev >> 32) == static_cast<u64>(row + 1)) {
         atomicAdd(&s.table[h], n);
         break;
@@ -260,225 +307,18 @@ plan_kernel(const I* __restrict__ idx, const int* __restrict__ active, long long
   }
   h = __shfl_sync(0xffffffffu, h, leader);
   if (k < K) {
-    s.item[k] = row < 0 ? make_int2(0, -1) : make_int2(row, static_cast<int>(h) * 2 + flag);
+    s.item[k] = row < 0 ? make_int2(0, -1)
+                        : make_int2(static_cast<int>(row | (owner ? kOwner : 0u)),
+                                    static_cast<int>(h) * 2 + flag);
   }
-}
-
-template <bool kGlobal>
-__device__ __forceinline__ u64 ld(const u64* p) {
-  if constexpr (kGlobal) return __ldcg(p);
-  else return *p;
-}
-
-template <bool kGlobal>
-__device__ __forceinline__ void st(u64* p, u64 v) {
-  if constexpr (kGlobal) __stcg(p, v);
-  else *p = v;
-}
-
-// Sorts a[0, n) ascending (n a power of two) with the whole block; a lies
-// in shared memory, or in device memory (kGlobal, read and written in L2).
-template <bool kGlobal>
-__device__ void bitonic_sort(u64* a, int n) {
-  for (int size = 2; size <= n; size <<= 1) {
-    for (int j = size >> 1; j > 0; j >>= 1) {
-      for (int i = threadIdx.x; i < n; i += kTailThreads) {
-        const int l = i ^ j;
-        if (l > i) {
-          const u64 x = ld<kGlobal>(a + i), y = ld<kGlobal>(a + l);
-          if ((x > y) == ((i & size) == 0)) {
-            st<kGlobal>(a + i, y);
-            st<kGlobal>(a + l, x);
-          }
-        }
-      }
-      __syncthreads();
-    }
-  }
-}
-
-// The row of a listed key, (row * 2 + flag) << 32 | k.
-__device__ __forceinline__ int run_id(u64 key) { return static_cast<int>(key >> 33); }
-
-// Whether the run of `row` that starts at p has kLongRun items or more.
-template <bool kGlobal>
-__device__ __forceinline__ bool long_run(const u64* keys, int p, int D, int row) {
-  return p + kLongRun - 1 < D && run_id(ld<kGlobal>(keys + p + kLongRun - 1)) == row;
-}
-
-// Applies the ordered keys[0, D) run by run: a group of G lanes takes a run
-// head, holds the row's vectors in f32 and adds the run's update rows in
-// key order (unflagged occurrences in ascending k, then flagged ones),
-// rounding to S after every add; SR on unflagged occurrences when sr.
-template <bool kGlobal, int V, int G, class S>
-__device__ void walk_runs(const u64* keys, int D, S* __restrict__ store,
-                          const float* __restrict__ upd, int nv, int dim, bool sr,
-                          unsigned seed, bool skip_long) {
-  using RV = RowVec<S, V>;
-  using T = typename RV::T;
-  constexpr int kUnroll = 8;  // update rows loaded ahead of the serial adds
-  const int gl = threadIdx.x % G;
-  const T* u = reinterpret_cast<const T*>(upd);
-  for (int p = threadIdx.x / G; p < D; p += kTailThreads / G) {
-    const int row = run_id(ld<kGlobal>(keys + p));
-    if (p > 0 && run_id(ld<kGlobal>(keys + p - 1)) == row) continue;
-    if (skip_long && long_run<kGlobal>(keys, p, D, row)) continue;
-    typename RV::Raw* dst = reinterpret_cast<typename RV::Raw*>(store) +
-                            static_cast<long long>(row) * nv;
-    for (int c = gl; c < nv; c += G) {
-      T v = RV::load(dst[c]);
-      for (int q = p;; q += kUnroll) {
-        u64 key[kUnroll];
-        T add[kUnroll];
-        bool in[kUnroll];
-#pragma unroll
-        for (int j = 0; j < kUnroll; ++j) {
-          key[j] = q + j < D ? ld<kGlobal>(keys + q + j) : ~0ull;
-          in[j] = run_id(key[j]) == row;  // the run is a prefix
-          if (in[j]) add[j] = u[static_cast<long long>(static_cast<unsigned>(key[j])) * nv + c];
-        }
-#pragma unroll
-        for (int j = 0; j < kUnroll; ++j) {
-          if (in[j]) {
-            const unsigned k = static_cast<unsigned>(key[j]);
-            const bool main_pass = ((key[j] >> 32) & 1) == 0;
-            v = add_round<S>(v, add[j], sr && main_pass, seed,
-                             k * static_cast<unsigned>(dim) + static_cast<unsigned>(c * V));
-          }
-        }
-        if (!in[kUnroll - 1]) break;
-      }
-      dst[c] = RV::store(v);
-    }
-  }
-}
-
-// Applies the long runs of the ordered keys[0, D): a team of dim threads
-// (dim <= kTailThreads) takes a run head, each thread one column of the
-// row in f32, with kUnroll update elements loaded ahead of its serial adds.
-template <bool kGlobal, class S>
-__device__ void walk_long_runs(const u64* keys, int D, S* __restrict__ store,
-                               const float* __restrict__ upd, int dim, bool sr,
-                               unsigned seed) {
-  using RV = RowVec<S, 1>;
-  constexpr int kUnroll = 32;
-  const int teams = kTailThreads / dim, team = threadIdx.x / dim, col = threadIdx.x % dim;
-  if (team >= teams) return;
-  for (int p = team; p < D; p += teams) {
-    const int row = run_id(ld<kGlobal>(keys + p));
-    if (p > 0 && run_id(ld<kGlobal>(keys + p - 1)) == row) continue;
-    if (!long_run<kGlobal>(keys, p, D, row)) continue;
-    typename RV::Raw* dst = reinterpret_cast<typename RV::Raw*>(store) +
-                            static_cast<long long>(row) * dim + col;
-    float v = RV::load(*dst);
-    for (int q = p;; q += kUnroll) {
-      float add[kUnroll];
-      int n = 0;  // the run's items in this batch: a prefix of it
-#pragma unroll
-      for (int j = 0; j < kUnroll; ++j) {
-        const u64 key = q + j < D ? ld<kGlobal>(keys + q + j) : ~0ull;
-        if (run_id(key) == row) {
-          add[j] = upd[static_cast<long long>(static_cast<unsigned>(key)) * dim + col];
-          ++n;
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < kUnroll; ++j) {
-        if (j < n) {
-          const u64 key = ld<kGlobal>(keys + q + j);
-          const unsigned k = static_cast<unsigned>(key);
-          v = add_round<S>(v, add[j], sr && ((key >> 32) & 1) == 0, seed,
-                           k * static_cast<unsigned>(dim) + static_cast<unsigned>(col));
-        }
-      }
-      if (n < kUnroll) break;
-    }
-    *dst = RV::store(v);
-  }
-}
-
-// Every run of the ordered keys: the short ones G lanes a row, the long
-// ones a column a thread when a row's columns fit the block.
-template <bool kGlobal, int V, int G, class S>
-__device__ __forceinline__ void walk_all(const u64* keys, int D, S* __restrict__ store,
-                                         const float* __restrict__ upd, int nv, int dim,
-                                         bool sr, unsigned seed) {
-  const bool by_column = dim <= kTailThreads;
-  walk_runs<kGlobal, V, G>(keys, D, store, upd, nv, dim, sr, seed, by_column);
-  if (by_column) walk_long_runs<kGlobal>(keys, D, store, upd, dim, sr, seed);
-}
-
-// Zeroes the duplicated rows' table slots (keys[0, D) name their items).
-__device__ __forceinline__ void clear_slots(const u64* keys, int D, const Scratch& s) {
-  for (int i = threadIdx.x; i < D; i += kTailThreads) {
-    s.table[s.item[static_cast<unsigned>(keys[i])].y >> 1] = 0;
-  }
-}
-
-// Tail: sorts the listed duplicate keys, applies them (adding upd's rows:
-// K4's upd, K2's delta, rounded to S), zeroes their table slots and resets
-// the counter, so that the scratch is zero for the next call. Few keys are
-// sorted by rank, more with a bitonic sort in shared memory or, past
-// smem_bytes, in the list itself.
-template <int V, int G, class S>
-__global__ void __launch_bounds__(kTailThreads)
-tail_kernel(S* __restrict__ store, const float* __restrict__ upd, int nv, int dim, bool sr,
-            const long long* step, Scratch s, long long smem_bytes) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  u64* sk = reinterpret_cast<u64*>(smem);
-  // the step was written before the plan kernel began, so it is read
-  // while the grid waits for its predecessor
-  const unsigned seed = sr ? seed_of(step) : 0u;
-  wait_for_predecessor();
-  const int D = s.ctr[0];
-  if (D <= kRankKeys) {  // keys are distinct (k is): each one's rank is its place
-    for (int i = threadIdx.x; i < D; i += kTailThreads) sk[kRankKeys + i] = s.dup[i];
-    __syncthreads();
-    clear_slots(sk + kRankKeys, D, s);
-    for (int i = threadIdx.x; i < D; i += kTailThreads) {
-      const u64 key = sk[kRankKeys + i];
-      int rank = 0;
-      for (int j = 0; j < D; ++j) rank += sk[kRankKeys + j] < key;
-      sk[rank] = key;
-    }
-    __syncthreads();
-    walk_all<false, V, G>(sk, D, store, upd, nv, dim, sr, seed);
-  } else {
-    clear_slots(s.dup, D, s);
-    int n = 1;
-    while (n < D) n <<= 1;
-    const bool in_smem = 8ll * n <= smem_bytes;
-    for (int i = threadIdx.x; i < n; i += kTailThreads) {
-      const u64 key = i < D ? s.dup[i] : ~0ull;  // padding sorts last
-      if (in_smem) {
-        sk[i] = key;
-      } else if (i >= D) {
-        __stcg(&s.dup[i], key);
-      }
-    }
-    __syncthreads();
-    if (in_smem) {
-      bitonic_sort<false>(sk, n);
-      walk_all<false, V, G>(sk, D, store, upd, nv, dim, sr, seed);
-    } else {
-      bitonic_sort<true>(s.dup, n);
-      walk_all<true, V, G>(s.dup, D, store, upd, nv, dim, sr, seed);
-    }
-  }
-  if (threadIdx.x == 0) s.ctr[0] = 0;  // every thread read D before the first sync
-}
-
-// Dynamic shared memory for the tail of K items: a power of two of keys,
-// enough for the rank sort and for a bitonic sort of up to kSmemKeys.
-inline long long tail_smem_bytes(long long K) {
-  return 8 * std::min(std::max(pow2_at_least(K), 2LL * kRankKeys), kSmemKeys);
 }
 
 // Apply: G lanes per item. Unique::prefetch<V, G>(store, row, k, gl, nv)
 // asks L2 for the item's rows; Unique::apply<V, G>(store, row, k, flag, gl,
 // nv, seed) applies an item whose row occurs once (every lane of the group
 // calls both), with seed = Unique::seed(), read before the grid waits for
-// its predecessor; the items of duplicated rows are listed for the tail.
+// its predecessor. An item of a duplicated row is marked (kDup) for the
+// place kernel; its row's owner takes the row's segment and run.
 template <int V, int G, class S, class Unique>
 __global__ void __launch_bounds__(kThreads)
 apply_kernel(S* __restrict__ store, long long K, int nv, Scratch s, Unique unique) {
@@ -490,7 +330,8 @@ apply_kernel(S* __restrict__ store, long long K, int nv, Scratch s, Unique uniqu
   const unsigned seed = unique.seed();  // written before the plan kernel began
   wait_for_predecessor();
   const int2 plan = k < K ? s.item[k] : make_int2(0, -1);
-  const int row = plan.x, slot = plan.y >> 1, flag = plan.y & 1;
+  const int row = static_cast<int>(static_cast<unsigned>(plan.x) & kRowBits);
+  const int slot = plan.y >> 1, flag = plan.y & 1;
   int n = 0;
   if (plan.y >= 0) {
     unique.template prefetch<V, G>(store, row, k, gl, nv);
@@ -501,30 +342,351 @@ apply_kernel(S* __restrict__ store, long long K, int nv, Scratch s, Unique uniqu
       if (gl == 0) s.table[slot] = 0;  // no other item reads this slot
     }
   }
-  // the block's duplicate items take their places in the list with one
-  // atomic a block (a hot row's items would queue on the counter)
-  __shared__ int listed, base;
-  if (threadIdx.x == 0) listed = 0;
+  const bool dup = n > 1 && gl == 0;
+  if (dup) s.item[k].x = static_cast<int>(static_cast<unsigned>(plan.x) | kDup);
+  // the block's owners take their segments and runs with one atomic a
+  // block for each (a hot row's items would queue on the counters)
+  __shared__ int seg_n, short_n, long_n, seg_base, short_base, long_base;
+  if (threadIdx.x == 0) seg_n = short_n = long_n = 0;
   __syncthreads();
-  const int at = n > 1 && gl == 0 ? atomicAdd(&listed, 1) : -1;
+  int seg_at = -1, run_at = -1;
+  if (dup && (static_cast<unsigned>(plan.x) & kOwner)) {
+    seg_at = atomicAdd(&seg_n, n);
+    run_at = atomicAdd(n >= kLongRun ? &long_n : &short_n, 1);
+  }
   __syncthreads();
-  if (threadIdx.x == 0 && listed > 0) base = atomicAdd(&s.ctr[0], listed);
+  if (threadIdx.x == 0) {
+    if (seg_n > 0) seg_base = atomicAdd(counter(s, kSegEnd), seg_n);
+    if (short_n > 0) short_base = atomicAdd(counter(s, kShortRuns), short_n);
+    if (long_n > 0) long_base = atomicAdd(counter(s, kLongRuns), long_n);
+  }
   __syncthreads();
-  if (at >= 0) {
-    s.dup[base + at] = (static_cast<u64>(row * 2 + flag) << 32) | static_cast<u64>(k);
+  if (seg_at >= 0) {
+    const int base = seg_base + seg_at;
+    // the count stays in the low half, where the row's other items read it
+    s.table[slot] = (static_cast<u64>(base) << 32) | static_cast<u64>(n);
+    const int r = n >= kLongRun ? s.run_cap - 1 - (long_base + run_at) : short_base + run_at;
+    s.runs[r] = make_int2(base, n);
   }
 }
 
-// Launches kernel<<<blocks, threads, smem, stream>>>(args...), allowed to
+// Place: a thread per item; each item of a duplicated row writes its key
+// (row * 2 + flag) << 32 | k into its row's segment, at a place taken from
+// the slot's count (base << 32 | left): the warp's items of one row take
+// theirs with one atomic, and the row's last items clear the slot.
+__global__ void __launch_bounds__(kThreads) place_kernel(long long K, Scratch s) {
+  const long long k = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  const int lane = threadIdx.x % 32;
+  wait_for_predecessor();
+  const int2 it = k < K ? s.item[k] : make_int2(0, -1);
+  const bool dup = (static_cast<unsigned>(it.x) & kDup) != 0;
+  const int slot = it.y >> 1;
+  const unsigned peers = __match_any_sync(0xffffffffu, dup ? slot : ~lane);
+  if (!dup) return;
+  const int leader = __ffs(peers) - 1;
+  const int cnt = __popc(peers), rank = __popc(peers & ((1u << lane) - 1u));
+  u64 old = 0;
+  if (lane == leader) old = atomicAdd(&s.table[slot], 0ull - static_cast<u64>(cnt));
+  old = __shfl_sync(peers, old, leader);
+  const int left = static_cast<int>(old & 0xffffffffull), base = static_cast<int>(old >> 32);
+  const unsigned row = static_cast<unsigned>(it.x) & kRowBits;
+  s.seg[base + left - 1 - rank] =
+      (static_cast<u64>(row * 2 + (it.y & 1)) << 32) | static_cast<u64>(k);
+  if (lane == leader && left == cnt) s.table[slot] = 0;  // the row's last items
+}
+
+// Sorts a[0, n) ascending in device memory (read and written in L2) with
+// the whole block: a bitonic network in its form with every comparator
+// ascending (each merge starts by comparing mirrored places), so places at
+// or past n act as +inf padding that never moves and needs no storage.
+__device__ void bitonic_sort(u64* a, int n) {
+  int m = 1;
+  while (m < n) m <<= 1;
+  const auto up = [a, n](int lo, int hi) {
+    if (hi >= n) return;
+    const u64 x = __ldcg(a + lo), y = __ldcg(a + hi);
+    if (x > y) {
+      __stcg(a + lo, y);
+      __stcg(a + hi, x);
+    }
+  };
+  for (int size = 2; size <= m; size <<= 1) {
+    const int half = size >> 1;
+    for (int i = threadIdx.x; i < m / 2; i += kTailThreads) {
+      const int lo = (i / half) * size + i % half;
+      up(lo, lo ^ (size - 1));
+    }
+    __syncthreads();
+    for (int j = half >> 1; j > 0; j >>= 1) {
+      for (int i = threadIdx.x; i < m / 2; i += kTailThreads) {
+        const int lo = (i / j) * 2 * j + i % j;
+        up(lo, lo + j);
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// The row of a listed key, (row * 2 + flag) << 32 | k.
+__device__ __forceinline__ int run_id(u64 key) { return static_cast<int>(key >> 33); }
+
+// Whether an unflagged occurrence (the main pass: SR when sr).
+__device__ __forceinline__ bool main_pass(u64 key) { return ((key >> 32) & 1) == 0; }
+
+// The tail block's shared memory: a long run's order (a bitmap of its
+// keys), then its walk's stages.
+struct alignas(16) TailSmem {
+  union {
+    unsigned bits[kBitmapItems / 16];  // bit flag * K + k of each key
+    struct {
+      float rows[kStages][kStageFloats];  // update elements, a stage a chunk
+      unsigned keys[kSpan];               // the span's keys, compact
+    } walk;
+  };
+  int warp_sums[kTailThreads / 32];
+};
+
+// Orders a long run keys[0, n) of K items in place by a bitmap in shared
+// memory of its keys' flag * K + k: a key's place is the number of set bits
+// below its own (a thread counts a contiguous share of the words, and a
+// scan over the threads gives each share the count before it).
+// K <= kBitmapItems.
+__device__ void order_by_bitmap(u64* keys, int n, int K, TailSmem& sm) {
+  const int nw = (2 * K + 31) / 32;
+  unsigned* bits = sm.bits;
+  for (int i = threadIdx.x; i < nw; i += kTailThreads) bits[i] = 0;
+  const u64 head = __ldcg(keys);  // every key of the run has its row
+  __syncthreads();
+  for (int i = threadIdx.x; i < n; i += kTailThreads) {
+    const u64 key = __ldcg(keys + i);
+    const unsigned b = (main_pass(key) ? 0u : static_cast<unsigned>(K)) +
+                       static_cast<unsigned>(key);
+    atomicOr(&bits[b / 32], 1u << (b % 32));
+  }
+  __syncthreads();
+  const int per = (nw + kTailThreads - 1) / kTailThreads, w0 = threadIdx.x * per;
+  const int w1 = min(w0 + per, nw);
+  int own = 0;
+  for (int w = w0; w < w1; ++w) own += __popc(bits[w]);
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  int incl = own;
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, incl, d);
+    if (lane >= d) incl += y;
+  }
+  if (lane == 31) sm.warp_sums[warp] = incl;
+  __syncthreads();
+  int at = incl - own;
+  for (int j = 0; j < warp; ++j) at += sm.warp_sums[j];
+  const u64 high = (head >> 33) << 33;  // row * 2 << 32
+  for (int w = w0; w < w1; ++w) {
+    for (unsigned m = bits[w]; m != 0; m &= m - 1) {
+      const unsigned b = w * 32 + __ffs(m) - 1;
+      const bool flagged = b >= static_cast<unsigned>(K);
+      __stcg(keys + at++, high | (static_cast<u64>(flagged) << 32) |
+                              (b - (flagged ? static_cast<unsigned>(K) : 0u)));
+    }
+  }
+  __syncthreads();
+}
+
+// A key as the walk keeps it in shared memory: flag << 31 | k (k < 2^26).
+__device__ __forceinline__ unsigned compact(u64 key) {
+  return (main_pass(key) ? 0u : 0x80000000u) | static_cast<unsigned>(key);
+}
+
+// Walks one ordered long run keys[0, n) (in device memory) over the
+// columns [col0, col0 + cols) of its row, cols <= kTailThreads, kSpan keys
+// at a time: the span's keys are read into shared memory at once, then the
+// block copies chunks of their update elements into shared memory, kStages
+// - 1 chunks ahead of the adds (cp.async of V elements: the copies hold no
+// registers), and a thread a column adds them to its element of the row in
+// key order.
+template <int V, class S>
+__device__ void walk_long(const u64* keys, int n, int col0, int cols, S* __restrict__ store,
+                          const float* __restrict__ upd, int dim, bool sr, unsigned seed,
+                          TailSmem& sm) {
+  using RV = RowVec<S, 1>;
+  const int chunk = min(kMaxChunk, kStageFloats / cols);
+  const int col = threadIdx.x;
+  typename RV::Raw* dst = reinterpret_cast<typename RV::Raw*>(store) +
+                          static_cast<long long>(run_id(__ldcg(keys))) * dim + col0 + col;
+  float v = col < cols ? RV::load(*dst) : 0.f;
+  for (int b = 0; b < n; b += kSpan) {
+    const int span = min(kSpan, n - b), chunks = (span + chunk - 1) / chunk;
+    __syncthreads();  // the last span's keys are no longer read
+    for (int i = threadIdx.x; i < span; i += kTailThreads) {
+      sm.walk.keys[i] = compact(__ldcg(keys + b + i));
+    }
+    __syncthreads();
+    const auto issue = [&](int c) {
+      if (c < chunks) {
+        const int q = c * chunk, m = min(chunk, span - q) * cols, st = c % kStages;
+        for (int e = threadIdx.x * V; e < m; e += kTailThreads * V) {
+          const int r = e / cols;
+          const unsigned k = sm.walk.keys[q + r] & 0x7fffffffu;
+          __pipeline_memcpy_async(&sm.walk.rows[st][e],
+                                  upd + static_cast<long long>(k) * dim + col0 + e - r * cols,
+                                  4 * V);
+        }
+      }
+      __pipeline_commit();
+    };
+    for (int c = 0; c < kStages - 1; ++c) issue(c);
+    for (int c = 0; c < chunks; ++c) {
+      issue(c + kStages - 1);
+      __pipeline_wait_prior(kStages - 1);
+      __syncthreads();
+      if (col < cols) {
+        const int q = c * chunk, len = min(chunk, span - q);
+        const float* rows = sm.walk.rows[c % kStages];
+#pragma unroll 8
+        for (int r = 0; r < len; ++r) {
+          const unsigned key = sm.walk.keys[q + r];
+          const unsigned k = key & 0x7fffffffu;
+          v = add_round<S>(v, rows[r * cols + col], sr && (key >> 31) == 0, seed,
+                           k * static_cast<unsigned>(dim) + static_cast<unsigned>(col0 + col));
+        }
+      }
+      __syncthreads();  // before a later issue refills this stage
+    }
+  }
+  if (col < cols) *dst = RV::store(v);
+}
+
+// Orders a short run's keys (n < kLongRun <= 64) in its segment with the
+// warp: a key's place is its rank, since the keys are distinct (k is).
+__device__ __forceinline__ void order_short(u64* keys, int n, int lane) {
+  const u64 a = lane < n ? keys[lane] : ~0ull;
+  const u64 b = lane + 32 < n ? keys[lane + 32] : ~0ull;
+  int ra = 0, rb = 0;
+  for (int j = 0; j < n; ++j) {
+    const u64 x = __shfl_sync(0xffffffffu, j < 32 ? a : b, j & 31);
+    ra += x < a;
+    rb += x < b;
+  }
+  __syncwarp();
+  if (lane < n) keys[ra] = a;
+  if (lane + 32 < n) keys[rb] = b;
+  __syncwarp();
+}
+
+// Walks one ordered short run keys[0, n) with a group of G lanes: the row's
+// vectors in f32, the run's update rows added in key order (unflagged
+// occurrences in ascending k, then flagged ones), rounding to S after every
+// add; SR on unflagged occurrences when sr. Each batch's loads are issued
+// together (past the run's end they repeat its last key, and are not added).
+template <int V, int G, class S>
+__device__ void walk_short(const u64* keys, int n, S* __restrict__ store,
+                           const float* __restrict__ upd, int nv, int dim, bool sr,
+                           unsigned seed, int gl) {
+  using RV = RowVec<S, V>;
+  using T = typename RV::T;
+  constexpr int kUnroll = 16;  // update rows loaded ahead of the serial adds
+  const T* u = reinterpret_cast<const T*>(upd);
+  typename RV::Raw* dst =
+      reinterpret_cast<typename RV::Raw*>(store) + static_cast<long long>(run_id(keys[0])) * nv;
+  for (int c = gl; c < nv; c += G) {
+    T v = RV::load(dst[c]);
+    for (int q = 0; q < n; q += kUnroll) {
+      u64 key[kUnroll];
+      T add[kUnroll];
+#pragma unroll
+      for (int j = 0; j < kUnroll; ++j) {
+        key[j] = keys[min(q + j, n - 1)];
+        add[j] = u[static_cast<long long>(static_cast<unsigned>(key[j])) * nv + c];
+      }
+#pragma unroll
+      for (int j = 0; j < kUnroll; ++j) {
+        if (q + j < n) {
+          v = add_round<S>(v, add[j], sr && main_pass(key[j]), seed,
+                           static_cast<unsigned>(key[j]) * static_cast<unsigned>(dim) +
+                               static_cast<unsigned>(c * V));
+        }
+      }
+    }
+    dst[c] = RV::store(v);
+  }
+}
+
+// Tail: each run ordered by its keys and walked (adding upd's rows: K4's
+// upd, K2's delta, rounded to S). Long runs take a block each, from the
+// grid's first blocks: ordered in place (by a bitmap up to kBitmapItems
+// items, else a bitonic sort) and walked kTailThreads columns at a time;
+// short runs take a group of G lanes each, 32 / G a warp, from the grid's
+// last blocks. Every block takes a ticket once it has read the counters;
+// the last one resets them and adds the call's counts to stats.
+template <int V, int G, class S>
+__global__ void __launch_bounds__(kTailThreads, 2)
+tail_kernel(S* __restrict__ store, const float* __restrict__ upd, long long K, int nv, int dim,
+            bool sr, const long long* step, Scratch s, u64* stats) {
+  __shared__ TailSmem sm;
+  __shared__ int runs_short, runs_long;
+  // the step was written before the plan kernel began, so it is read
+  // while the grid waits for its predecessor
+  const unsigned seed = sr ? seed_of(step) : 0u;
+  wait_for_predecessor();
+  if (threadIdx.x == 0) {
+    const int d = *reinterpret_cast<volatile int*>(counter(s, kSegEnd));
+    const int ns = *reinterpret_cast<volatile int*>(counter(s, kShortRuns));
+    const int nl = *reinterpret_cast<volatile int*>(counter(s, kLongRuns));
+    runs_short = ns;
+    runs_long = nl;
+    __threadfence();
+    if (atomicAdd(counter(s, kTicket), 1) == static_cast<int>(gridDim.x) - 1) {
+      for (int c = 0; c < kCounters; ++c) *counter(s, static_cast<Counter>(c)) = 0;
+      if (stats != nullptr && d > 0) {
+        atomicAdd(stats, static_cast<u64>(d));
+        atomicAdd(stats + 1, static_cast<u64>(ns + nl));
+        atomicAdd(stats + 2, static_cast<u64>(nl));
+      }
+    }
+  }
+  __syncthreads();
+  const int n_short = runs_short, n_long = runs_long;
+  for (int w = blockIdx.x; w < n_long; w += gridDim.x) {
+    const int2 run = s.runs[s.run_cap - 1 - w];
+    u64* keys = s.seg + run.x;
+    if (K <= kBitmapItems) {
+      order_by_bitmap(keys, run.y, static_cast<int>(K), sm);
+    } else {
+      bitonic_sort(keys, run.y);
+    }
+    for (int c0 = 0; c0 < dim; c0 += kTailThreads) {
+      walk_long<V>(keys, run.y, c0, min(dim - c0, kTailThreads), store, upd, dim, sr, seed,
+                   sm);
+    }
+  }
+  constexpr int kWarps = kTailThreads / 32, kPerWarp = 32 / G;
+  const int lane = threadIdx.x % 32;
+  const int warp = (gridDim.x - 1 - blockIdx.x) * kWarps + threadIdx.x / 32;
+  for (int r0 = warp * kPerWarp; r0 < n_short; r0 += gridDim.x * kWarps * kPerWarp) {
+    for (int j = 0; j < kPerWarp && r0 + j < n_short; ++j) {
+      const int2 run = s.runs[r0 + j];
+      order_short(s.seg + run.x, run.y, lane);
+    }
+    const int r = r0 + lane / G;
+    if (r < n_short) {
+      const int2 run = s.runs[r];
+      walk_short<V, G>(s.seg + run.x, run.y, store, upd, nv, dim, sr, seed, lane % G);
+    }
+  }
+}
+
+inline unsigned tail_blocks(long long K) {
+  return static_cast<unsigned>(
+      std::min<long long>((K + kTailItems - 1) / kTailItems, kMaxTailBlocks));
+}
+
+// Launches kernel<<<blocks, threads, 0, stream>>>(args...), allowed to
 // start while the kernel before it on the stream drains (it waits for it
 // with wait_for_predecessor).
 template <class... Params, class... Args>
-cudaError_t launch_after(void (*kernel)(Params...), unsigned blocks, int threads, size_t smem,
+cudaError_t launch_after(void (*kernel)(Params...), unsigned blocks, int threads,
                          cudaStream_t stream, Args... args) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(blocks);
   cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
@@ -534,48 +696,40 @@ cudaError_t launch_after(void (*kernel)(Params...), unsigned blocks, int threads
   return cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...);
 }
 
-// Launches the plan, apply and tail kernels for K items (ids int32, or int64
-// when idx64) on `stream` on device `device`; active ids are clipped to
-// [0, hi]; K < 2^26 (the table's slot ids); with sr, the tail reads the
-// SR step from the device at `step` (seed_of). Returns the first launch
-// error, or cudaGetLastError(): 0 on success.
+// Launches the plan, apply, place and tail kernels for K items (ids int32,
+// or int64 when idx64) on `stream` on device `device`; active ids are
+// clipped to [0, hi]; K < 2^26 (the table's slot ids); with sr, the tail
+// reads the SR step from the device at `step` (seed_of); `stats` (three
+// u64 on the device, or null) gains the call's duplicated items, runs and
+// long runs. Returns the first launch error, or cudaGetLastError(): 0 on
+// success.
 template <bool kFlags, class S, class Unique>
 int launch(S* store, const void* idx, int idx64, const int* active, const float* dup_upd,
-           void* scratch, long long K, long long hi, int unit, int dim, bool sr,
-           const long long* step, int device, cudaStream_t stream, Unique unique) {
+           void* scratch, long long* stats, long long K, long long hi, int unit, int dim,
+           bool sr, const long long* step, int device, cudaStream_t stream, Unique unique) {
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (K == 0 || dim == 0) return 0;
   const Scratch s = carve(scratch, K);
-  const unsigned plan_blocks = static_cast<unsigned>((K + kThreads - 1) / kThreads);
+  const unsigned item_blocks = static_cast<unsigned>((K + kThreads - 1) / kThreads);
   if (idx64) {
-    plan_kernel<kFlags><<<plan_blocks, kThreads, 0, stream>>>(
+    plan_kernel<kFlags><<<item_blocks, kThreads, 0, stream>>>(
         static_cast<const long long*>(idx), active, K, hi, unit, s);
   } else {
-    plan_kernel<kFlags><<<plan_blocks, kThreads, 0, stream>>>(static_cast<const int*>(idx),
+    plan_kernel<kFlags><<<item_blocks, kThreads, 0, stream>>>(static_cast<const int*>(idx),
                                                               active, K, hi, unit, s);
   }
+  u64* counts = reinterpret_cast<u64*>(stats);
   cudaError_t launch_err = cudaSuccess;
   const auto go = [&](auto v, auto g, int nv) {
     constexpr int V = decltype(v)::value, G = decltype(g)::value;
     const unsigned blocks = static_cast<unsigned>((K * G + kThreads - 1) / kThreads);
-    // a launch with more than 48 KB of shared memory needs the kernel's
-    // attribute, set once a device
-    static bool allowed[64] = {};
-    cudaError_t e = cudaSuccess;
-    if (device >= 64 || !allowed[device]) {
-      e = cudaFuncSetAttribute(tail_kernel<V, G, S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               8 * kSmemKeys);
-      if (e == cudaSuccess && device < 64) allowed[device] = true;
-    }
-    const long long smem = tail_smem_bytes(K);
+    cudaError_t e = launch_after(apply_kernel<V, G, S, Unique>, blocks, kThreads, stream, store,
+                                 K, nv, s, unique);
+    if (e == cudaSuccess) e = launch_after(place_kernel, item_blocks, kThreads, stream, K, s);
     if (e == cudaSuccess) {
-      e = launch_after(apply_kernel<V, G, S, Unique>, blocks, kThreads, 0, stream, store, K, nv,
-                       s, unique);
-    }
-    if (e == cudaSuccess) {
-      e = launch_after(tail_kernel<V, G, S>, 1, kTailThreads, static_cast<size_t>(smem), stream,
-                       store, dup_upd, nv, dim, sr, step, s, smem);
+      e = launch_after(tail_kernel<V, G, S>, tail_blocks(K), kTailThreads, stream, store,
+                       dup_upd, K, nv, dim, sr, step, s, counts);
     }
     if (launch_err == cudaSuccess) launch_err = e;
   };

@@ -31,14 +31,15 @@
 // moves 16 bytes an item. One add and one rounding an element are far below
 // the card's f32 rate.
 //
-// Design: the row plan of row_plan.cuh, in three launches and with no
+// Design: the row plan of row_plan.cuh, in four launches and with no
 // sort of the items. The plan computes the flags by the JAX package's own
 // window compare (63 compares an item in shared memory) and counts each
 // row's occurrences in a hash table; an item whose row occurs once reads,
 // adds, rounds (SR by its own flag) and writes its row at once; only the
-// items of duplicated rows are sorted, by (row, flag, k), and walked in
-// that order by a one-block tail kernel: no sort of all K items, and no
-// torch op around the kernels.
+// items of duplicated rows are placed in a segment a row, each segment
+// ordered by (flag, k) and walked in that order, a run to a warp or a
+// block all over the card (a hot row's serial chain of adds bounds the
+// tail): no sort of all K items, and no torch op around the kernels.
 // The TPU kernels' DMA slot window, sentinel redirection, block skipping
 // and SMEM chunking have no counterpart: only the touched rows move.
 
@@ -86,10 +87,10 @@ struct RoundedRowAdd {
 
 template <class S>
 int launch(S* store, const void* idx, int idx64, const int* active, const float* upd,
-           void* scratch, long long R, long long K, int dim, int unit, bool sr,
-           const long long* step, int device, cudaStream_t stream) {
-  return row_plan::launch<true>(store, idx, idx64, active, upd, scratch, K, R - 1 - unit, unit,
-                                dim, sr, step, device, stream,
+           void* scratch, long long* counts, long long R, long long K, int dim, int unit,
+           bool sr, const long long* step, int device, cudaStream_t stream) {
+  return row_plan::launch<true>(store, idx, idx64, active, upd, scratch, counts, K,
+                                R - 1 - unit, unit, dim, sr, step, device, stream,
                                 RoundedRowAdd{upd, dim, sr, step});
 }
 
@@ -100,25 +101,28 @@ extern "C" long long sparse_rows_add_scratch_bytes(long long K) {
   return row_plan::scratch_bytes(K);
 }
 
-// Launches the plan, apply and tail kernels on `stream` (a cudaStream_t) on
-// device `device` and returns cudaGetLastError(): 0 on success. store
-// [R, dim] contiguous f32 (bf16 = 0) or bf16 (bf16 = 1), R < 2^30 a whole
-// number of `unit`-row units; idx [K] int32 (idx64 = 0) or int64; active
-// [K] int32; upd [K, dim] contiguous f32 (16-byte aligned rows and an
-// aligned store when dim % 4 == 0); scratch: sparse_rows_add_scratch_bytes(K)
-// bytes, zero before the first call, which every call leaves zero.
+// Launches the plan, apply, place and tail kernels on `stream` (a
+// cudaStream_t) on device `device` and returns cudaGetLastError(): 0 on
+// success. store [R, dim] contiguous f32 (bf16 = 0) or bf16 (bf16 = 1),
+// R < 2^30 a whole number of `unit`-row units; idx [K] int32 (idx64 = 0) or
+// int64; active [K] int32; upd [K, dim] contiguous f32 (16-byte aligned
+// rows and an aligned store when dim % 4 == 0); scratch:
+// sparse_rows_add_scratch_bytes(K) bytes, zero before the first call, which
+// every call leaves as it needs it; counts: three int64 on the device (or
+// null) that gain each call's duplicated items, runs and long runs.
 // Stochastic rounding applies to a bf16 store only, with the step read
 // from `step` (one int64 on the device; unread, and may be null, without
 // SR).
 extern "C" int sparse_rows_add(void* store, int bf16, const void* idx, int idx64,
-                               const int* active, const float* upd, void* scratch, long long R,
-                               long long K, int dim, int unit, int stochastic,
-                               const long long* step, int device, void* stream) {
+                               const int* active, const float* upd, void* scratch,
+                               long long* counts, long long R, long long K, int dim, int unit,
+                               int stochastic, const long long* step, int device,
+                               void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   if (bf16) {
-    return launch(static_cast<__nv_bfloat16*>(store), idx, idx64, active, upd, scratch, R, K,
-                  dim, unit, stochastic != 0, step, device, s);
+    return launch(static_cast<__nv_bfloat16*>(store), idx, idx64, active, upd, scratch, counts,
+                  R, K, dim, unit, stochastic != 0, step, device, s);
   }
-  return launch(static_cast<float*>(store), idx, idx64, active, upd, scratch, R, K, dim, unit,
-                false, nullptr, device, s);
+  return launch(static_cast<float*>(store), idx, idx64, active, upd, scratch, counts, R, K,
+                dim, unit, false, nullptr, device, s);
 }

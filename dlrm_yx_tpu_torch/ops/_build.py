@@ -14,9 +14,12 @@ Nothing is built when a module is imported: a kernel's wrapper calls
 ``load`` at its first launch on a CUDA tensor.
 
 ``zeroed_scratch`` keeps the scratch of the kernels that leave it as the
-next call needs it (the row plan of K2 and K4 leaves it zero; K5's
-compaction writes before it reads, and resets its ticket), one buffer per
-kernel, device and size.
+next call needs it (the row plan of K2 and K4 leaves it zero where it reads
+before it writes; K5's compaction writes before it reads, and resets its
+ticket), one buffer per kernel, device and size. ``device_counts`` keeps
+the counts a kernel adds to on the device (the row plan's tail: its
+duplicated items, runs and long runs), one buffer per kernel and device,
+read only when ``counts_of`` is asked.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ NVCC_FLAGS = (
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 _scratch: Dict[tuple, "torch.Tensor"] = {}
+_counts: Dict[tuple, "torch.Tensor"] = {}
 # nvcc's output (ptxas register / shared-memory report) per built kernel
 build_logs: Dict[str, str] = {}
 
@@ -122,3 +126,29 @@ def zeroed_scratch(name: str, device, nbytes: int):
                                "(its scratch is made and zeroed at the first call)")
         buf = _scratch[key] = torch.zeros(nbytes, dtype=torch.uint8, device=device)
     return buf
+
+
+def device_counts(name: str, device, n: int):
+    """A cached int64 buffer of ``n`` counts on ``device`` that kernel
+    ``name`` adds to at each call, zero when it is made. Made by the first
+    call, which must not run inside a CUDA graph capture."""
+    import torch
+
+    key = (name, device)
+    buf = _counts.get(key)
+    if buf is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"{name}: call it once before capturing it in a CUDA graph "
+                               "(its counts are made at the first call)")
+        buf = _counts[key] = torch.zeros(n, dtype=torch.int64, device=device)
+    return buf
+
+
+def counts_of(names: Sequence[str]):
+    """The sum of the device counts of the kernels ``names`` over every
+    device, as a list of ints (one copy to the host a device), or None
+    where none of them has run on a card."""
+    bufs = [b for (name, _), b in _counts.items() if name in names]
+    if not bufs:
+        return None
+    return [sum(int(v) for v in col) for col in zip(*(b.tolist() for b in bufs))]

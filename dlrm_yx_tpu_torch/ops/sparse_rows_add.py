@@ -35,11 +35,14 @@ integer tensor; the kernels read it from device memory, so a step captured
 in a CUDA graph rounds with the seed its replay is given.
 
 On a CUDA tensor the wrapper launches ``csrc/sparse_rows_add.cu``: the row
-plan of ``csrc/row_plan.cuh``, three launches with no sort of the items
+plan of ``csrc/row_plan.cuh``, four launches with no sort of the items
 and no host sync (a plan kernel computes the flags by the window compare
 of ``conflict_flags`` and counts each row's occurrences; an apply kernel
-updates the rows that occur once; a one-block tail sorts and walks only
-the duplicated ones). On a CPU tensor it runs ``sparse_rows_add_reference``,
+updates the rows that occur once; a place kernel lays the duplicated
+items out a segment a row; a tail orders each segment by (flag, k) and
+walks it, the runs spread over the card). Each call adds its duplicated
+items, runs and long runs to counts on the device that ``row_plan_counts``
+reads (K2's calls too). On a CPU tensor it runs ``sparse_rows_add_reference``,
 the plain PyTorch version, which orders the items with ``sorted_order``.
 There is no fallback from one to the other.
 """
@@ -47,7 +50,7 @@ There is no fallback from one to the other.
 from __future__ import annotations
 
 import ctypes
-from typing import Union
+from typing import Dict, Union
 
 import torch
 
@@ -55,6 +58,9 @@ from dlrm_yx_tpu_torch.ops import _build
 from dlrm_yx_tpu_torch.ops.embedding import dim_pack
 
 WINDOW = 64  # the JAX kernel's hazard look-back, in items (2 x its DMA window)
+# what the row plan's tail counts on the device, in its order: the items
+# of duplicated rows, their rows (runs), the runs of 64 items or more
+ROW_PLAN_COUNTS = ("row_plan.dup_keys", "row_plan.runs", "row_plan.long_runs")
 _GOLDEN = 0x9E3779B9  # the seed's multiplier in the SR hash
 _M32 = 0xFFFFFFFF
 
@@ -207,12 +213,13 @@ def sparse_rows_add(store: torch.Tensor, idx: torch.Tensor, upd: torch.Tensor,
     k = idx.shape[0]
     fn, nbytes = _kernel()
     scratch = _build.zeroed_scratch("sparse_rows_add", store.device, nbytes(k))
+    counts = _build.device_counts("sparse_rows_add", store.device, len(ROW_PLAN_COUNTS))
     sr = stochastic_round and store.dtype != torch.float32
     step = device_step(seed, store.device) if sr else None
     err = fn(
         store.data_ptr(), int(store.dtype == torch.bfloat16), idx.data_ptr(),
         int(idx.dtype == torch.int64), active.data_ptr(), upd.data_ptr(), scratch.data_ptr(),
-        r, k, dim, unit_rows(store.dtype, dim), int(sr),
+        counts.data_ptr(), r, k, dim, unit_rows(store.dtype, dim), int(sr),
         None if step is None else step.data_ptr(), store.device.index,
         torch.cuda.current_stream(store.device).cuda_stream,
     )
@@ -237,6 +244,16 @@ def device_step(seed: Union[int, torch.Tensor], device: torch.device) -> torch.T
     return torch.full((), int(seed), dtype=torch.int64, device=device)
 
 
+def row_plan_counts() -> Dict[str, int]:
+    """``ROW_PLAN_COUNTS`` summed over every K2 and K4 call on a card so
+    far (a copy from each card), or {} where neither has run on one or a
+    CUDA graph is being captured."""
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        return {}
+    totals = _build.counts_of(("sparse_rows_overwrite", "sparse_rows_add"))
+    return {} if totals is None else dict(zip(ROW_PLAN_COUNTS, totals))
+
+
 def kernel_ids(idx: torch.Tensor, active: torch.Tensor):
     """idx as contiguous int32 or int64 and active as contiguous int32, the
     types the row plan's kernels read (a copy only where they differ)."""
@@ -253,7 +270,7 @@ def _kernel():
     fn, nbytes = lib.sparse_rows_add, lib.sparse_rows_add_scratch_bytes
     if fn.argtypes is None:
         i, p, ll = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong
-        fn.argtypes = [p, i, p, i, p, p, p, ll, ll, i, i, i, p, i, p]
+        fn.argtypes = [p, i, p, i, p, p, p, p, ll, ll, i, i, i, p, i, p]
         fn.restype = i
         nbytes.argtypes, nbytes.restype = [ll], ll
     return fn, nbytes

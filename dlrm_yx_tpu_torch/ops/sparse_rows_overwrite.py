@@ -17,12 +17,13 @@ row. Ids of active items are clipped to ``[0, R - 9]`` as the JAX package
 clips them (the last ``SENTINEL_ROWS`` rows are never live).
 
 On a CUDA tensor the wrapper launches ``csrc/sparse_rows_overwrite.cu``:
-the row plan of ``csrc/row_plan.cuh``, three launches with no sort of the
+the row plan of ``csrc/row_plan.cuh``, four launches with no sort of the
 items and no host sync (a plan kernel counts each row's active
-occurrences; an apply kernel copies the rows that occur once; a one-block
-tail sorts and walks only the duplicated ones), at any row width: 16-byte
-vectors when W % 4 == 0, else one f32 a lane (the mixed-dimension groups'
-widths 1 and 2). On a CPU tensor it runs
+occurrences; an apply kernel copies the rows that occur once; a place
+kernel lays the duplicated items out a segment a row; a tail orders each
+segment by k and walks it, the runs spread over the card), at any row
+width: 16-byte vectors when W % 4 == 0, else one f32 a lane (the
+mixed-dimension groups' widths 1 and 2). On a CPU tensor it runs
 ``sparse_rows_overwrite_reference``, the plain PyTorch version, which
 finds duplicates by counting. There is no fallback from one to the other.
 """
@@ -34,7 +35,7 @@ import ctypes
 import torch
 
 from dlrm_yx_tpu_torch.ops import _build
-from dlrm_yx_tpu_torch.ops.sparse_rows_add import kernel_ids
+from dlrm_yx_tpu_torch.ops.sparse_rows_add import ROW_PLAN_COUNTS, kernel_ids
 
 CLIP_MARGIN = 8     # active ids are clipped to R - 1 - CLIP_MARGIN
 
@@ -117,9 +118,10 @@ def sparse_rows_overwrite(
     k = idx.shape[0]
     fn, nbytes = _kernel()
     scratch = _build.zeroed_scratch("sparse_rows_overwrite", store.device, nbytes(k))
+    counts = _build.device_counts("sparse_rows_overwrite", store.device, len(ROW_PLAN_COUNTS))
     err = fn(
         store.data_ptr(), idx.data_ptr(), int(idx.dtype == torch.int64), active.data_ptr(),
-        new_vals.data_ptr(), delta.data_ptr(), scratch.data_ptr(), r, k, w,
+        new_vals.data_ptr(), delta.data_ptr(), scratch.data_ptr(), counts.data_ptr(), r, k, w,
         store.device.index, torch.cuda.current_stream(store.device).cuda_stream,
     )
     if err:
@@ -137,7 +139,7 @@ def _kernel():
     fn, nbytes = lib.sparse_rows_overwrite, lib.sparse_rows_overwrite_scratch_bytes
     if fn.argtypes is None:
         i, p, ll = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong
-        fn.argtypes = [p, p, i, p, p, p, p, ll, ll, i, i, p]
+        fn.argtypes = [p, p, i, p, p, p, p, p, ll, ll, i, i, p]
         fn.restype = i
         nbytes.argtypes, nbytes.restype = [ll], ll
     return fn, nbytes

@@ -29,9 +29,13 @@ them.
 ``count(name, n)`` adds to a counter of the calling thread (0.34 us), and
 ``counters()`` returns a snapshot over every thread, with the kernel
 wrappers' ``.launches`` (``train.capture.launch_counters``) as
-``launch.<kernel>`` and the caching allocators' totals as ``alloc.host``
+``launch.<kernel>``, the caching allocators' totals as ``alloc.host``
 (pinned blocks made) and ``alloc.device`` (the current card's
-``cudaMalloc`` calls), read only when a snapshot is taken.
+``cudaMalloc`` calls), and the row plan's tail counts of K2 and K4 on the
+card (``row_plan.dup_keys``, ``row_plan.runs``, ``row_plan.long_runs``:
+the items of duplicated rows, their runs, the runs of 64 items or more;
+``ops.sparse_rows_add.row_plan_counts``), read only when a snapshot is
+taken.
 ``train.capture.GraphStep`` takes back what a body counted on its thread
 while it was captured, and adds it again at each replay.
 
@@ -122,7 +126,8 @@ def _alloc_counts() -> Dict[str, int]:
 
 def counters() -> Dict[str, int]:
     """A snapshot of every counter: the threads' counts summed, the kernel
-    launches and the allocators' totals."""
+    launches, the allocators' totals and the row plan's tail counts."""
+    from dlrm_yx_tpu_torch.ops.sparse_rows_add import row_plan_counts
     from dlrm_yx_tpu_torch.train.capture import launch_counters
 
     out: Dict[str, int] = {}
@@ -133,6 +138,7 @@ def counters() -> Dict[str, int]:
             out[k] = out.get(k, 0) + v
     out.update({f"launch.{name}": f.launches for name, f in launch_counters().items()})
     out.update(_alloc_counts())
+    out.update(row_plan_counts())
     return out
 
 

@@ -5,27 +5,48 @@ interpret mode on the CPU.
 On a CPU tensor each wrapper runs its plain PyTorch version, so these
 tests hold that version (the one the CUDA kernel is checked against on the
 card) to the JAX kernel. The card-only cases at the end hold the CUDA
-kernels to the plain versions and skip without a card.
+kernels to the plain versions and skip without a card. The file imports
+JAX only where it is installed, so that on a machine with the card and
+without JAX the card cases run and the JAX cases skip:
+``python -m pytest --noconftest tests/test_torch_sparse_kernels.py``.
 """
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from dlrm_yx_tpu.ops.pallas_dense_finish import BLOCK_ROWS
-from dlrm_yx_tpu.ops.pallas_dense_finish import rwsadagrad_dense_finish as jax_finish
-from dlrm_yx_tpu.ops.pallas_sparse_update import sparse_rows_overwrite as jax_overwrite
 from dlrm_yx_tpu_torch.ops.dense_finish import (
     rwsadagrad_dense_finish,
     rwsadagrad_dense_finish_reference,
 )
+from dlrm_yx_tpu_torch.ops.sparse_rows_add import row_plan_counts
 from dlrm_yx_tpu_torch.ops.sparse_rows_overwrite import (
+    CLIP_MARGIN,
     sparse_rows_overwrite,
     sparse_rows_overwrite_reference,
 )
+from torch_row_plan_cases import STREAMS, stream, tail_counts
+
+try:
+    import jax.numpy as jnp
+
+    from dlrm_yx_tpu.ops.pallas_dense_finish import BLOCK_ROWS
+    from dlrm_yx_tpu.ops.pallas_dense_finish import rwsadagrad_dense_finish as jax_finish
+    from dlrm_yx_tpu.ops.pallas_sparse_update import sparse_rows_overwrite as jax_overwrite
+except ImportError:  # a machine with the card and no JAX: the card cases alone
+    jnp = jax_finish = jax_overwrite = None
+    BLOCK_ROWS = 2048  # pallas_dense_finish.BLOCK_ROWS, for the cases' names alone
 
 SENTINEL_ROWS = 8
+
+
+@pytest.fixture
+def jax_package():
+    if jnp is None:
+        pytest.skip("needs the JAX package: these cases hold the plain versions to its kernels")
+
+
+needs_jax = pytest.mark.usefixtures("jax_package")
 
 
 def _overwrite_case(seed, rows, k, w, consistent):
@@ -42,6 +63,7 @@ def _overwrite_case(seed, rows, k, w, consistent):
 
 
 @pytest.mark.parametrize("consistent", [True, False])
+@needs_jax
 def test_overwrite_plain_matches_jax_kernel(consistent):
     """Mirrors tests/test_sparse_update.py::test_sparse_rows_overwrite_dup_and_inactive,
     and with unrelated new_vals checks that unique rows take new_vals and
@@ -59,14 +81,15 @@ def test_overwrite_plain_matches_jax_kernel(consistent):
     np.testing.assert_array_equal(got[-SENTINEL_ROWS:], store[-SENTINEL_ROWS:])
 
 
-@pytest.mark.parametrize("stream", ["skewed", "one_row"])
-def test_overwrite_plain_matches_jax_kernel_on_streams(stream):
+@pytest.mark.parametrize("name", ["skewed", "one_row"])
+@needs_jax
+def test_overwrite_plain_matches_jax_kernel_on_streams(name):
     """A skewed stream (30% of the items on 10 rows) and one where every
     item hits one row, a fifth of them inactive: unique rows take new_vals,
     duplicated rows their deltas in item order, as in the JAX kernel."""
     r = np.random.RandomState(8)
     store = r.randn(2048 + SENTINEL_ROWS, 128).astype(np.float32)
-    if stream == "skewed":
+    if name == "skewed":
         idx = r.randint(0, 2048, 400).astype(np.int32)
         hot = r.rand(400) < 0.3
         idx[hot] = idx[:10][r.randint(0, 10, hot.sum())]
@@ -133,6 +156,7 @@ def _finish_case(seed, r, w, acc_extra, touched=None):
         (300, 512, 512, 16),
     ],
 )
+@needs_jax
 def test_finish_plain_matches_jax_kernel(r, dim, w, acc_extra):
     """The JAX store is physical [r, w] (pack = w // dim logical rows per
     row); the port's is the same memory as logical [r * pack, dim] rows."""
@@ -150,6 +174,7 @@ def test_finish_plain_matches_jax_kernel(r, dim, w, acc_extra):
     np.testing.assert_array_equal(got_a.numpy()[r * pack:], acc[r * pack:])
 
 
+@needs_jax
 def test_finish_bf16_store_matches_jax_kernel():
     store, acc, g = _finish_case(5, 640, 128, 0, touched=100)
     store16 = store.astype(jnp.bfloat16)
@@ -219,3 +244,40 @@ def test_cuda_finish_matches_plain_version(cuda_device, dim, dtype):
     torch.testing.assert_close(got_a, want_a, rtol=1e-6, atol=0)
     torch.testing.assert_close(got_s.float(), want_s.float(),
                                rtol=1e-6 if dtype == torch.float32 else 8e-3, atol=0)
+
+
+ROWS = (1 << 20) + SENTINEL_ROWS + 1  # the streams' rows and the clip margin
+
+
+@pytest.mark.parametrize("w", [128, 36, 1, 2, 64, 640])
+@pytest.mark.parametrize("name", STREAMS)
+def test_cuda_overwrite_is_the_plain_version_bit_for_bit(cuda_device, name, w):
+    """K2 on the card against its plain version run on a CPU copy of the
+    rows its items name, where index_add_ adds a row's duplicates in item
+    order: equal bit for bit, every other row untouched, and the tail's
+    counts grown by this call's duplicated items, runs and long runs. The
+    widths take 16-byte vectors (128, 64, 640: past a tail block's
+    columns), one f32 a lane (36, 1, 2)."""
+    idx, act = stream(name, ROWS - CLIP_MARGIN - 1)
+    gen = torch.Generator(device=cuda_device).manual_seed(w)
+    store = torch.rand(ROWS, w, device=cuda_device, generator=gen) - 0.5
+    ids, active = (torch.from_numpy(a).to(cuda_device) for a in (idx, act))
+    delta = torch.randn(ids.numel(), w, device=cuda_device, generator=gen) * 1e-2
+    new_vals = store[ids.long()] + delta
+    launches, before = sparse_rows_overwrite.launches, row_plan_counts()
+    got = sparse_rows_overwrite(store.clone(), ids, new_vals, delta, active)
+    torch.cuda.synchronize()
+    assert sparse_rows_overwrite.launches == launches + 1
+    after = row_plan_counts()
+    grown = tuple(after[k] - before.get(k, 0) for k in
+                  ("row_plan.dup_keys", "row_plan.runs", "row_plan.long_runs"))
+    assert grown == tail_counts(idx, act)
+    rows, inv = torch.unique(ids.long(), return_inverse=True)
+    want = torch.cat([store[rows], store.new_zeros(CLIP_MARGIN + 1, w)]).cpu()
+    sparse_rows_overwrite_reference(want, inv.int().cpu(), new_vals.cpu(), delta.cpu(),
+                                    active.cpu())
+    assert torch.equal(got[rows].cpu().view(torch.int32),
+                       want[:rows.numel()].view(torch.int32))
+    named = torch.zeros(ROWS, dtype=torch.bool, device=cuda_device)
+    named[rows] = True
+    assert not ((got != store).any(dim=1) & ~named).any()

@@ -10,16 +10,16 @@ occurrences in the JAX kernel's order (main pass, then the flagged tail)
 and rounds after every add as it does. JAX's interpret mode skips
 stochastic rounding, so SR is held to its definition and to statistics.
 The card-only cases at the end hold the CUDA kernel to the plain version
-and skip without a card.
+and skip without a card. The file imports JAX only where it is installed,
+so that on a machine with the card and without JAX the card cases run and
+the JAX cases skip: ``python -m pytest --noconftest
+tests/test_torch_sparse_rows_add.py``.
 """
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from dlrm_yx_tpu.ops.pallas_sparse_update import conflict_flags as jax_conflict_flags
-from dlrm_yx_tpu.ops.pallas_sparse_update import sparse_rows_add as jax_rows_add
 from dlrm_yx_tpu_torch.ops.embedding import dim_pack
 from dlrm_yx_tpu_torch.ops.sparse_rows_add import (
     conflict_flags,
@@ -29,11 +29,30 @@ from dlrm_yx_tpu_torch.ops.sparse_rows_add import (
     unit_rows,
 )
 from dlrm_yx_tpu_torch.optim.optimizer import acc_len
+from torch_row_plan_cases import stream
+
+try:
+    import jax.numpy as jnp
+
+    from dlrm_yx_tpu.ops.pallas_sparse_update import conflict_flags as jax_conflict_flags
+    from dlrm_yx_tpu.ops.pallas_sparse_update import sparse_rows_add as jax_rows_add
+except ImportError:  # a machine with the card and no JAX: the card cases alone
+    jnp = jax_conflict_flags = jax_rows_add = None
 
 SENTINEL_ROWS = 8
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
+@pytest.fixture
+def jax_package():
+    if jnp is None:
+        pytest.skip("needs the JAX package: these cases hold the plain version to its kernel")
+
+
+needs_jax = pytest.mark.usefixtures("jax_package")
+
+
+@needs_jax
 def test_conflict_flags_fixed_case():
     """tests/test_sparse_update.py::test_conflict_flags: items 2 and 5
     re-hit row 5; item 3's only earlier 9 is inactive."""
@@ -46,6 +65,7 @@ def test_conflict_flags_fixed_case():
 
 
 @pytest.mark.parametrize("unit", [1, 8, 16, 128])
+@needs_jax
 def test_conflict_flags_match_jax(unit):
     """The port's window compare against JAX's 63 shifted compares, on row
     streams with near and far repeats, cut into units of ``unit`` rows."""
@@ -81,6 +101,7 @@ def _window_stream(unit, n_units, pairs, k=400, seed=0):
 
 @pytest.mark.parametrize("unit", [1, 8, 128])
 @pytest.mark.parametrize("distance", [62, 63, 64])
+@needs_jax
 def test_conflict_flags_window_edges(unit, distance):
     """Repeats of a unit exactly ``distance`` items apart: flagged within
     63 items of an active item, as JAX flags them, and not after an
@@ -164,6 +185,16 @@ def _case(name, arg, dtype):
         rows, act = _window_stream(unit, 4096 // unit + 1, WINDOW_PAIRS)
         store = r.randn(4096 + SENTINEL_ROWS, 128).astype(np.float32)
         return store, rows, r.randn(400, 128).astype(np.float32), act, dtype
+    if name in ("hot row on half of K", "power law, K=65536"):  # the row plan's tail
+        r = np.random.RandomState(12)
+        rows = 1 << 18
+        idx, act = stream(name, rows)
+        if dtype == "acc":  # a [len, 1] accumulator, 128-row units
+            store = np.abs(r.randn(rows + 128)).astype(np.float32)[:, None]
+            upd = np.abs(r.randn(idx.size, 1)).astype(np.float32)
+            return store, idx, upd, act, "float32"
+        store = r.randn(rows + SENTINEL_ROWS, 128).astype(np.float32)
+        return store, idx, r.randn(idx.size, 128).astype(np.float32), act, dtype
     if name == "bf16":  # test_sparse_rows_add_bfloat16_store
         r = np.random.RandomState(0)
         store = r.randn(4096 + SENTINEL_ROWS, 128).astype(np.float32)
@@ -194,6 +225,7 @@ CASES = (
 
 
 @pytest.mark.parametrize("name,arg,dtype", CASES)
+@needs_jax
 def test_plain_matches_jax_kernel_bitwise(name, arg, dtype):
     store, idx, upd, act, dtype = _case(name, arg, dtype)
     rows, d = store.shape
@@ -247,6 +279,7 @@ def _bits(t):
     return t.view(torch.int16).numpy()
 
 
+@needs_jax
 def test_sr_takes_one_of_the_two_bracketing_bf16_values():
     """Each updated element is the f32 sum truncated to bf16 or the next
     bf16 away from zero (both occur); untouched rows keep every bit."""
@@ -355,7 +388,9 @@ def cuda_device():
     ("reference", (500, 256), "float32", False), ("acc", None, "float32", False),
     ("skewed", None, "bfloat16", True), ("one_row", None, "float32", False),
     ("window", None, "bfloat16", True), ("window", None, "acc", False),
-])
+] + [(name, None, dtype, sr) for name in ("hot row on half of K", "power law, K=65536")
+     for dtype, sr in (("bfloat16", True), ("bfloat16", False), ("float32", False),
+                       ("acc", False))])
 def test_cuda_rows_add_matches_plain_version_bitwise(cuda_device, name, arg, dtype, sr):
     store, idx, upd, act, dtype = _case(name, arg, dtype)
     s = torch.from_numpy(store).to(cuda_device, TDT[dtype])
@@ -365,4 +400,30 @@ def test_cuda_rows_add_matches_plain_version_bitwise(cuda_device, name, arg, dty
     torch.cuda.synchronize()
     assert sparse_rows_add.launches == launches + 1
     want = sparse_rows_add_reference(s.clone(), i, u, a, stochastic_round=sr, seed=11)
-    assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+    # flattened first: a [len, 1] store from NumPy has stride 0 on its last dim
+    assert torch.equal(got.reshape(-1).view(torch.uint8), want.reshape(-1).view(torch.uint8))
+
+
+@pytest.mark.parametrize("name", ["hot row on half of K", "power law, K=65536"])
+def test_cuda_rows_add_replays_its_capture_bit_for_bit(cuda_device, name):
+    """K4 (bf16, SR) captured in a CUDA graph and replayed twice on the
+    same store: each replay equals the plain version bit for bit, so the
+    first left the scratch as the second needs it (zero where a call reads
+    before it writes)."""
+    store, idx, upd, act, dtype = _case(name, None, "bfloat16")
+    s = torch.from_numpy(store).to(cuda_device, TDT[dtype])
+    i, u, a = (torch.from_numpy(x).to(cuda_device) for x in (idx, upd, act))
+    seed = torch.full((), 11, dtype=torch.int64, device=cuda_device)
+    want = sparse_rows_add_reference(s.clone(), i, u, a, stochastic_round=True, seed=11)
+    work = s.clone()
+    sparse_rows_add(work, i, u, a, stochastic_round=True, seed=seed)  # makes the scratch
+    torch.cuda.synchronize()
+    assert torch.equal(work.view(torch.int16), want.view(torch.int16))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        sparse_rows_add(work, i, u, a, stochastic_round=True, seed=seed)
+    for _ in range(2):
+        work.copy_(s)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(work.view(torch.int16), want.view(torch.int16))
