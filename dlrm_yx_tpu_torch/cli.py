@@ -40,7 +40,12 @@ splits the big tables' rows (``row``) and
 ``parallel.col_sharded.ColShardedRunner`` their columns (``col``); with a
 runner, --collect-execution-graph traces one eager sharded step on copies
 of the params, and --debug-mode fails as the JAX CLI's does.
-``--print-time``
+DLRM-DCNv2 (MLPerf Training's recommendation model since v3.0):
+``--arch-interaction-op=dcn`` with ``--dcn-num-layers`` and
+``--dcn-low-rank-dim``, and fixed multi-hot bags with
+``--multi-hot-sizes`` (random data draws bags of those sizes); they train
+and serve on one device (the mesh runners, export and quantized serving
+refuse them). ``--print-time``
 and the reference-compat flags of ``add_noop_flags`` are accepted and have
 no effect, as in the JAX CLI.
 The reference's L=100 throughput benchmark
@@ -73,7 +78,7 @@ import time
 import numpy as np
 import torch
 
-from dlrm_yx_tpu_torch.config import DLRMConfig, parse_int_list
+from dlrm_yx_tpu_torch.config import DLRMConfig, parse_int_list, refuse_dcn_and_bags
 from dlrm_yx_tpu_torch.data.criteo import (
     CriteoNpzLoader,
     preprocess_criteo,
@@ -143,8 +148,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--arch-embedding-size", type=str, default="4-3-2")
     p.add_argument("--arch-mlp-bot", type=str, default="4-3-2")
     p.add_argument("--arch-mlp-top", type=str, default="4-2-1")
-    p.add_argument("--arch-interaction-op", type=str, choices=["dot", "cat"], default="dot")
+    p.add_argument("--arch-interaction-op", type=str, choices=["dot", "cat", "dcn"],
+                   default="dot", help="dcn = DLRM-DCNv2's low-rank cross network")
     p.add_argument("--arch-interaction-itself", action="store_true", default=False)
+    p.add_argument("--dcn-num-layers", type=int, default=3,
+                   help="cross layers of --arch-interaction-op=dcn")
+    p.add_argument("--dcn-low-rank-dim", type=int, default=512,
+                   help="rank of each cross layer of --arch-interaction-op=dcn")
+    p.add_argument("--multi-hot-sizes", type=str, default="",
+                   help="dash-separated fixed bag size of each table (DLRM-DCNv2's "
+                        "multi-hot ids); random data then draws bags of these sizes")
     p.add_argument("--weighted-pooling", type=str, default=None,
                    help="fixed | learned: per-row pooling weights v_W")
     # embedding compression
@@ -354,6 +367,9 @@ def config_from_args(args, argv=None) -> DLRMConfig:
         sparse_update_impl=args.sparse_update_impl,
         exact_row_momentum=args.exact_row_momentum,
         emb_split_threshold=args.emb_split_threshold,
+        dcn_num_layers=args.dcn_num_layers,
+        dcn_low_rank_dim=args.dcn_low_rank_dim,
+        multi_hot_sizes=parse_int_list(args.multi_hot_sizes) if args.multi_hot_sizes else (),
     )
     if args.load_processed:
         # the dataset's table_configs.json gives the rows and per-table dims
@@ -480,6 +496,11 @@ def make_data(args, cfg: DLRMConfig, train: bool = True):
                                memory_map=args.memory_map), test
     if args.data_generation == "random-device":
         def device_batches(seed):
+            if cfg.multi_hot_sizes:  # bag slots: one id each, every one live
+                return make_device_random_batches(
+                    [cfg.emb_rows[t] for t in cfg.slot_tables], cfg.ln_bot[0],
+                    args.mini_batch_size, nb, 1, True, bool(args.round_targets), seed,
+                    resolve_device(args.device))
             return make_device_random_batches(
                 cfg.emb_rows, cfg.ln_bot[0], args.mini_batch_size, nb,
                 args.num_indices_per_lookup, args.num_indices_per_lookup_fixed,
@@ -496,6 +517,7 @@ def make_data(args, cfg: DLRMConfig, train: bool = True):
         rand_data_min=args.rand_data_min, rand_data_max=args.rand_data_max,
         rand_data_mu=args.rand_data_mu, rand_data_sigma=args.rand_data_sigma,
         round_targets=bool(args.round_targets), seed=args.numpy_rand_seed,
+        multi_hot_sizes=cfg.multi_hot_sizes,
     )
     test = make_random_batches(dc, seed=args.numpy_rand_seed + 1)
     return (make_random_batches(dc) if train else None), test
@@ -515,13 +537,18 @@ def _measure_dup_density(cfg: DLRMConfig, train):
         b0 = _first_batch(train)
     except (IndexError, StopIteration):  # no batch
         return None
-    idx = torch.as_tensor(b0.indices).cpu().numpy()  # [T, B, L]
+    idx = torch.as_tensor(b0.indices).cpu().numpy()  # [T, B, L], or bags [S, B, 1]
     thr = cfg.emb_split_threshold or 0
     big = [t for t, n in enumerate(cfg.emb_rows) if not thr or n > thr]
     if not big:
         return None
-    uniq = sum(len(np.unique(idx[t])) for t in big)
-    total = len(big) * idx.shape[1] * idx.shape[2]
+    if cfg.multi_hot_sizes:  # each table's ids over its bag slots
+        slots = np.asarray(cfg.slot_tables)
+        per_table = [idx[slots == t] for t in big]
+    else:
+        per_table = [idx[t] for t in big]
+    uniq = sum(len(np.unique(a)) for a in per_table)
+    total = sum(a.size for a in per_table)
     return max(1e-3, min(1.0, uniq / max(total, 1)))
 
 
@@ -568,6 +595,7 @@ def quantized_inference(args, cfg: DLRMConfig, trainer: Trainer, test_batches) -
     (the JAX CLI's ``_quantized_inference``): tables at 4 or 8 bits (8 when
     only the towers are quantized), towers int8 (8) or fp16 (16), the
     accuracy of the rounded predictions."""
+    refuse_dcn_and_bags(cfg, "quantized serving")
     bits = args.quantize_emb_with_bit if args.quantize_emb_with_bit in (4, 8) else 8
     # a runner's shards are gathered into the single-device layout first
     params = (trainer.params if trainer.runner is None
@@ -699,6 +727,8 @@ def _run(args, argv):
         steps_per_dispatch=args.steps_per_dispatch,
         prefetch_depth=args.prefetch_depth,
     )
+    if args.save_onnx:
+        refuse_dcn_and_bags(cfg, "--save-onnx export")  # before training, not after
     train, test = make_data(args, cfg, train=not args.inference_only)
     if cfg.sparse_update_impl in ("pallas", "stream") and cfg.dup_density_hint <= 0:
         hint = _measure_dup_density(cfg, train)

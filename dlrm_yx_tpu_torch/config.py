@@ -3,7 +3,10 @@
 The port's own copy of ``dlrm_yx_tpu/config.py`` (standard library only), so
 that one ``DLRMConfig`` describes the same model in both packages. The
 arch-consistency checks mirror the reference's ``dlrm_s_pytorch.py:1443-1507``
-(``ln_top[0] = F*(F-1)/2 [+F] + D``). The training path reads the update
+(``ln_top[0] = F*(F-1)/2 [+F] + D``; ``F*D`` for ``cat`` and ``dcn``). The
+port's own additions, which the JAX package has not: the ``dcn``
+interaction (DLRM-DCNv2's low-rank cross network, ``ops/dcn.py``) and
+fixed multi-hot bags (``multi_hot_sizes``). The training path reads the update
 fields (``sparse_update_impl``, ``exact_row_momentum``,
 ``write_only_update``, ``dup_density_hint``, ``stochastic_rounding``) as
 the JAX package does; ``lookup_impl`` is kept so a config compares field
@@ -34,7 +37,11 @@ class DLRMConfig:
         (the reference's "split trick", dlrm_s_pytorch.py:579-585).
       ln_bot: bottom MLP layer sizes, ln_bot[0] = num dense features.
       ln_top: top MLP layer sizes, ln_top[-1] = 1.
-      interaction: 'dot' or 'cat' (--arch-interaction-op).
+      interaction: 'dot', 'cat' or 'dcn' (--arch-interaction-op). 'dcn'
+        is DLRM-DCNv2's: the concatenated features [B, F*D] through
+        ``dcn_num_layers`` low-rank cross layers of rank
+        ``dcn_low_rank_dim`` (TorchRec's ``LowRankCrossNet``), then the
+        top MLP.
       interact_itself: include self-interaction diagonal
         (--arch-interaction-itself → tril offset 0 instead of -1).
       sigmoid_bot / sigmoid_top: index of the layer whose activation is
@@ -47,6 +54,11 @@ class DLRMConfig:
         weights v_W (dlrm_s_pytorch.py:308-316).
       compute_dtype: 'float32' or 'bfloat16' for MLP/interaction compute
         (params always stored fp32; bf16 rides the MXU).
+      multi_hot_sizes: per table, the fixed number of ids of its bag (the
+        MLPerf DLRM-DCNv2 reference's ``--multi_hot_sizes``), or () for
+        the ``[T, B, L]`` layout. A batch then holds the bags as
+        ``[sum(multi_hot_sizes), B, 1]`` slots, table by table, every id
+        live (see ``ops/embedding.bag_slots``).
     """
 
     emb_rows: Tuple[int, ...]
@@ -129,6 +141,11 @@ class DLRMConfig:
     # (--md-flag/--md-threshold, dlrm_s_pytorch.py:291-299)
     md_flag: bool = False
     md_threshold: int = 200
+    # DLRM-DCNv2's cross network (interaction 'dcn'): layers and rank
+    dcn_num_layers: int = 3
+    dcn_low_rank_dim: int = 512
+    # fixed bag size per table (() = the padded [T, B, L] layout)
+    multi_hot_sizes: Tuple[int, ...] = ()
     # internal: used by build() to probe arch math without a final ln_top
     _skip_validation: bool = False
 
@@ -215,13 +232,31 @@ class DLRMConfig:
     def expected_top_in(self) -> int:
         if self.interaction == "dot":
             return self.num_interactions + self.base_dim
-        elif self.interaction == "cat":
+        elif self.interaction in ("cat", "dcn"):
             return self.num_features * self.base_dim
         raise ValueError(f"unknown interaction {self.interaction!r}")
 
+    @property
+    def slot_tables(self) -> Tuple[int, ...]:
+        """The table of each bag slot of a multi-hot batch: table t's
+        ``multi_hot_sizes[t]`` slots in a row, tables in order."""
+        return tuple(t for t, h in enumerate(self.multi_hot_sizes) for _ in range(h))
+
     def validate(self):
-        if self.interaction not in ("dot", "cat"):
-            raise ValueError(f"interaction must be dot|cat, got {self.interaction!r}")
+        if self.interaction not in ("dot", "cat", "dcn"):
+            raise ValueError(f"interaction must be dot|cat|dcn, got {self.interaction!r}")
+        if self.interaction == "dcn" and (self.dcn_num_layers < 1 or self.dcn_low_rank_dim < 1):
+            raise ValueError(f"dcn needs at least one layer of rank >= 1, got "
+                             f"{self.dcn_num_layers} layers of rank {self.dcn_low_rank_dim}")
+        if self.multi_hot_sizes:
+            if len(self.multi_hot_sizes) != len(self.emb_rows):
+                raise ValueError(f"{len(self.multi_hot_sizes)} multi-hot sizes for "
+                                 f"{len(self.emb_rows)} tables")
+            if min(self.multi_hot_sizes) < 1:
+                raise ValueError(f"multi-hot sizes must be >= 1, got {self.multi_hot_sizes}")
+            if self.qr_flag or self.md_flag or self.weighted_pooling is not None:
+                raise ValueError("multi-hot bags take plain tables: no QR, MD or weighted "
+                                 "pooling")
         if self.loss not in ("bce", "mse", "wbce"):
             raise ValueError(f"loss must be bce|mse|wbce, got {self.loss!r}")
         if len(self.emb_dims) != len(self.emb_rows):
@@ -356,3 +391,16 @@ class DLRMConfig:
             ln_bot=(13, 512, 256, 128),
             ln_top=(479, 1024, 1024, 512, 256, 1),
         )
+
+
+def refuse_dcn_and_bags(config: DLRMConfig, path: str) -> None:
+    """Raise on a configuration with the ``dcn`` interaction or fixed
+    multi-hot bags in a path that has neither (the mesh runners, export,
+    quantized serving): they run on one device through the train and eval
+    steps only."""
+    parts = [p for p, on in (("the 'dcn' interaction", config.interaction == "dcn"),
+                             ("--multi-hot-sizes bags", bool(config.multi_hot_sizes))) if on]
+    if parts:
+        raise NotImplementedError(
+            f"{path} does not support {' and '.join(parts)} (DLRM-DCNv2): train and serve "
+            "it on one device")

@@ -76,14 +76,17 @@ def _array(t: torch.Tensor) -> np.ndarray:
 
 
 def _variant_leaves(tree: Dict, conv) -> Dict:
-    """``vw``, ``qr`` and ``md_proj`` of a JAX or port tree, each leaf
-    through ``conv``; ``vw`` None when absent, the others only when
-    present (the JAX package's keys)."""
+    """``vw``, ``qr``, ``md_proj`` and ``dcn`` of a JAX or port tree, each
+    leaf through ``conv``; ``vw`` None when absent, the others only when
+    present (the JAX package's keys; ``dcn``, DLRM-DCNv2's cross layers
+    ``(V, W, b)``, is the port's own)."""
     out = {"vw": None if tree.get("vw") is None else [conv(v) for v in tree["vw"]]}
     if "qr" in tree:
         out["qr"] = [(conv(q), conv(r)) for q, r in tree["qr"]]
     if "md_proj" in tree:
         out["md_proj"] = [conv(w) for w in tree["md_proj"]]
+    if "dcn" in tree:
+        out["dcn"] = [tuple(conv(p) for p in layer) for layer in tree["dcn"]]
     return out
 
 

@@ -12,6 +12,13 @@ It mirrors the reference's random pipeline
     before unique-ification;
   * gaussian indices with clipping;
   * targets uniform in [0,1), optionally rounded (round_targets).
+
+With ``multi_hot_sizes`` (the port's own; DLRM-DCNv2's fixed bags) a batch
+is in the bag layout instead: ids [sum(h), B, 1], each of table t's
+``h_t`` slots uniform over its rows (repeats allowed, as the reference's
+synthetic multi-hot data has them), weights ones [sum(h), 1, 1] (a bag
+is unweighted and they are not read), the dense features and targets as
+above.
 """
 
 from __future__ import annotations
@@ -40,6 +47,8 @@ class RandomDataConfig:
     rand_data_sigma: float = 1.0
     round_targets: bool = False
     seed: int = 123
+    # fixed bag sizes per table: bags of uniform ids in the slot layout
+    multi_hot_sizes: Tuple[int, ...] = ()
 
 
 def _uniform_group(rng, n: int, l: int, fixed: bool) -> np.ndarray:
@@ -75,6 +84,8 @@ def make_random_batches(cfg: RandomDataConfig, seed: Optional[int] = None) -> Li
     all batches up front). The loop over T x B draws is Python, about 0.5 s
     per batch at B=2048 and 26 tables."""
     rng = np.random.RandomState(cfg.seed if seed is None else seed)
+    if cfg.multi_hot_sizes:
+        return _bag_batches(cfg, rng)
     t = len(cfg.emb_rows)
     b = cfg.mini_batch_size
     l = cfg.num_indices_per_lookup
@@ -98,6 +109,21 @@ def make_random_batches(cfg: RandomDataConfig, seed: Optional[int] = None) -> Li
         if cfg.round_targets:
             labels = np.round(labels).astype(np.float32)
         batches.append(Batch(dense, indices, weights, labels))
+    return batches
+
+
+def _bag_batches(cfg: RandomDataConfig, rng) -> List[Batch]:
+    b = cfg.mini_batch_size
+    rows = np.repeat(np.asarray(cfg.emb_rows, np.int64), cfg.multi_hot_sizes)
+    batches = []
+    for _ in range(cfg.num_batches):
+        dense = rng.random_sample((b, cfg.m_den)).astype(np.float32)
+        idx = (rng.random_sample((len(rows), b)) * rows[:, None]).astype(np.int64)
+        indices = np.minimum(idx, rows[:, None] - 1).astype(np.int32)[:, :, None]
+        labels = rng.random_sample((b, 1)).astype(np.float32)
+        if cfg.round_targets:
+            labels = np.round(labels).astype(np.float32)
+        batches.append(Batch(dense, indices, np.ones((len(rows), 1, 1), np.float32), labels))
     return batches
 
 

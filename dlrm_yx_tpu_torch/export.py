@@ -32,7 +32,7 @@ from typing import Dict
 
 import torch
 
-from dlrm_yx_tpu_torch.config import DLRMConfig
+from dlrm_yx_tpu_torch.config import DLRMConfig, refuse_dcn_and_bags
 from dlrm_yx_tpu_torch.models.dlrm import forward, model_groups
 from dlrm_yx_tpu_torch.utils.profiling import activities
 
@@ -55,7 +55,9 @@ def export_inference(params, config: DLRMConfig, batch_like, path: str) -> None:
     a sidecar ``path + ".json"`` with the batch shapes and the device type
     (``platforms``, as JAX records its platforms). ``batch_like`` gives the
     shapes of (dense, indices, weights); the program is traced on the
-    params' device at those static shapes."""
+    params' device at those static shapes. DLRM-DCNv2 (``dcn``, multi-hot
+    bags) raises ``NotImplementedError``."""
+    refuse_dcn_and_bags(config, "export")
     dev = params["emb"][0].device
     dense = torch.zeros(tuple(batch_like.dense.shape), dtype=torch.float32, device=dev)
     indices = torch.zeros(tuple(batch_like.indices.shape), dtype=torch.int32, device=dev)

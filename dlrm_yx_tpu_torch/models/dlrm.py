@@ -7,7 +7,8 @@ package's shape: parameters are a dict
      "emb": [store [total_rows, dim] per group, ...],
      "vw": [pooling weights [total_rows] per group, ...] or None,
      "qr": [(Q [q_rows, dim], R [collisions, dim]) per QR table]  (QR only),
-     "md_proj": [W [dim_t, base_dim] per MD table]                (MD only)}
+     "md_proj": [W [dim_t, base_dim] per MD table]                (MD only),
+     "dcn": [(V [N, r], W [r, N], b [N]) per cross layer]        (dcn only)}
 
 and the forward is split at the pooled-embedding boundary
 (``forward_from_pooled``) as it is there. ``DLRM`` is the ``nn.Module``
@@ -22,6 +23,17 @@ vector is up-projected to the base dim by ``md_proj``; weighted pooling
 weighs each looked-up row by ``vw`` (ones at init). The JAX package
 refuses learned pooling with QR tables, and QR or MD tables in
 ``init_dlrm_on_device``; the port refuses them too.
+
+DLRM-DCNv2 (the port's own): the ``dcn`` interaction sends the
+concatenated features through the cross network (``ops/dcn.py``, the span
+``dcn``), and fixed multi-hot bags (``config.multi_hot_sizes``) are
+looked up in the bag layout (``ops/embedding.lookup_bags``, the span
+``lookup.bags``). Each lookup counts its items: ``lookup.items`` (every
+item of the L=1 and bag layouts, all live) and ``lookup.pad_items`` (0
+there). The padded ``[T, B, L]`` layout gathers T * B * L slots, whose
+live ones its weights on the device mark; without a sync it counts one a
+bag as live and the other T * B * (L - 1) as padding, so the live share
+it gives is a floor.
 """
 
 from __future__ import annotations
@@ -33,10 +45,13 @@ import torch
 from torch import nn
 
 from dlrm_yx_tpu_torch.config import DLRMConfig
+from dlrm_yx_tpu_torch.ops.dcn import cross_net, init_dcn
 from dlrm_yx_tpu_torch.ops.embedding import (
     TableGroup,
+    bag_slots,
     build_table_groups,
     device_ints,
+    lookup_bags,
     lookup_group,
 )
 from dlrm_yx_tpu_torch.ops.interaction import interact_features
@@ -45,7 +60,7 @@ from dlrm_yx_tpu_torch.ops.md_embedding import init_md_projection
 from dlrm_yx_tpu_torch.ops.mlp import apply_mlp, init_mlp
 from dlrm_yx_tpu_torch.ops.qr_embedding import QRSpec, init_qr, qr_lookup
 from dlrm_yx_tpu_torch.utils.device import resolve_device
-from dlrm_yx_tpu_torch.utils.profiling import phase_scope
+from dlrm_yx_tpu_torch.utils.profiling import count, phase_scope
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # rows drawn per numpy call in init_dlrm: the draws are the same as one
@@ -98,7 +113,13 @@ def _dense_params(rng: np.random.RandomState, config: DLRMConfig,
                 for w, b in layers]
 
     bot = to_dev(init_mlp(rng, config.ln_bot))
-    return {"bot": bot, "top": to_dev(init_mlp(rng, config.ln_top))}
+    out = {"bot": bot, "top": to_dev(init_mlp(rng, config.ln_top))}
+    if config.interaction == "dcn":
+        # drawn after the towers, so the other leaves keep their draws
+        out["dcn"] = [tuple(torch.from_numpy(a).to(device) for a in layer)
+                      for layer in init_dcn(rng, config.ln_top[0], config.dcn_low_rank_dim,
+                                            config.dcn_num_layers)]
+    return out
 
 
 def init_dlrm(config: DLRMConfig, seed: int = 123,
@@ -206,6 +227,10 @@ class DLRM(nn.Module):
         self.qr_q = sparse([q for q, _ in params.get("qr", ())])
         self.qr_r = sparse([r for _, r in params.get("qr", ())])
         self.md_proj = nn.ParameterList(params.get("md_proj", ()))
+        dcn = params.get("dcn", ())
+        self.dcn_v = nn.ParameterList([v for v, _, _ in dcn])
+        self.dcn_w = nn.ParameterList([w for _, w, _ in dcn])
+        self.dcn_b = nn.ParameterList([b for _, _, b in dcn])
 
     def as_params(self) -> Dict:
         params = {
@@ -218,6 +243,8 @@ class DLRM(nn.Module):
             params["qr"] = list(zip(self.qr_q, self.qr_r))
         if len(self.md_proj):
             params["md_proj"] = list(self.md_proj)
+        if len(self.dcn_v):
+            params["dcn"] = list(zip(self.dcn_v, self.dcn_w, self.dcn_b))
         return params
 
     def forward(self, dense_x, indices, weights):
@@ -240,14 +267,31 @@ def lookup_all_groups(
     indices: torch.Tensor,
     weights: torch.Tensor,
     want_rows: bool = False,
+    hotness: Sequence[int] = (),
 ):
     """Pooled lookups for every group: [pooled_g [T_g, B, dim_g]]. With
     ``want_rows`` also the gathered rows per group ([T_g, B, dim_g] f32
-    for an L=1 group, else None), which the write-only sparse update
-    reuses. Weighted pooling weighs each row by the group's ``vw``."""
+    for an L=1 group, [S_g, B, dim_g] for a bag batch, else None), which
+    the write-only sparse update reuses. Weighted pooling weighs each row
+    by the group's ``vw``. ``hotness``: the fixed bag sizes of a bag batch
+    ([S, B, 1] ids; ``config.multi_hot_sizes``), or () for [T, B, L]."""
     vw = params.get("vw")
     pooled, rows = [], []
+    bags = bag_slots(groups, hotness)
+    t_all, b, l = indices.shape
+    # the padded layout's live items are in its weights on the device: it
+    # counts a bag's first slot as live and its other l - 1 as padding
+    count("lookup.items", t_all * b)
+    count("lookup.pad_items", 0 if bags is not None else t_all * b * (l - 1))
     with phase_scope("embedding_lookup"):
+        if bags is not None:
+            with phase_scope("lookup.bags"):
+                for gi, g in enumerate(groups):
+                    res = lookup_bags(params["emb"][gi], g, bags[gi], indices,
+                                      return_rows=want_rows)
+                    pooled.append(res[0] if want_rows else res)
+                    rows.append(res[1] if want_rows else None)
+            return (pooled, rows) if want_rows else pooled
         for gi, g in enumerate(groups):
             idx_g = group_indices(g, indices)
             rows_ok = want_rows and idx_g.shape[2] == 1
@@ -325,17 +369,22 @@ def forward_from_pooled(
 ) -> torch.Tensor:
     """bottom MLP + interaction + top MLP from pooled embeddings (groups'
     and QR tables') -> logits. Differentiable with respect to the dense
-    params (the MD projections among them) and the pooled tensors; the
-    stores are reached only through the sparse update."""
+    params (the MD projections and the cross layers among them) and the
+    pooled tensors; the stores are reached only through the sparse
+    update."""
     cdt = DTYPES[config.compute_dtype]
     with phase_scope("bottom_mlp"):
         x = apply_mlp(dense_x, params["bot"], config.sigmoid_bot, cdt)
     ly = assemble_slots(pooled_list, groups, config, qr_pooled, params.get("md_proj"))
-    with phase_scope("interaction"):
-        z = interact_features(
-            x, ly, config.interaction, config.interact_itself, cdt,
-            impl=config.interaction_impl,
-        )
+    if config.interaction == "dcn":
+        with phase_scope("dcn"):
+            z = cross_net(interact_features(x, ly, "cat"), params["dcn"], cdt)
+    else:
+        with phase_scope("interaction"):
+            z = interact_features(
+                x, ly, config.interaction, config.interact_itself, cdt,
+                impl=config.interaction_impl,
+            )
     # logits: the reference's top sigmoid is folded into loss / prediction
     with phase_scope("top_mlp"):
         return apply_mlp(
@@ -351,7 +400,8 @@ def forward_logits(
     indices: torch.Tensor,
     weights: torch.Tensor,
 ) -> torch.Tensor:
-    pooled = lookup_all_groups(params, groups, indices, weights)
+    pooled = lookup_all_groups(params, groups, indices, weights,
+                               hotness=config.multi_hot_sizes)
     qr_pooled = qr_lookup_all(params, config, indices, weights) if config.qr_table_ids else ()
     return forward_from_pooled(params, config, groups, dense_x, pooled, qr_pooled)
 

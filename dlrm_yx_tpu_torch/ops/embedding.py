@@ -13,6 +13,19 @@ Weighted pooling (the reference's per-row pooling weights v_W,
 in the lookup and in its row gradients; ``vw_row_grads`` gives the
 gradient of a learned ``vw``.
 
+Fixed multi-hot bags (the port's own, for DLRM-DCNv2's
+``--multi-hot-sizes``): table t takes ``h_t`` ids a sample, every one
+live. A batch holds them as ``[sum(h), B, 1]`` slots, table t's ``h_t``
+slots in a row (``DLRMConfig.slot_tables``), so a group's lookup is the
+L=1 gather over its slots, each at its table's row offset, and its pooled
+vectors the sum of each table's slots (``lookup_bags``: a table's slots
+are adjacent, so one reduction over each table's run of slots, a repeated
+id counted each time, as ``EmbeddingBag(mode="sum")``). The row gradients
+are the pooled cotangent taken back to the slots (``bag_row_grads``), one
+item a slot and sample: no padding, and the rows the lookup gathered serve
+the write-only update as at L=1. The bag layout's ``weights`` are not
+read: a bag is unweighted.
+
 Stores: the JAX package keeps sub-128 dims in a packed physical layout
 ``[total_rows/pack, 128]``, which is a pure row-major reshape of the logical
 ``[total_rows, dim]`` rows (``pack_store`` / ``unpack_store``). The port
@@ -70,6 +83,48 @@ class TableGroup:
     def store_shape(self) -> Tuple[int, int]:
         """Physical shape of the JAX package's store of this group."""
         return (self.total_rows // self.pack, self.dim * self.pack)
+
+
+@dataclasses.dataclass(frozen=True)
+class BagSlots:
+    """A group's tables in the bag layout.
+
+    slots: the batch's slots of the group's tables, in group order.
+    offsets: each slot's store row offset (its table's).
+    owner: each slot's table, as its position in the group.
+    sizes: each of the group's tables' bag size (its run of adjacent slots).
+    """
+
+    slots: Tuple[int, ...]
+    offsets: Tuple[int, ...]
+    owner: Tuple[int, ...]
+    sizes: Tuple[int, ...]
+
+
+@functools.lru_cache(maxsize=64)
+def _bag_slots(groups: Tuple[TableGroup, ...], hotness: Tuple[int, ...]):
+    first = [0]
+    for h in hotness:
+        first.append(first[-1] + h)
+    out = []
+    for g in groups:
+        slots, offsets, owner = [], [], []
+        for i, (t, off) in enumerate(zip(g.table_ids, g.row_offsets)):
+            for s in range(first[t], first[t + 1]):
+                slots.append(s)
+                offsets.append(off)
+                owner.append(i)
+        out.append(BagSlots(tuple(slots), tuple(offsets), tuple(owner),
+                            tuple(hotness[t] for t in g.table_ids)))
+    return tuple(out)
+
+
+def bag_slots(groups: Sequence[TableGroup], hotness: Sequence[int]):
+    """Each group's ``BagSlots`` for the fixed bag sizes ``hotness`` (one a
+    table, canonical order), or None for the ``[T, B, L]`` layout."""
+    if not hotness:
+        return None
+    return _bag_slots(tuple(groups), tuple(int(h) for h in hotness))
 
 
 def dim_pack(d: int) -> int:
@@ -189,6 +244,37 @@ def lookup_group(
         pooled = r1 * w[:, :, 0, None]
         return (pooled, r1) if return_rows else pooled
     return (w[..., None] * rows).sum(dim=2)
+
+
+def bag_global_ids(bags: BagSlots, indices: torch.Tensor) -> torch.Tensor:
+    """Store rows [S_g, B] of the group's slots of a bag batch's ids [S, B, 1]."""
+    ids = indices[:, :, 0]
+    if bags.slots != tuple(range(indices.shape[0])):
+        ids = ids.index_select(0, device_ints(bags.slots, indices.device))
+    return ids + device_ints(bags.offsets, indices.device)[:, None]
+
+
+def lookup_bags(store: torch.Tensor, group: TableGroup, bags: BagSlots,
+                indices: torch.Tensor, return_rows: bool = False):
+    """Pooled sums of the group's bags: ids [S, B, 1] of every slot ->
+    pooled [T_g, B, dim] f32, each table's slots summed in f32. With
+    ``return_rows`` also the gathered rows [S_g, B, dim] f32, the rows the
+    update overwrites."""
+    gidx = bag_global_ids(bags, indices)
+    s, b = gidx.shape
+    rows = gather_rows(store, gidx.reshape(-1)).float().reshape(s, b, group.dim)
+    # a table's slots are adjacent: one sum over each table's run of slots
+    pooled = torch.stack([r.sum(dim=0) for r in rows.split(bags.sizes, dim=0)])
+    return (pooled, rows) if return_rows else pooled
+
+
+def bag_row_grads(bags: BagSlots, indices: torch.Tensor, g_pooled: torch.Tensor):
+    """The pooled cotangent [T_g, B, dim] taken back to the group's bag
+    items: (flat_idx [S_g * B] store rows, flat_g [S_g * B, dim] f32), one
+    item a slot and sample, none padded."""
+    gidx = bag_global_ids(bags, indices)
+    g = g_pooled.float().index_select(0, device_ints(bags.owner, g_pooled.device))
+    return gidx.reshape(-1), g.reshape(-1, g_pooled.shape[-1])
 
 
 def _pad_l_sublane(gidx: torch.Tensor, w: torch.Tensor, fill_idx: int):

@@ -38,7 +38,7 @@ from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 
-from dlrm_yx_tpu_torch.config import DLRMConfig
+from dlrm_yx_tpu_torch.config import DLRMConfig, refuse_dcn_and_bags
 from dlrm_yx_tpu_torch.models.dlrm import assemble_slots, forward_from_pooled, group_indices
 from dlrm_yx_tpu_torch.ops.embedding import TableGroup, device_ints
 from dlrm_yx_tpu_torch.ops.interaction import interact_features
@@ -246,7 +246,9 @@ def make_fully_quantized_eval_step(
     whatever the model's compute dtype and interaction impl; slots are
     assembled without QR pooled vectors or MD projections, so a QR model
     raises ``KeyError`` and a mixed-dimension one ``TypeError`` there, as
-    in the JAX package (ROADMAP Queue C)."""
+    in the JAX package (ROADMAP Queue C). DLRM-DCNv2 (``dcn``, multi-hot
+    bags) raises ``NotImplementedError``."""
+    refuse_dcn_and_bags(config, "quantized serving")
     dev = resolve_device(device)
 
     def body(params, b):
@@ -275,7 +277,9 @@ def make_quantized_eval_step(
 ):
     """Inference with quantized tables and the model's float towers, at its
     compute dtype and interaction impl (``forward_from_pooled``):
-    eval(params, batch) -> predictions [B, 1]."""
+    eval(params, batch) -> predictions [B, 1]. DLRM-DCNv2 (``dcn``,
+    multi-hot bags) raises ``NotImplementedError``."""
+    refuse_dcn_and_bags(config, "quantized serving")
     dev = resolve_device(device)
 
     def body(params, b):

@@ -98,7 +98,7 @@ def acc_len(total_rows: int) -> int:
 
 def init_opt_state(opt: OptConfig, params: Dict, groups: Sequence[TableGroup]) -> Dict:
     """SGD: empty. Adagrad: per-element sums everywhere. RWSAdagrad:
-    per-element sums for the MLPs and MD projections, one per row
+    per-element sums for the MLPs, MD projections and cross layers, one per row
     (``acc_len`` long) for the stores, one per row (unpadded) for each QR
     sub-table. Learned or fixed pooling weights ``vw`` get per-entry sums.
     Zeros on the params' device, with the JAX package's keys."""
@@ -128,6 +128,8 @@ def init_opt_state(opt: OptConfig, params: Dict, groups: Sequence[TableGroup]) -
                            for q, r in params["qr"]]
     if "md_proj" in params:
         state["md_proj"] = [torch.zeros_like(w) for w in params["md_proj"]]
+    if "dcn" in params:
+        state["dcn"] = [tuple(torch.zeros_like(p) for p in layer) for layer in params["dcn"]]
     return state
 
 
@@ -154,7 +156,9 @@ def update_dense_towers(opt: OptConfig, params: Dict, opt_state: Dict, g_dense: 
                         lr: Scalar) -> None:
     """``dense_update`` of the bottom and top MLPs and, where ``g_dense``
     has them, the MD projections (dense params too: the reference's
-    ``PrEmbeddingBag`` Linear), in place."""
+    ``PrEmbeddingBag`` Linear) and DLRM-DCNv2's cross layers (Adagrad on
+    them under RWSAdagrad, as the MLPerf reference's ``torch.optim.Adagrad``
+    on every dense param), in place."""
     def flat(tree):
         return [t for k in ("bot", "top") for pair in tree[k] for t in pair]
 
@@ -164,6 +168,13 @@ def update_dense_towers(opt: OptConfig, params: Dict, opt_state: Dict, g_dense: 
         ps, gs = ps + list(params["md_proj"]), gs + list(g_dense["md_proj"])
         if accs is not None:
             accs = accs + list(opt_state["md_proj"])
+    if "dcn" in g_dense:
+        def layers(tree):
+            return [p for layer in tree for p in layer]
+
+        ps, gs = ps + layers(params["dcn"]), gs + layers(g_dense["dcn"])
+        if accs is not None:
+            accs = accs + layers(opt_state["dcn"])
     dense_update(opt, ps, gs, accs, lr)
 
 

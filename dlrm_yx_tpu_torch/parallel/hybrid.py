@@ -59,7 +59,7 @@ from typing import Dict, List, Optional, Union
 import numpy as np
 import torch
 
-from dlrm_yx_tpu_torch.config import DLRMConfig
+from dlrm_yx_tpu_torch.config import DLRMConfig, refuse_dcn_and_bags
 from dlrm_yx_tpu_torch.data.batch import Batch
 from dlrm_yx_tpu_torch.models.dlrm import (
     _INIT_CHUNK_ROWS,
@@ -975,6 +975,7 @@ class HybridRunner(MeshRunner):
                  lr_fn=None, seed: int = 123, n_accum: int = 1,
                  device: Optional[Union[str, torch.device]] = None,
                  params: Optional[Dict] = None):
+        refuse_dcn_and_bags(config, "HybridRunner")
         self.config = config
         self.opt = opt
         self._lr_fn = lr_fn

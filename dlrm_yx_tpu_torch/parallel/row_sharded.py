@@ -49,7 +49,7 @@ from typing import Dict, List, Optional, Union
 import numpy as np
 import torch
 
-from dlrm_yx_tpu_torch.config import DLRMConfig
+from dlrm_yx_tpu_torch.config import DLRMConfig, refuse_dcn_and_bags
 from dlrm_yx_tpu_torch.convert import _array, _tensor, _towers
 from dlrm_yx_tpu_torch.data.batch import Batch
 from dlrm_yx_tpu_torch.models.dlrm import _INIT_CHUNK_ROWS, DTYPES, _dense_params, model_groups
@@ -908,6 +908,7 @@ class ShardedRunner(MeshRunner):
                  model: Optional[int] = None, lr_fn=None, seed: int = 123, n_accum: int = 1,
                  device: Optional[Union[str, torch.device]] = None,
                  params: Optional[Dict] = None):
+        refuse_dcn_and_bags(config, type(self).__name__)
         self.config, self.opt, self._lr_fn = config, opt, lr_fn
         self.n_accum = max(1, n_accum)
         self.mesh = make_mesh(data, model, device)

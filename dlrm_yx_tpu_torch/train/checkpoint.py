@@ -9,10 +9,12 @@ forward to the saved (epoch, batch) position (``skip_position``).
 
 The files cross-load with the JAX package's. The leaves are written in the
 order of ``jax.tree.flatten`` over JAX's pytrees (dict keys sorted, lists in
-order, ``None`` no leaf): params ``bot`` (W, b)…, ``emb`` stores…,
-``md_proj`` projections…, ``qr`` (Q, R) per QR table…, ``top`` (W, b)…,
-``vw`` pooling weights… (the last three where the model has them);
-optimizer state ``dense.bot`` (aw, ab)…, ``dense.top``…, ``emb``
+order, ``None`` no leaf): params ``bot`` (W, b)…, ``dcn`` (V, W, b) per
+cross layer…, ``emb`` stores…, ``md_proj`` projections…, ``qr`` (Q, R)
+per QR table…, ``top`` (W, b)…, ``vw`` pooling weights… (``dcn``,
+``md_proj``, ``qr`` and ``vw`` where the model has them; ``dcn``,
+DLRM-DCNv2's, has no JAX counterpart); optimizer state ``dcn``
+accumulators…, ``dense.bot`` (aw, ab)…, ``dense.top``…, ``emb``
 accumulators…, then ``md_proj``, ``qr`` and ``vw`` accumulators likewise;
 SGD has none. Each in JAX's physical layout
 (``convert.params_to_jax``): a store of a dim below 128 that divides it

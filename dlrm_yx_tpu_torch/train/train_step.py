@@ -29,6 +29,13 @@ place, so every row gradient that reads a table (``qr_row_grads``,
 ``vw_row_grads``) is taken before that table is updated, as the JAX
 package's functional step takes them from the tables before the step.
 
+DLRM-DCNv2's parts: the cross layers (``params["dcn"]``) are dense params,
+differentiated and updated with the towers; a batch of fixed multi-hot
+bags (``config.multi_hot_sizes``) takes the bag lookup and gives one row
+gradient a bag item (``ops/embedding.bag_row_grads``) with the rows the
+lookup gathered, so it keeps the write-only update; it never takes the
+sorted-stream route, whose layout is ``[T, B, L]``.
+
 Every update is in place: a step returns the params and optimizer state it
 was given, updated. Nothing in a step waits for the device; losses come
 back as device tensors.
@@ -60,7 +67,13 @@ from dlrm_yx_tpu_torch.models.dlrm import (
     qr_lookup_all,
     qr_specs,
 )
-from dlrm_yx_tpu_torch.ops.embedding import flat_row_grads, global_row_ids, vw_row_grads
+from dlrm_yx_tpu_torch.ops.embedding import (
+    bag_row_grads,
+    bag_slots,
+    flat_row_grads,
+    global_row_ids,
+    vw_row_grads,
+)
 from dlrm_yx_tpu_torch.ops.losses import loss_fn, predictions_from_logits
 from dlrm_yx_tpu_torch.ops.qr_embedding import qr_row_grads
 from dlrm_yx_tpu_torch.optim.optimizer import (
@@ -107,11 +120,34 @@ def _update_vw(opt: OptConfig, params: Dict, opt_state: Dict, gi: int, g, vidx, 
                      vidx, vg, lr, g.total_rows)
 
 
+def _sparse_update(config: DLRMConfig, opt: OptConfig, store, acc, g, fidx, fg, lr, sr_seed,
+                   old_rows, finish) -> None:
+    """``sparse_update`` of a group store with the config's routing."""
+    sparse_update(
+        opt, store, acc, fidx, fg, lr, g.total_rows,
+        impl=config.sparse_update_impl,
+        stochastic_round=config.stochastic_rounding, sr_seed=sr_seed,
+        size_class=g.size_class, dim=g.dim,
+        exact_momentum=config.exact_row_momentum,
+        old_rows=old_rows, density_hint=config.dup_density_hint, finish=finish,
+    )
+
+
+def _row_grads(config: DLRMConfig, groups, gi: int, batch, g_pooled, vw_g):
+    """The flat row gradients (ids [K], grads [K, dim]) of group ``gi``."""
+    bags = bag_slots(groups, config.multi_hot_sizes)
+    if bags is not None:
+        return bag_row_grads(bags[gi], batch.indices, g_pooled)
+    g = groups[gi]
+    return flat_row_grads(g, group_indices(g, batch.indices), group_indices(g, batch.weights),
+                          g_pooled, vw_g)
+
+
 @torch.no_grad()
 def apply_gradients(config: DLRMConfig, opt: OptConfig, groups, params: Dict,
                     opt_state: Dict, batch, g_dense: Dict, g_pooled, lr,
                     raw_rows=None, sr_seed=0, g_qr_pooled=()) -> None:
-    """Dense updates of the MLPs (and MD projections) and sparse row updates
+    """Dense updates of the MLPs (and MD projections, cross layers) and sparse row updates
     of every group store (and QR sub-table, and learned pooling weights)
     from the pooled cotangents, in place. lr: a float or a 0-dim f32 device
     tensor; raw_rows: per-group rows gathered by the forward lookup (L=1
@@ -131,10 +167,20 @@ def apply_gradients(config: DLRMConfig, opt: OptConfig, groups, params: Dict,
                        _qr_grads(config, params, batch.indices, batch.weights, g_qr_pooled), lr,
                        dense)
         vw = params.get("vw")
+        bags = bag_slots(groups, config.multi_hot_sizes)
         for gi, g in enumerate(groups):
+            store = params["emb"][gi]
+            acc = opt_state["emb"][gi] if opt.name != "sgd" else None
+            if bags is not None:
+                fidx, fg = _row_grads(config, groups, gi, batch, g_pooled[gi], None)
+                old_rows = None
+                if raw_rows is not None and raw_rows[gi] is not None:
+                    old_rows = raw_rows[gi].reshape(-1, g.dim)
+                _sparse_update(config, opt, store, acc, g, fidx, fg, lr, sr_seed, old_rows,
+                               dense)
+                continue
             idx_g = group_indices(g, batch.indices)
             w_g = group_indices(g, batch.weights)
-            store = params["emb"][gi]
             vw_g = None if vw is None else vw[gi]
             vw_grads = None
             if config.weighted_pooling == "learned":
@@ -149,7 +195,6 @@ def apply_gradients(config: DLRMConfig, opt: OptConfig, groups, params: Dict,
                 and not config.stochastic_rounding
                 and t * b * l * DENSE_ACCUM_FACTOR >= g.total_rows // g.pack
             )
-            acc = opt_state["emb"][gi] if opt.name != "sgd" else None
             if use_stream:
                 # SGD is exact on both routes, so 'pallas' sends its dense
                 # regime through the sorted stream as well
@@ -163,29 +208,27 @@ def apply_gradients(config: DLRMConfig, opt: OptConfig, groups, params: Dict,
                 old_rows = None
                 if raw_rows is not None and raw_rows[gi] is not None:
                     old_rows = raw_rows[gi].reshape(t * b, g.dim)
-                sparse_update(
-                    opt, store, acc, fidx, fg, lr, g.total_rows,
-                    impl=config.sparse_update_impl,
-                    stochastic_round=config.stochastic_rounding, sr_seed=sr_seed,
-                    size_class=g.size_class, dim=g.dim,
-                    exact_momentum=config.exact_row_momentum,
-                    old_rows=old_rows, density_hint=config.dup_density_hint, finish=dense,
-                )
+                _sparse_update(config, opt, store, acc, g, fidx, fg, lr, sr_seed, old_rows,
+                               dense)
             if vw_grads is not None:
                 _update_vw(opt, params, opt_state, gi, g, *vw_grads, lr)
         finish_dense(dense, lr, opt.eps)
 
 
 def _dense_grads(config: DLRMConfig, groups, params: Dict, b: Batch, pooled, qr_pooled=()):
-    """(loss, dense grads {"bot", "top"[, "md_proj"]}, pooled grads, QR
-    pooled grads) of one batch: the dense graph differentiated with
-    respect to the MLPs, the MD projections and the pooled vectors."""
+    """(loss, dense grads {"bot", "top"[, "md_proj"][, "dcn"]}, pooled
+    grads, QR pooled grads) of one batch: the dense graph differentiated
+    with respect to the MLPs, the MD projections, the cross layers and the
+    pooled vectors."""
     pooled = [p.requires_grad_() for p in pooled]
     qr_pooled = [p.requires_grad_() for p in qr_pooled]
     dense = {k: [(w.detach().requires_grad_(), c.detach().requires_grad_())
                  for w, c in params[k]] for k in ("bot", "top")}
     if "md_proj" in params:
         dense["md_proj"] = [w.detach().requires_grad_() for w in params["md_proj"]]
+    if "dcn" in params:
+        dense["dcn"] = [tuple(p.detach().requires_grad_() for p in layer)
+                        for layer in params["dcn"]]
     with torch.enable_grad():
         logits = forward_from_pooled({**params, **dense}, config, groups, b.dense, pooled,
                                      qr_pooled)
@@ -194,12 +237,15 @@ def _dense_grads(config: DLRMConfig, groups, params: Dict, b: Batch, pooled, qr_
                            config.wbce_weights)
     leaves = [t for k in ("bot", "top") for pair in dense[k] for t in pair]
     leaves += dense.get("md_proj", [])
+    leaves += [p for layer in dense.get("dcn", []) for p in layer]
     with phase_scope("backward"):
         grads = torch.autograd.grad(loss, leaves + pooled + qr_pooled)
     it = iter(grads)
     g_dense = {k: [(next(it), next(it)) for _ in params[k]] for k in ("bot", "top")}
     if "md_proj" in params:
         g_dense["md_proj"] = [next(it) for _ in params["md_proj"]]
+    if "dcn" in params:
+        g_dense["dcn"] = [tuple(next(it) for _ in layer) for layer in params["dcn"]]
     g_pooled = [next(it) for _ in pooled]
     return loss.detach(), g_dense, g_pooled, list(it)
 
@@ -208,11 +254,12 @@ def _lookups(config: DLRMConfig, groups, params: Dict, b: Batch, want_rows: bool
     """(pooled per group, QR pooled, rows per group or None) of one batch,
     outside autograd."""
     with torch.no_grad():
+        hot = config.multi_hot_sizes
         if want_rows:
             pooled, raw_rows = lookup_all_groups(params, groups, b.indices, b.weights,
-                                                 want_rows=True)
+                                                 want_rows=True, hotness=hot)
         else:
-            pooled = lookup_all_groups(params, groups, b.indices, b.weights)
+            pooled = lookup_all_groups(params, groups, b.indices, b.weights, hotness=hot)
             raw_rows = None
         qr_pooled = (qr_lookup_all(params, config, b.indices, b.weights)
                      if config.qr_table_ids else [])
@@ -367,8 +414,8 @@ def make_accum_train_step(config: DLRMConfig, opt: OptConfig, n_accum: int,
     def body(params, opt_state, batches, lrs, seeds):
         lr, seed = lrs[0], seeds[0]
         vw = params.get("vw")
-        g_sum = {k: [(torch.zeros_like(w), torch.zeros_like(c)) for w, c in params[k]]
-                 for k in ("bot", "top")}
+        g_sum = {k: [tuple(torch.zeros_like(p) for p in layer) for layer in params[k]]
+                 for k in ("bot", "top", "dcn") if k in params}
         if "md_proj" in params:
             g_sum["md_proj"] = [torch.zeros_like(w) for w in params["md_proj"]]
         loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
@@ -382,18 +429,18 @@ def make_accum_train_step(config: DLRMConfig, opt: OptConfig, n_accum: int,
                                                          qr_pooled)
             with torch.no_grad():
                 # every micro-batch's row grads come from the tables before the step
-                g_sum = {k: [(s[0] + g[0], s[1] + g[1]) if isinstance(s, tuple) else s + g
-                             for s, g in zip(g_sum[k], g_dense[k])] for k in g_sum}
+                g_sum = {k: [tuple(a + c for a, c in zip(s, g)) if isinstance(s, tuple)
+                             else s + g for s, g in zip(g_sum[k], g_dense[k])] for k in g_sum}
                 loss_sum = loss_sum + loss
                 for acc, g in zip(g_qr_all, g_qr):
                     acc.append(g)
                 for gi, g in enumerate(groups):
-                    idx_g, w_g = group_indices(g, b.indices), group_indices(g, b.weights)
-                    fidx, fg = flat_row_grads(g, idx_g, w_g, g_pooled[gi],
-                                              None if vw is None else vw[gi])
+                    fidx, fg = _row_grads(config, groups, gi, b, g_pooled[gi],
+                                          None if vw is None else vw[gi])
                     fidx_all[gi].append(fidx)
                     fg_all[gi].append(fg)
                     if learned:
+                        idx_g, w_g = group_indices(g, b.indices), group_indices(g, b.weights)
                         vidx, vg = vw_row_grads(g, params["emb"][gi], idx_g, w_g, g_pooled[gi])
                         vidx_all[gi].append(vidx)
                         vg_all[gi].append(vg)

@@ -5,7 +5,9 @@
 ``RecordFunction``) around a phase of the model (the JAX package's names:
 ``embedding_lookup``, ``bottom_mlp``, ``interaction``, ``top_mlp``,
 ``loss_compute``, ``backward``, ``optimizer``, so traces of the two
-packages name the same phases) or a step of the host path
+packages name the same phases; the port's own ``dcn``, DLRM-DCNv2's cross
+network, and ``lookup.bags``, its multi-hot bag lookup inside
+``embedding_lookup``) or a step of the host path
 (``fit.wait_batch``, ``step.replay``, ...: ``train/trainer.py``,
 ``train/capture.py``). Its start and end are on the profiler's clock, the
 clock of the card's kernels and copies in the same session. ``req`` goes
@@ -26,7 +28,9 @@ profiler recording, ``phase_scope`` returns after one check of
 capture records nothing at replay: replays show only the spans around
 them.
 
-``count(name, n)`` adds to a counter of the calling thread (0.34 us), and
+``count(name, n)`` adds to a counter of the calling thread (0.34 us;
+the model's lookups count ``lookup.items`` and ``lookup.pad_items``,
+``models/dlrm.lookup_all_groups``), and
 ``counters()`` returns a snapshot over every thread, with the kernel
 wrappers' ``.launches`` (``train.capture.launch_counters``) as
 ``launch.<kernel>``, the caching allocators' totals as ``alloc.host``

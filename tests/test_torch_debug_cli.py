@@ -72,9 +72,11 @@ def test_only_the_mesh_flags_are_left_unported():
 
     jax_args = vars(jax_parser().parse_args([]))
     port_args = vars(port_cli.build_parser().parse_args([]))
-    # every JAX flag is declared (the port adds --device), and every shard
-    # mode runs with a mesh (row and column sharding were the last)
-    assert set(port_args) - set(jax_args) == {"device"}
+    # every JAX flag is declared (the port adds --device and DLRM-DCNv2's
+    # flags, a model the JAX package does not have), and every shard mode
+    # runs with a mesh (row and column sharding were the last)
+    assert set(port_args) - set(jax_args) == {"device", "dcn_num_layers", "dcn_low_rank_dim",
+                                              "multi_hot_sizes"}
     assert set(jax_args) <= set(port_args)
     for mode in ("table", "row", "col"):
         port_cli.check_ported(port_cli.build_parser().parse_args(
