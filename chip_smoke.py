@@ -25,6 +25,10 @@ no result):
      K on one row, a skewed stream, no active item, K=1, K=32,768), each
      against the plain version run on the CPU over the touched rows (where
      ``index_add_`` adds in item order, as the kernel does), with its time;
+     then K7 (``ops/coalesce.py``) on one step's big-store bag items of the
+     DLRM-DCNv2 cell (the benchmark's generator): RWSAdagrad's
+     coalesce-first route (sort, K7a, K4, K7b, K2) against the torch route
+     it replaced, K7a twice bit for bit, its counts;
   f. kernel: K5 (sorted_stream_apply) and K6 (sorted_stream_add) against
      their plain versions on the reference benchmark's store (8 x 1M rows
      x 64 f32) with one device batch's sorted occurrences (K5 at batch 2048,
@@ -1967,6 +1971,124 @@ def check_rows_add_kernel(cap_big, big):
 
 GRAPH_NODE_KINDS = ("KERNEL", "MEMSET", "MEMCPY", "HOST", "EMPTY", "MEM_ALLOC", "MEM_FREE",
                     "EVENT_RECORD", "WAIT_EVENT", "CONDITIONAL", "GRAPH")
+
+
+DCN_CELL = "dcn25m-train-multihot-zipf"
+DCN_SPREAD_ROWS = 1 << 26  # past ACC_KERNEL_MIN_BYTES: the momentum takes K4, as in the cell
+
+
+def dcn_step_items(seed=1):
+    """One step's big-store bag items of the DLRM-DCNv2 cell on the card:
+    (flat_idx [K] int32, as the step's, a ``BagRowGrads`` over a random pooled cotangent
+    [T_g * B, 128] of scale 1e-3, store rows). The ids are the benchmark's
+    draw (``benchmark.train_dcn.make_bag_batches`` from ``seed``), their
+    distinct rows spread at random over DCN_SPREAD_ROWS rows: the cell's
+    runs, in a store about half the cell's big store."""
+    import torch
+
+    from benchmark.common import Bench, program_config
+    from benchmark.reference_dcn import model_shape
+    from benchmark.train_dcn import make_bag_batches
+    from dlrm_yx_tpu_torch.models.dlrm import model_groups
+    from dlrm_yx_tpu_torch.ops.embedding import bag_row_grads, bag_slots
+
+    cell = Bench().cell(DCN_CELL)
+    _, cfg = program_config(cell.config)
+    shape = model_shape(cell.config)
+    ((_, ids, _, _),) = make_bag_batches(cell.mix, shape, 1, seed, "cuda")
+    groups = model_groups(cfg)
+    gi = next(i for i, g in enumerate(groups) if g.size_class == 1)
+    bags = bag_slots(groups, cfg.multi_hot_sizes)[gi]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    g_pooled = torch.randn(len(bags.sizes), shape["batch"], groups[gi].dim, device="cuda",
+                           generator=gen) * 1e-3
+    flat_idx, grads = bag_row_grads(bags, torch.from_numpy(ids).cuda(), g_pooled, expand=False)
+    uniq, inv = torch.unique(flat_idx.long(), return_inverse=True)
+    rows = torch.randperm(DCN_SPREAD_ROWS, device="cuda", generator=gen)[:uniq.numel()]
+    return rows[inv].to(torch.int32), grads, DCN_SPREAD_ROWS + 16
+
+
+def torch_coalesce_route(store, acc, flat_idx, flat_g, old_rows, lr, sentinel, eps=1e-10):
+    """RWSAdagrad's coalesce-first write-only update as the optimizer took
+    it before K7, in place: the plain coalesce with the gathered rows by
+    representative, the momentum (K4 past ACC_KERNEL_MIN_BYTES) and the
+    finish on every item, K2."""
+    import torch
+
+    from dlrm_yx_tpu_torch.ops.coalesce import coalesce_rows_reference
+    from dlrm_yx_tpu_torch.ops.sparse_rows_overwrite import sparse_rows_overwrite
+    from dlrm_yx_tpu_torch.optim import optimizer as opt_mod
+
+    flat_idx, flat_g, old_rows = coalesce_rows_reference(flat_idx, flat_g, sentinel,
+                                                         aux=old_rows)
+    active = (flat_idx < sentinel).to(torch.int32)
+    safe = torch.where(active > 0, flat_idx, sentinel)
+    mom_inc = ((flat_g * flat_g).sum(dim=-1) / store.shape[1]) * active
+    opt_mod._acc_update_1d(acc, flat_idx, mom_inc, active, sentinel, "pallas")
+    denom = opt_mod._take_fill(acc, safe, 1.0, sentinel).sqrt() + eps
+    delta = -lr * flat_g / denom[:, None]
+    sparse_rows_overwrite(store, flat_idx, old_rows + delta, delta, active)
+    return store, acc
+
+
+def check_coalesce_route():
+    """Phase a, K7: ``optimizer._coalesced_overwrite`` (sort, K7a, K4, K7b,
+    K2) on one step of the DLRM-DCNv2 cell's big-store items against
+    ``torch_coalesce_route`` on the same inputs: the store to f32's rtol
+    1e-5 / atol 1e-6, the momentum to rtol 1e-4 (each side's sums of up to
+    ~87,000 items a row round in their own order, a few 1e-7 of the sum of
+    |g| apart; a dropped or doubled item moves a row's momentum by 1e-5 of
+    it or more); K7a twice bit for bit; ``coalesce.kernel`` once a call and
+    ``coalesce.rows`` the step's distinct rows."""
+    import torch
+
+    from dlrm_yx_tpu_torch.ops.coalesce import coalesce_segments
+    from dlrm_yx_tpu_torch.optim import optimizer as opt_mod
+    from dlrm_yx_tpu_torch.optim.optimizer import OptConfig, acc_len
+    from dlrm_yx_tpu_torch.utils.profiling import counter_deltas, counters
+
+    flat_idx, grads, rows = dcn_step_items(1)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    store = torch.rand(rows, 128, device="cuda", generator=gen) * 0.1 - 0.05
+    acc = torch.rand(acc_len(rows), device="cuda", generator=gen) * 0.1
+    old = store.index_select(0, flat_idx)
+    lr = torch.tensor(0.005, device="cuda")
+    opt = OptConfig("rwsadagrad", 0.005)
+    uniq = torch.unique(flat_idx.long())
+    n_rows = uniq.numel()
+    before = counters()
+    one = coalesce_segments(flat_idx, grads, rows, mdim=128, zero_tail=True)
+    two = coalesce_segments(flat_idx, grads, rows, mdim=128, zero_tail=True)
+    torch.cuda.synchronize()
+    moved = counter_deltas(before, counters())
+    if moved.get("coalesce.kernel") != 2 or moved.get("coalesce.rows") != 2 * n_rows:
+        fail(f"K7a: counted {moved} for two calls on {n_rows} distinct rows")
+    for a, b in zip(one, two):
+        if not torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8)):
+            fail("K7a: two calls on the same items differ")
+    split = moved.get("coalesce.split_runs", 0) // 2
+    del one, two
+    # each route on the same store in turn (a copy of it would not fit):
+    # only the touched rows and the momentum change, and are put back
+    pre, acc0 = store[uniq], acc.clone()
+    torch_coalesce_route(store, acc, flat_idx, grads.expand(), old, lr, rows)
+    want_s, want_a = store[uniq], acc.clone()
+    store[uniq] = pre
+    acc.copy_(acc0)
+    opt_mod._coalesced_overwrite(opt, store, acc, flat_idx, grads, lr, rows, "pallas", old)
+    got_s, got_a = store[uniq], acc
+    torch.cuda.synchronize()
+    if not torch.allclose(got_s, want_s, rtol=1e-5, atol=1e-6):
+        fail(f"K7 route: store off the torch route by {(got_s - want_s).abs().max().item()}")
+    if not torch.allclose(got_a, want_a, rtol=1e-4, atol=0):
+        err = ((got_a - want_a).abs() / want_a.abs().clamp_min(1e-30)).max().item()
+        fail(f"K7 route: momentum off the torch route by {err} relative")
+    changed = int((got_s != pre).any(dim=1).sum())
+    if changed != n_rows:
+        fail(f"K7 route: {changed} store rows changed of {n_rows} distinct rows")
+    say("a", f"K7 route on one DLRM-DCNv2 step (K = {flat_idx.numel()}, {n_rows} distinct "
+             f"rows, {split} summed across chunks): equals the torch route (store rtol 1e-5, "
+             f"momentum rtol 1e-4); K7a bit for bit twice")
 
 
 def kernel_name(mangled):
@@ -5703,6 +5825,7 @@ def main(mesh_only=False):
 
     _, cap_big = model_groups(capacity_config())
     k4 = check_rows_add_kernel(cap_big, big)
+    check_coalesce_route()
     rows = DLRMConfig.terabyte_mlperf(max_ind_range=1_000_000).emb_rows
     # x. the kernels on the variants' shapes (and the processed dataset)
     grouped = {"processed": check_variant_kernels(rows)}

@@ -2,7 +2,7 @@
 on one NVIDIA card, in turns, each against its plain PyTorch version, and
 the captured train steps whose K3 work changes between checkouts.
 
-    python3 compare_kernels.py [--only row_plan] [REPO ...]
+    python3 compare_kernels.py [--only row_plan|coalesce] [REPO ...]
 
 Each REPO is the root of a checkout of this repository (default: this
 one); its ``dlrm_yx_tpu_torch`` builds its own kernels into its own
@@ -42,6 +42,16 @@ limit. Cases, at the main path's shapes:
     the plain version run on the CPU bit for bit, with the device time of
     each of its kernels on the cells' steps; K4 with the same hot row on the
     column slices;
+  * K7 (``--only coalesce`` runs these alone; a checkout without K7 prints
+    none): on one step's big-store bag items of the DLRM-DCNv2 cell
+    (``chip_smoke.dcn_step_items``: the benchmark's generator, K =
+    1,392,640), K7a + K7b (the sort, the segment sums from the pooled
+    cotangent, the finish) against the torch passes they replace (the
+    cotangent expanded, the plain coalesce with the gathered rows, the
+    momentum and the finish on every item), and the whole route (with K4
+    and K2) against the torch route, each pair in turns (K7, torch, torch,
+    K7), with K7's least bytes (``8 K + 8 dim U + 8 U``) as its bound and
+    the device time of each K7 kernel;
   * the captured N=16 L=1 train step (``make_multistep_train_step``) of the
     plain, MD and QR Terabyte-MLPerf models and of the processed model
     (its first batch), ms a step over CUDA events, with K3's launches a
@@ -144,9 +154,12 @@ def run_one(repo, only=None):
     sys.path.insert(0, os.path.abspath(repo))
     import torch
 
-    if only == "row_plan":
+    if only in ("row_plan", "coalesce"):
         cases = {}
-        row_plan_cases(cases, torch.Generator(device="cuda").manual_seed(1))
+        if only == "row_plan":
+            row_plan_cases(cases, torch.Generator(device="cuda").manual_seed(1))
+        else:
+            coalesce_cases(cases)
         print(json.dumps({"repo": repo, "device": torch.cuda.get_device_name(0),
                           "cases": cases}), flush=True)
         return
@@ -530,6 +543,71 @@ def row_plan_cases(cases, gen):
             del upd
         del store, delta, new_vals, masked, ids64
         torch.cuda.empty_cache()
+
+
+def coalesce_cases(cases):
+    """K7 against the torch passes it replaces; see the module's docstring."""
+    import torch
+
+    try:
+        from dlrm_yx_tpu_torch.ops.coalesce import (
+            coalesce_finish,
+            coalesce_rows_reference,
+            coalesce_segments,
+        )
+    except ImportError:  # a checkout without K7
+        return
+    from dlrm_yx_tpu_torch.optim import optimizer as opt_mod
+    from dlrm_yx_tpu_torch.optim.optimizer import OptConfig, acc_len
+
+    cs = smoke()
+    flat_idx, grads, rows = cs.dcn_step_items(1)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    store = torch.rand(rows, 128, device="cuda", generator=gen) * 0.1 - 0.05
+    acc = torch.rand(acc_len(rows), device="cuda", generator=gen) * 0.1
+    old = store.index_select(0, flat_idx)
+    lr = torch.tensor(0.005, device="cuda")
+    opt = OptConfig("rwsadagrad", 0.005)
+    k, d = flat_idx.numel(), 128
+    u = int(torch.unique(flat_idx).numel())
+
+    def k7():
+        seg = coalesce_segments(flat_idx, grads, rows, mdim=d, zero_tail=False)
+        coalesce_finish(acc, seg, old, lr, opt.eps, rows)
+
+    def torch_span():
+        ids, sg, old_rep = coalesce_rows_reference(flat_idx, grads.expand(), rows, aux=old)
+        active = (ids < rows).to(torch.int32)
+        safe = torch.where(active > 0, ids, rows)
+        _ = ((sg * sg).sum(dim=-1) / d) * active
+        denom = opt_mod._take_fill(acc, safe, 1.0, rows).sqrt() + opt.eps
+        delta = -lr * sg / denom[:, None]
+        _ = old_rep + delta
+
+    def k7_route():
+        opt_mod._coalesced_overwrite(opt, store, acc, flat_idx, grads, lr, rows, "pallas", old)
+
+    def torch_route():
+        cs.torch_coalesce_route(store, acc, flat_idx, grads.expand(), old, lr, rows)
+
+    k7_bytes = 8 * k + 8 * d * u + 8 * u
+    # K2: ids and flags, each row's new values read and the row written; K4:
+    # ids and flags, each row's increment read, its momentum read and written
+    route_bytes = k7_bytes + (8 * k + 2 * 4 * d * u) + (8 * k + 3 * 4 * u)
+    for name, fns, nbytes in (("K7a + K7b vs the torch passes", (k7, torch_span), k7_bytes),
+                              ("K7 route vs the torch route", (k7_route, torch_route),
+                               route_bytes)):
+        a, b = fns
+        times = {"k7": [], "torch": []}
+        for side, fn in (("k7", a), ("torch", b), ("torch", b), ("k7", a)):
+            times[side].append(device_time_ms(fn))
+            torch.cuda.empty_cache()
+        cases[name] = {"k": k, "rows": u, "ms": times["k7"], "torch_ms": times["torch"],
+                       "bound_bytes": nbytes, "bound_ms": cs.bound_ms(nbytes, 0)[0]}
+    per_kernel = cs.profile_step(k7_route, "K7 route", ())
+    cases["K7 route vs the torch route"]["kernels_ms"] = {
+        kname[:80]: v for kname, v in per_kernel.items()
+        if "coalesce_rows" in kname or "row_plan" in kname or "sort" in kname.lower()}
 
 
 def main():

@@ -268,13 +268,39 @@ def lookup_bags(store: torch.Tensor, group: TableGroup, bags: BagSlots,
     return (pooled, rows) if return_rows else pooled
 
 
-def bag_row_grads(bags: BagSlots, indices: torch.Tensor, g_pooled: torch.Tensor):
+@dataclasses.dataclass(frozen=True)
+class BagRowGrads:
+    """A bag group's row gradients where they lie: item k = s * batch + b
+    (slot s, sample b) takes row ``owner[s] * batch + b`` of ``table``, the
+    pooled cotangent [T_g * batch, dim] f32; ``owner`` [S_g] int32 on the
+    table's device. ``expand()`` writes them out, one row an item."""
+
+    table: torch.Tensor
+    owner: torch.Tensor
+    batch: int
+
+    def rows(self, items: torch.Tensor) -> torch.Tensor:
+        """The table rows [n] int64 of items [n]."""
+        s = torch.div(items, self.batch, rounding_mode="floor")
+        return self.owner.long()[s] * self.batch + (items - s * self.batch)
+
+    def expand(self) -> torch.Tensor:
+        """[S_g * batch, dim] f32: item k's row at row k."""
+        d = self.table.shape[1]
+        return self.table.view(-1, self.batch, d).index_select(0, self.owner).reshape(-1, d)
+
+
+def bag_row_grads(bags: BagSlots, indices: torch.Tensor, g_pooled: torch.Tensor,
+                  expand: bool = True):
     """The pooled cotangent [T_g, B, dim] taken back to the group's bag
     items: (flat_idx [S_g * B] store rows, flat_g [S_g * B, dim] f32), one
-    item a slot and sample, none padded."""
+    item a slot and sample, none padded; with ``expand=False`` flat_g is a
+    ``BagRowGrads``, which reads each item's row from the cotangent."""
     gidx = bag_global_ids(bags, indices)
-    g = g_pooled.float().index_select(0, device_ints(bags.owner, g_pooled.device))
-    return gidx.reshape(-1), g.reshape(-1, g_pooled.shape[-1])
+    t, b, d = g_pooled.shape
+    grads = BagRowGrads(g_pooled.float().reshape(t * b, d),
+                        device_ints(bags.owner, g_pooled.device), b)
+    return gidx.reshape(-1), grads.expand() if expand else grads
 
 
 def _pad_l_sublane(gidx: torch.Tensor, w: torch.Tensor, fill_idx: int):

@@ -15,7 +15,13 @@ gradients, routed by the JAX package's gates, copied as they are:
     rounding and updates without the lookup's rows. K4 also applies
     Adagrad's per-element accumulator on that route and, past
     ``ACC_KERNEL_MIN_BYTES``, RWSAdagrad's 1-D momentum viewed as
-    ``[len, 1]`` rows;
+    ``[len, 1]`` rows. RWSAdagrad's coalesce-first write-only update of an
+    f32 store (``_coalesced_overwrite``) sums and finishes only the
+    distinct rows: K7a's segment sums and increments
+    (``ops/coalesce.coalesce_segments``), K4 on the momentum, K7b's new rows
+    (``coalesce_finish``), K2; a bag batch's row gradients reach it
+    unexpanded (``ops/embedding.BagRowGrads``), and every other route
+    expands them;
   * the dense branch builds the exactly coalesced gradient with a
     zeros-plus-scatter; under ``impl='pallas'`` RWSAdagrad's finish is K3
     (``ops/dense_finish.py``), run by ``finish_dense``, which builds every
@@ -61,9 +67,15 @@ import numpy as np
 import torch
 
 from dlrm_yx_tpu_torch.ops import stream_update
-from dlrm_yx_tpu_torch.ops.coalesce import coalesce_rows
+from dlrm_yx_tpu_torch.ops.coalesce import (
+    MAX_DIM,
+    coalesce_finish,
+    coalesce_rows,
+    coalesce_segments,
+    kernel_width,
+)
 from dlrm_yx_tpu_torch.ops.dense_finish import rwsadagrad_dense_finish_many
-from dlrm_yx_tpu_torch.ops.embedding import TableGroup, device_ints, dim_pack
+from dlrm_yx_tpu_torch.ops.embedding import BagRowGrads, TableGroup, device_ints, dim_pack
 from dlrm_yx_tpu_torch.ops.sparse_rows_add import sparse_rows_add
 from dlrm_yx_tpu_torch.ops.sparse_rows_overwrite import sparse_rows_overwrite
 from dlrm_yx_tpu_torch.utils.profiling import count
@@ -315,7 +327,8 @@ def sparse_update(
     store: [R, dim] logical rows (f32 or bf16); acc: the group's state
     (None for SGD, [R, dim] for Adagrad, 1-D per-row for RWSAdagrad);
     flat_idx: [K] row ids, duplicates allowed, ``sentinel`` (= R) for
-    padding; flat_g: [K, dim] f32 row gradients; old_rows: [K, dim] f32
+    padding; flat_g: [K, dim] f32 row gradients, or a bag batch's
+    ``BagRowGrads``; old_rows: [K, dim] f32
     store rows gathered by the forward lookup (L=1), which enable the
     write-only update; stochastic_round and sr_seed (the step) apply to a
     bf16 store on the kernel route; size_class: 0 for a small-table group,
@@ -365,6 +378,7 @@ def sparse_update(
         return _kernel_route(opt, store, acc, flat_idx, flat_g, lr, sentinel, impl,
                              stochastic_round, sr_seed, exact_momentum, old_rows, row_dim)
 
+    flat_g = _expanded(flat_g)
     if opt.name == "sgd":
         # linear: a scatter-add is exact on duplicates
         count("sparse_update.scatter")
@@ -485,9 +499,46 @@ def sparse_update_1d(opt: OptConfig, vec: torch.Tensor, acc, flat_idx: torch.Ten
     return vec, acc
 
 
+def _expanded(flat_g):
+    """[K, dim] row gradients: a ``BagRowGrads`` written out."""
+    return flat_g.expand() if isinstance(flat_g, BagRowGrads) else flat_g
+
+
+def _coalesced_overwrite(opt, store, acc, flat_idx, flat_g, lr, sentinel, impl, old_rows):
+    """RWSAdagrad's coalesce-first write-only update of an f32 store, in
+    place; returns (store, acc). K7a sums each distinct row's items and
+    gives its momentum increment, K4 (or a scatter) adds the increments
+    to the row momentum, K7b computes each distinct row's new values from
+    its representative's gathered row, K2 writes them: every [K, dim] pass
+    touches the distinct rows only. The same function as the torch route
+    (coalesce, momentum, finish on every item), which the CPU's plain
+    versions give bit for bit."""
+    count("sparse_update.overwrite")
+    seg = coalesce_segments(flat_idx, flat_g, sentinel, mdim=store.shape[1], zero_tail=False)
+    active = (seg.ids < sentinel).to(torch.int32)
+    _acc_update_1d(acc, seg.ids, seg.inc, active, sentinel, impl)
+    new_vals, delta = coalesce_finish(acc, seg, old_rows, lr, opt.eps, sentinel)
+    sparse_rows_overwrite(store, seg.ids, new_vals, delta, active)
+    return store, acc
+
+
 def _kernel_route(opt, store, acc, flat_idx, flat_g, lr, sentinel, impl,
                   stochastic_round, sr_seed, exact_momentum, old_rows, row_dim=None):
     """The row-touching route (``optimizer.py:333-429``)."""
+    if (
+        exact_momentum
+        and opt.name == "rwsadagrad"
+        and old_rows is not None
+        and row_dim is None
+        and not stochastic_round
+        and store.dtype == torch.float32
+        and store.shape[1] % 4 == 0
+        and store.shape[1] <= MAX_DIM
+        and (store.device.type == "cpu" or kernel_width(flat_g) is not None)
+    ):
+        return _coalesced_overwrite(opt, store, acc, flat_idx, flat_g, lr, sentinel, impl,
+                                    old_rows)
+    flat_g = _expanded(flat_g)
     if exact_momentum:
         # coalesce first: momentum sees each row's summed gradient once;
         # occurrences of one row carry the same gathered row, so old_rows

@@ -34,7 +34,10 @@ differentiated and updated with the towers; a batch of fixed multi-hot
 bags (``config.multi_hot_sizes``) takes the bag lookup and gives one row
 gradient a bag item (``ops/embedding.bag_row_grads``) with the rows the
 lookup gathered, so it keeps the write-only update; it never takes the
-sorted-stream route, whose layout is ``[T, B, L]``.
+sorted-stream route, whose layout is ``[T, B, L]``. The train step hands
+the bag items' gradients to the optimizer unexpanded
+(``embedding.BagRowGrads``): the coalesce-first update sums each row's
+items from the pooled cotangent itself (K7, ``ops/coalesce.py``).
 
 Every update is in place: a step returns the params and optimizer state it
 was given, updated. Nothing in a step waits for the device; losses come
@@ -172,7 +175,9 @@ def apply_gradients(config: DLRMConfig, opt: OptConfig, groups, params: Dict,
             store = params["emb"][gi]
             acc = opt_state["emb"][gi] if opt.name != "sgd" else None
             if bags is not None:
-                fidx, fg = _row_grads(config, groups, gi, batch, g_pooled[gi], None)
+                # unexpanded: the coalesce-first update reads each item's row
+                # from the pooled cotangent, every other route expands it
+                fidx, fg = bag_row_grads(bags[gi], batch.indices, g_pooled[gi], expand=False)
                 old_rows = None
                 if raw_rows is not None and raw_rows[gi] is not None:
                     old_rows = raw_rows[gi].reshape(-1, g.dim)

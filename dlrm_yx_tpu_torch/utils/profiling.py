@@ -38,8 +38,10 @@ wrappers' ``.launches`` (``train.capture.launch_counters``) as
 ``cudaMalloc`` calls), and the row plan's tail counts of K2 and K4 on the
 card (``row_plan.dup_keys``, ``row_plan.runs``, ``row_plan.long_runs``:
 the items of duplicated rows, their runs, the runs of 64 items or more;
-``ops.sparse_rows_add.row_plan_counts``), read only when a snapshot is
-taken.
+``ops.sparse_rows_add.row_plan_counts``) and of K7a (``coalesce.rows``,
+``coalesce.split_runs``: the distinct live rows it coalesced, its
+segments summed across chunks; ``ops.coalesce.coalesce_counts``), read
+only when a snapshot is taken.
 ``train.capture.GraphStep`` takes back what a body counted on its thread
 while it was captured, and adds it again at each replay.
 
@@ -130,7 +132,9 @@ def _alloc_counts() -> Dict[str, int]:
 
 def counters() -> Dict[str, int]:
     """A snapshot of every counter: the threads' counts summed, the kernel
-    launches, the allocators' totals and the row plan's tail counts."""
+    launches, the allocators' totals and the row plan's and K7a's device
+    counts."""
+    from dlrm_yx_tpu_torch.ops.coalesce import coalesce_counts
     from dlrm_yx_tpu_torch.ops.sparse_rows_add import row_plan_counts
     from dlrm_yx_tpu_torch.train.capture import launch_counters
 
@@ -143,6 +147,7 @@ def counters() -> Dict[str, int]:
     out.update({f"launch.{name}": f.launches for name, f in launch_counters().items()})
     out.update(_alloc_counts())
     out.update(row_plan_counts())
+    out.update(coalesce_counts())
     return out
 
 
