@@ -4112,16 +4112,12 @@ def hybrid_capture_parity(cfg, opt, plan, single):
     import torch
 
     from dlrm_yx_tpu_torch.data.batch import stack_batches
-    from dlrm_yx_tpu_torch.parallel.hybrid import (
-        HybridRunner,
-        make_hybrid_train_step,
-        params_from_single_device,
-    )
+    from dlrm_yx_tpu_torch.parallel.hybrid import HybridRunner, params_from_single_device
 
     n = 4
     runner = HybridRunner(cfg, opt, 1, 1, params=params_from_single_device(cfg, plan, single))
     eager_p, eager_s = clone_tree(runner.params), clone_tree(runner.opt_state)
-    eager = make_hybrid_train_step(cfg, runner.plan, opt, runner.mesh, capture=False)
+    eager = runner.eager_step()
     captured = runner.make_multi_step(n)
     batches = drawn_batches(cfg, 3 * n, seed=44)
     want, eager_launches = counted(lambda: torch.stack(
@@ -4150,11 +4146,7 @@ def hybrid_throughput(cfg, opt, plan, single, state):
     single-device step, CUDA-event timed in turns; returns an eager hybrid
     step (a function of nothing) for the overlap check."""
     from dlrm_yx_tpu_torch.data.batch import stack_batches
-    from dlrm_yx_tpu_torch.parallel.hybrid import (
-        HybridRunner,
-        make_hybrid_train_step,
-        params_from_single_device,
-    )
+    from dlrm_yx_tpu_torch.parallel.hybrid import HybridRunner, params_from_single_device
     from dlrm_yx_tpu_torch.train.train_step import make_multistep_train_step
 
     runner = HybridRunner(cfg, opt, 1, 1, params=params_from_single_device(cfg, plan, single))
@@ -4175,7 +4167,7 @@ def hybrid_throughput(cfg, opt, plan, single, state):
                           f"({BATCH / ms * 1e3:.0f} examples/s; "
                           f"{statistics.mean(ts) / base:.3f}x the single-device step; ms a "
                           f"call {ts})")
-    eager = make_hybrid_train_step(cfg, runner.plan, opt, runner.mesh, capture=False)
+    eager = runner.eager_step()
     return train_step_fn(eager, runner.params, runner.opt_state, runner.prepare_batch(batch))
 
 

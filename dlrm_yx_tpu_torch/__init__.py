@@ -9,7 +9,8 @@ hand-written CUDA kernel under ``csrc/``, built at first use by
 ``ops/_build.py``, with its plain PyTorch version beside it for CPU tensors.
 
 Ported so far: the single-device training path (``cli`` ->
-``Trainer.fit`` -> ``make_train_step``, with the optimizers and their
+``Trainer.fit`` -> the runner -> ``make_multistep_train_step``, with the
+optimizers and their
 sparse-update routing in ``optim/``, its steps replayed from CUDA graphs
 in ``train/capture.py``) and the serving path (``cli --inference-only``
 -> ``Trainer.evaluate`` -> ``make_eval_step``), on random, trace-driven

@@ -106,7 +106,6 @@ from dlrm_yx_tpu_torch.parallel.col_sharded import ColShardedRunner
 from dlrm_yx_tpu_torch.parallel.hybrid import HybridRunner
 from dlrm_yx_tpu_torch.parallel.multihost import init_multihost, local_device, spawn_local
 from dlrm_yx_tpu_torch.parallel.row_sharded import RowShardedRunner
-from dlrm_yx_tpu_torch.train.train_step import make_train_step
 from dlrm_yx_tpu_torch.train.trainer import Trainer, TrainerConfig
 from dlrm_yx_tpu_torch.utils.device import resolve_device
 from dlrm_yx_tpu_torch.utils.logging import is_rank0, rank0_print
@@ -597,9 +596,8 @@ def quantized_inference(args, cfg: DLRMConfig, trainer: Trainer, test_batches) -
     accuracy of the rounded predictions."""
     refuse_dcn_and_bags(cfg, "quantized serving")
     bits = args.quantize_emb_with_bit if args.quantize_emb_with_bit in (4, 8) else 8
-    # a runner's shards are gathered into the single-device layout first
-    params = (trainer.params if trainer.runner is None
-              else trainer.runner.single_device_params(trainer.params))
+    # a mesh runner's shards are gathered into the single-device layout first
+    params = trainer.runner.single_device_params(trainer.params)
     qstores = quantize_model_embeddings(params, trainer.groups, bits)
     qbot = qtop = None
     if args.quantize_mlp_with_bit in (8, 16):
@@ -739,8 +737,9 @@ def _run(args, argv):
                 "unique rows per occurrence (drives the dense-vs-kernel "
                 "update crossover)"
             )
-    runner = make_runner(args, cfg, opt, lr_policy) if uses_mesh(args) else None
-    trainer = Trainer(cfg, opt, tcfg, lr_policy, device=args.device, runner=runner)
+    trainer = Trainer(cfg, opt, tcfg, lr_policy, device=args.device,
+                      runner=make_runner(args, cfg, opt, lr_policy) if uses_mesh(args) else None)
+    runner = trainer.runner
     if args.debug_mode:
         debug_print_model(cfg, trainer.params, args.print_precision)
     if args.inference_only:
@@ -753,18 +752,12 @@ def _run(args, argv):
     if args.plot_compute_graph or args.collect_execution_graph:
         # one eager step on copies of the params and optimizer state: the
         # JAX CLI only traces (or lowers) its step, so the run trains from
-        # the same state. With a runner every rank runs the sharded step
+        # the same state. With a mesh runner every rank runs the sharded step
         # (its collectives) and writes its own trace.
-        b0 = _first_batch(train)
-        if runner is None:
-            step, name = make_train_step(cfg, opt, device=trainer.device), "train_step"
-        else:
-            step, b0 = runner.eager_step(), runner.prepare_batch(b0)
-            rank = runner.mesh.rank
-            name = "hybrid_step" if rank == 0 else f"hybrid_step.rank{rank}"
         arts = collect_execution_graph(
-            step, (_copies(trainer.params), _copies(trainer.opt_state), b0, 0),
-            args.profile_out_dir, name)
+            runner.eager_step(), (_copies(trainer.params), _copies(trainer.opt_state),
+                                  runner.prepare_batch(_first_batch(train)), 0),
+            args.profile_out_dir, runner.graph_name)
         rank0_print(f"execution graph artifacts: {arts}")
     t0 = time.time()
     if args.enable_profiling:
@@ -781,10 +774,9 @@ def _run(args, argv):
     if args.save_onnx:
         out_dir = args.save_model or "."
         out = os.path.join(out_dir, "dlrm_torch.pt2")
-        # a runner's shards gathered into the single-device layout (every
-        # rank takes part; rank 0 writes)
-        params = trainer.params if runner is None else runner.single_device_params(
-            trainer.params)
+        # a mesh runner's shards gathered into the single-device layout
+        # (every rank takes part; rank 0 writes)
+        params = runner.single_device_params(trainer.params)
         if is_rank0():
             os.makedirs(out_dir, exist_ok=True)
             export_inference(params, cfg, _first_batch(train), out)

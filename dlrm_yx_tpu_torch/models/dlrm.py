@@ -10,7 +10,9 @@ package's shape: parameters are a dict
      "md_proj": [W [dim_t, base_dim] per MD table]                (MD only),
      "dcn": [(V [N, r], W [r, N], b [N]) per cross layer]        (dcn only)}
 
-and the forward is split at the pooled-embedding boundary
+whose dense leaves (``DENSE_KEYS``: towers, MD projections, cross layers)
+every step and optimizer takes in one order (``dense_leaves`` /
+``nest_dense``), and the forward is split at the pooled-embedding boundary
 (``forward_from_pooled``) as it is there. ``DLRM`` is the ``nn.Module``
 that owns such a dict as registered parameters (so ``state_dict``,
 ``parameters`` and ``to`` work) and runs ``forward_logits``.
@@ -90,6 +92,30 @@ def qr_specs(config: DLRMConfig) -> List[QRSpec]:
         )
         for t in config.qr_table_ids
     ]
+
+
+# the dense params, trained by autograd and the dense optimizer, in their
+# one order: the towers, the MD projections, the cross layers
+DENSE_KEYS = ("bot", "top", "md_proj", "dcn")
+
+
+def dense_leaves(tree: Dict) -> List[torch.Tensor]:
+    """The dense leaves of a params (or grads) tree, in ``DENSE_KEYS``
+    order, each entry's tensors in order: (W, b) a tower layer, W an MD
+    projection, (V, W, b) a cross layer; the keys the tree lacks are
+    skipped."""
+    return [t for k in DENSE_KEYS if k in tree
+            for entry in tree[k] for t in (entry if isinstance(entry, (tuple, list)) else (entry,))]
+
+
+def nest_dense(like: Dict, leaves: Sequence[torch.Tensor]) -> Dict:
+    """``dense_leaves``' inverse: {key: entries} of ``like``'s dense keys,
+    holding ``leaves`` in its nesting (an entry of several tensors a
+    tuple)."""
+    it = iter(leaves)
+    return {k: [tuple(next(it) for _ in entry) if isinstance(entry, (tuple, list)) else next(it)
+                for entry in like[k]]
+            for k in DENSE_KEYS if k in like}
 
 
 def _ones_vw(groups: Sequence[TableGroup], config: DLRMConfig, device: torch.device):

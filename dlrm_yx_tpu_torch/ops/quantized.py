@@ -44,8 +44,7 @@ from dlrm_yx_tpu_torch.ops.embedding import TableGroup, device_ints
 from dlrm_yx_tpu_torch.ops.interaction import interact_features
 from dlrm_yx_tpu_torch.ops.losses import predictions_from_logits
 from dlrm_yx_tpu_torch.ops.mlp import apply_mlp, product_f32_out
-from dlrm_yx_tpu_torch.train.capture import GraphStep
-from dlrm_yx_tpu_torch.train.train_step import _capture_default
+from dlrm_yx_tpu_torch.train.capture import eval_step
 from dlrm_yx_tpu_torch.utils.device import resolve_device
 
 # rows quantized a pass: the temporaries of a pass stay near 0.5 GB at dim 128
@@ -217,19 +216,6 @@ def _pooled(groups: Sequence[TableGroup], qstores: Sequence[QuantizedStore], b):
             for g, qs in zip(groups, qstores)]
 
 
-def _eval_step(body, dev: torch.device, capture: Optional[bool]):
-    """eval(params, batch) -> predictions [B, 1]: a replay of a CUDA graph
-    on the card (``capture``, the default there), eager elsewhere."""
-    graph_step = GraphStep(lambda p, _s, b, _l, _sd: body(p, b), 0, None, dev,
-                           _capture_default(capture, dev), inference=True)
-
-    def eval_step(params, batch):
-        return graph_step(params, None, batch)
-
-    eval_step.graph_step = graph_step
-    return eval_step
-
-
 def make_fully_quantized_eval_step(
     config: DLRMConfig,
     groups: Sequence[TableGroup],
@@ -265,7 +251,7 @@ def make_fully_quantized_eval_step(
             logits = apply_mlp(z, params["top"], config.sigmoid_top, skip_last_activation=True)
         return predictions_from_logits(logits, config.loss_threshold)
 
-    return _eval_step(body, dev, capture)
+    return eval_step(body, dev, capture)
 
 
 def make_quantized_eval_step(
@@ -286,4 +272,4 @@ def make_quantized_eval_step(
         logits = forward_from_pooled(params, config, groups, b.dense, _pooled(groups, qstores, b))
         return predictions_from_logits(logits, config.loss_threshold)
 
-    return _eval_step(body, dev, capture)
+    return eval_step(body, dev, capture)

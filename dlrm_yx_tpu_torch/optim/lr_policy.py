@@ -57,3 +57,12 @@ class LRPolicy:
         else:
             lr = f32(base)
         return float(lr)
+
+
+def lr_or_constant(lr_fn, lr: float):
+    """A step's lr schedule (0-based iteration -> lr): ``lr_fn``, or without
+    one the constant ``lr`` rounded to float32."""
+    if lr_fn is not None:
+        return lr_fn
+    lr = float(f32(lr))
+    return lambda _it: lr

@@ -75,6 +75,7 @@ from dlrm_yx_tpu_torch.ops.coalesce import (
     kernel_width,
 )
 from dlrm_yx_tpu_torch.ops.dense_finish import rwsadagrad_dense_finish_many
+from dlrm_yx_tpu_torch.models.dlrm import dense_leaves, nest_dense
 from dlrm_yx_tpu_torch.ops.embedding import BagRowGrads, TableGroup, device_ints, dim_pack
 from dlrm_yx_tpu_torch.ops.sparse_rows_add import sparse_rows_add
 from dlrm_yx_tpu_torch.ops.sparse_rows_overwrite import sparse_rows_overwrite
@@ -118,31 +119,31 @@ def init_opt_state(opt: OptConfig, params: Dict, groups: Sequence[TableGroup]) -
         return {}
     if len(groups) != len(params["emb"]):
         raise ValueError(f"{len(groups)} groups vs {len(params['emb'])} emb stores")
-    dense = {
-        k: [(torch.zeros_like(w), torch.zeros_like(b)) for w, b in params[k]]
-        for k in ("bot", "top")
-    }
-    if opt.name == "adagrad":
-        emb = [torch.zeros(e.shape, dtype=torch.float32, device=e.device)
-               for e in params["emb"]]
-    else:
-        emb = [torch.zeros(acc_len(g.total_rows), dtype=torch.float32, device=e.device)
-               for g, e in zip(groups, params["emb"])]
-    state = {"dense": dense, "emb": emb}
+    state = {**init_dense_state(params),
+             "emb": [store_state(opt, e, g.total_rows) for g, e in zip(groups, params["emb"])]}
     if params.get("vw") is not None:
         state["vw"] = [torch.zeros_like(v) for v in params["vw"]]
     if "qr" in params:
-        if opt.name == "adagrad":
-            state["qr"] = [(torch.zeros_like(q), torch.zeros_like(r)) for q, r in params["qr"]]
-        else:
-            state["qr"] = [(q.new_zeros(q.shape[0], dtype=torch.float32),
-                            r.new_zeros(r.shape[0], dtype=torch.float32))
-                           for q, r in params["qr"]]
-    if "md_proj" in params:
-        state["md_proj"] = [torch.zeros_like(w) for w in params["md_proj"]]
-    if "dcn" in params:
-        state["dcn"] = [tuple(torch.zeros_like(p) for p in layer) for layer in params["dcn"]]
+        state["qr"] = [(store_state(opt, q), store_state(opt, r)) for q, r in params["qr"]]
     return state
+
+
+def store_state(opt: OptConfig, store: torch.Tensor, rows: Optional[int] = None) -> torch.Tensor:
+    """Zeros for an Adagrad-family store: Adagrad's per-element f32 sums, or
+    RWSAdagrad's row momentum, ``acc_len(rows)`` long (a group or shard
+    store's padded layout) or, without ``rows``, one a row of ``store``."""
+    if opt.name == "adagrad":
+        return torch.zeros(store.shape, dtype=torch.float32, device=store.device)
+    n = store.shape[0] if rows is None else acc_len(rows)
+    return torch.zeros(n, dtype=torch.float32, device=store.device)
+
+
+def init_dense_state(params: Dict) -> Dict:
+    """Zero per-element sums of every dense leaf, in the JAX package's
+    layout: the towers' under ``dense``, the MD projections' and the cross
+    layers' under their own keys."""
+    zeros = nest_dense(params, [torch.zeros_like(p) for p in dense_leaves(params)])
+    return {"dense": {k: zeros.pop(k) for k in ("bot", "top")}, **zeros}
 
 
 @torch.no_grad()
@@ -166,28 +167,14 @@ def dense_update(opt: OptConfig, ps: List[torch.Tensor], gs: List[torch.Tensor],
 
 def update_dense_towers(opt: OptConfig, params: Dict, opt_state: Dict, g_dense: Dict,
                         lr: Scalar) -> None:
-    """``dense_update`` of the bottom and top MLPs and, where ``g_dense``
-    has them, the MD projections (dense params too: the reference's
-    ``PrEmbeddingBag`` Linear) and DLRM-DCNv2's cross layers (Adagrad on
-    them under RWSAdagrad, as the MLPerf reference's ``torch.optim.Adagrad``
-    on every dense param), in place."""
-    def flat(tree):
-        return [t for k in ("bot", "top") for pair in tree[k] for t in pair]
-
-    ps, gs = flat(params), flat(g_dense)
-    accs = flat(opt_state["dense"]) if opt.name != "sgd" else None
-    if "md_proj" in g_dense:
-        ps, gs = ps + list(params["md_proj"]), gs + list(g_dense["md_proj"])
-        if accs is not None:
-            accs = accs + list(opt_state["md_proj"])
-    if "dcn" in g_dense:
-        def layers(tree):
-            return [p for layer in tree for p in layer]
-
-        ps, gs = ps + layers(params["dcn"]), gs + layers(g_dense["dcn"])
-        if accs is not None:
-            accs = accs + layers(opt_state["dcn"])
-    dense_update(opt, ps, gs, accs, lr)
+    """``dense_update`` of every dense leaf (``models.dlrm.dense_leaves``):
+    the bottom and top MLPs, the MD projections (dense params too: the
+    reference's ``PrEmbeddingBag`` Linear) and DLRM-DCNv2's cross layers
+    (Adagrad on them under RWSAdagrad, as the MLPerf reference's
+    ``torch.optim.Adagrad`` on every dense param), in place."""
+    accs = (dense_leaves({**opt_state, **opt_state["dense"]}) if opt.name != "sgd"
+            else None)
+    dense_update(opt, dense_leaves(params), dense_leaves(g_dense), accs, lr)
 
 
 def uniform_stream_density(emb_rows, emb_split_threshold: int, n_draws: int,

@@ -41,42 +41,33 @@ import torch
 from dlrm_yx_tpu_torch.config import DLRMConfig
 from dlrm_yx_tpu_torch.data.batch import Batch
 from dlrm_yx_tpu_torch.ops.coalesce import coalesce_rows
-from dlrm_yx_tpu_torch.ops.embedding import SENTINEL_ROWS, TableGroup
+from dlrm_yx_tpu_torch.ops.embedding import ROW_ALIGN, SENTINEL_ROWS, TableGroup, _round_up
 from dlrm_yx_tpu_torch.ops.sparse_rows_add import sparse_rows_add
 from dlrm_yx_tpu_torch.ops.sparse_rows_overwrite import sparse_rows_overwrite
 from dlrm_yx_tpu_torch.optim import optimizer as _optim
 from dlrm_yx_tpu_torch.optim.optimizer import OptConfig, _add_at, _take_fill
-from dlrm_yx_tpu_torch.parallel.hybrid import _single_step, accum_step, eval_step_of
 from dlrm_yx_tpu_torch.parallel.mesh import Mesh
 from dlrm_yx_tpu_torch.parallel.row_sharded import (
-    ROW_ALIGN,
     ShardedRunner,
-    _assemble,
     _copy,
     _dense_backward,
     _draw_tables,
     _layouts,
-    _mlps,
     _old_rows_taken,
     _Rank,
     _reject_unsupported_variants,
-    _round_up,
     _small_accum_inputs,
     _small_from_tables,
     _small_lookup,
     _small_params,
     _small_tables,
-    _tables_of,
     _take_tables,
     _update_small,
     _vw_update,
-    accum_body,
-    eval_body,
     gather_model_batch,
     split_tables,
-    train_body,
 )
-from dlrm_yx_tpu_torch.train.train_step import _lr_fn, scan_multistep
+from dlrm_yx_tpu_torch.parallel.runner import dense_copy, single_device_tables
 from dlrm_yx_tpu_torch.utils.device import resolve_device
 from dlrm_yx_tpu_torch.utils.profiling import phase_scope
 
@@ -212,14 +203,14 @@ def params_from_single_device(config: DLRMConfig, plan: ColShardPlan, params: Di
                               model_index: int = 0) -> Dict:
     """Shard ``model_index``'s column-sharded params from the single-device
     params of ``models.dlrm`` (plain tables, on their device)."""
-    tables = _tables_of(config, params)
+    tables = single_device_tables(config, params)
     like = params["emb"][0]
     store = torch.zeros((plan.total_rows, plan.d_local), dtype=torch.float32,
                         device=like.device)
     c0 = model_index * plan.d_local
     for t, off in zip(plan.big_ids, plan.row_offsets):
         store[off: off + tables[t].shape[0]] = tables[t][:, c0: c0 + plan.d_local]
-    return {**_mlps(params), "emb": store, "vw": None,
+    return {**dense_copy(params), "emb": store, "vw": None,
             **_small_params(config, plan.small_group, _small_from_tables(plan, tables, like),
                             like.device)}
 
@@ -379,15 +370,12 @@ def _col_lookups(rk: _Rank, params: Dict, b: Batch):
     return ly, small, _ColLookup(gid, w_eff, w_b, rows)
 
 
-def _col_forward_backward(rk: _Rank):
-    def fb(params, b):
-        ly, small, look = _col_lookups(rk, params, b)
-        share, grads, g_ly, g_small = _dense_backward(rk, params, b, ly, small)
-        g_pooled = _exchange_back(rk.mesh, g_ly)
-        g_s_full = gather_model_batch(rk.mesh, g_small) if small is not None else None
-        return share, grads, (look, g_pooled, small, g_s_full)
-
-    return fb
+def _col_forward_backward(rk: _Rank, params, b):
+    ly, small, look = _col_lookups(rk, params, b)
+    share, grads, g_ly, g_small = _dense_backward(rk, params, b, ly, small)
+    g_pooled = _exchange_back(rk.mesh, g_ly)
+    g_s_full = gather_model_batch(rk.mesh, g_small) if small is not None else None
+    return share, grads, (look, g_pooled, small, g_s_full)
 
 
 def _col_vw_grads(rk: _Rank, rows, g_pooled, w_b):
@@ -406,27 +394,24 @@ def _slice_update(rk: _Rank, opt: OptConfig, params: Dict, opt_state: Dict, flat
                          old_rows)
 
 
-def _col_updates(rk: _Rank, opt: OptConfig):
+def _col_updates(rk: _Rank, opt: OptConfig, params, opt_state, b, piece, lr):
     """The sparse updates of one step (``col_sharded.py:631-702``)."""
-    def updates(params, opt_state, b, piece, lr):
-        look, g_pooled, small, g_s_full = piece
-        c, plan, mesh = rk.config, rk.plan, rk.mesh
-        t, bd, l = look.gid.shape
-        learned = params.get("vw") is not None and c.weighted_pooling == "learned"
-        gv = _col_vw_grads(rk, look.rows, g_pooled, look.w_b) if learned else None
-        flat_g = (look.w_eff[..., None] * g_pooled[:, :, None, :]).reshape(-1, plan.d_local)
-        old = None
-        if _old_rows_taken(c, plan, params["emb"], l):
-            # a slice owns every row: the forward's rows are the old values
-            old = mesh.all_gather_data(look.rows[:, :, 0, :].reshape(t * bd, -1))
-        _slice_update(rk, opt, params, opt_state, look.gid.reshape(-1), flat_g, lr, old)
-        if small is not None:
-            _update_small(rk, opt, params, opt_state, small.idx, small.w, g_s_full, lr)
-        if learned:
-            _vw_update(rk, opt, params, opt_state, _vw_ids(plan, look.gid), gv, lr,
-                       plan.total_rows)
-
-    return updates
+    look, g_pooled, small, g_s_full = piece
+    c, plan, mesh = rk.config, rk.plan, rk.mesh
+    t, bd, l = look.gid.shape
+    learned = params.get("vw") is not None and c.weighted_pooling == "learned"
+    gv = _col_vw_grads(rk, look.rows, g_pooled, look.w_b) if learned else None
+    flat_g = (look.w_eff[..., None] * g_pooled[:, :, None, :]).reshape(-1, plan.d_local)
+    old = None
+    if _old_rows_taken(c, plan, params["emb"], l):
+        # a slice owns every row: the forward's rows are the old values
+        old = mesh.all_gather_data(look.rows[:, :, 0, :].reshape(t * bd, -1))
+    _slice_update(rk, opt, params, opt_state, look.gid.reshape(-1), flat_g, lr, old)
+    if small is not None:
+        _update_small(rk, opt, params, opt_state, small.idx, small.w, g_s_full, lr)
+    if learned:
+        _vw_update(rk, opt, params, opt_state, _vw_ids(plan, look.gid), gv, lr,
+                   plan.total_rows)
 
 
 def _vw_ids(plan: ColShardPlan, gid: torch.Tensor) -> torch.Tensor:
@@ -434,88 +419,31 @@ def _vw_ids(plan: ColShardPlan, gid: torch.Tensor) -> torch.Tensor:
     return torch.where(flat < plan.total_rows, flat, plan.total_rows)
 
 
-def _col_accum_updates(rk: _Rank, opt: OptConfig):
+def _col_accum_updates(rk: _Rank, opt: OptConfig, params, opt_state, batches, pieces, lr):
     """The accumulation step's sparse updates (``col_sharded.py:811-936``)."""
-    def updates(params, opt_state, batches, pieces, lr):
-        c, plan = rk.config, rk.plan
-        gid = torch.stack([p[0].gid for p in pieces])  # [n, Tb, Bd, L]
-        g_pooled = torch.stack([p[1] for p in pieces])  # [n, Tb, Bd, d_local]
-        w_big = _take_tables(batches.weights, plan.big_ids, 1)
-        safe = gid.clamp(max=plan.total_rows - 1)
-        vw = params.get("vw")
-        wt = w_big
-        if vw is not None:
-            wt = wt * vw.index_select(0, safe.reshape(-1)).reshape(safe.shape)
-        learned = vw is not None and c.weighted_pooling == "learned"
-        gv = None
-        if learned:
-            rows = params["emb"].index_select(0, safe.reshape(-1)).float().reshape(
-                *safe.shape, plan.d_local)
-            gv = _col_vw_grads(rk, rows, g_pooled, w_big)
-        flat_g = (wt[..., None] * g_pooled[:, :, :, None, :]).reshape(-1, plan.d_local)
-        _slice_update(rk, opt, params, opt_state, gid.reshape(-1), flat_g, lr)
-        if rk.small_ids is not None:
-            _update_small(rk, opt, params, opt_state,
-                          *_small_accum_inputs(rk, batches, [p[3] for p in pieces]), lr)
-        if learned:
-            _vw_update(rk, opt, params, opt_state, _vw_ids(plan, gid), gv, lr,
-                       plan.total_rows)
-
-    return updates
-
-
-def _col_pooled(rk: _Rank):
-    def pooled(params, b):
-        ly, small, _ = _col_lookups(rk, params, b)
-        return _assemble(rk, ly, small.pooled if small is not None else None)
-
-    return pooled
-
-
-def col_train_body(config: DLRMConfig, plan: ColShardPlan, opt: OptConfig, mesh: Mesh):
-    rk = _Rank(config, plan, mesh)
-    return train_body(rk, opt, _col_forward_backward(rk), _col_updates(rk, opt))
-
-
-def col_accum_body(config: DLRMConfig, plan: ColShardPlan, opt: OptConfig, mesh: Mesh,
-                   n_accum: int):
-    rk = _Rank(config, plan, mesh)
-    return accum_body(rk, opt, n_accum, _col_forward_backward(rk), _col_accum_updates(rk, opt))
-
-
-def col_eval_body(config: DLRMConfig, plan: ColShardPlan, mesh: Mesh):
-    rk = _Rank(config, plan, mesh)
-    return eval_body(rk, _col_pooled(rk))
-
-
-def make_col_sharded_train_step(config: DLRMConfig, plan: ColShardPlan, opt: OptConfig,
-                                mesh: Mesh, lr_fn=None, capture: Optional[bool] = None):
-    """step(params, opt_state, batch, iteration) -> (params, opt_state,
-    loss) on this rank's part of the batch, updated in place; a CUDA-graph
-    replay where the mesh's collectives can be captured unless ``capture``
-    says otherwise."""
-    return _single_step(col_train_body(config, plan, opt, mesh), _lr_fn(opt, lr_fn), mesh,
-                        mesh.capturable if capture is None else capture)
-
-
-def make_col_sharded_multistep_train_step(config: DLRMConfig, plan: ColShardPlan,
-                                          opt: OptConfig, mesh: Mesh, n_steps: int,
-                                          lr_fn=None):
-    """``n_steps`` full steps a call on batches stacked ``[n_steps, ...]``."""
-    return scan_multistep(col_train_body(config, plan, opt, mesh), n_steps,
-                          _lr_fn(opt, lr_fn), mesh.device, mesh.capturable)
-
-
-def make_col_sharded_accum_train_step(config: DLRMConfig, plan: ColShardPlan,
-                                      opt: OptConfig, mesh: Mesh, n_accum: int, lr_fn=None):
-    """Gradient accumulation over ``n_accum`` stacked micro-batches, one
-    optimizer step; returns (params, opt_state, mean micro-batch loss)."""
-    return accum_step(col_accum_body(config, plan, opt, mesh, n_accum), opt, lr_fn, mesh)
-
-
-def make_col_sharded_eval_step(config: DLRMConfig, plan: ColShardPlan, mesh: Mesh):
-    """eval(params, batch) -> (predictions [B, 1] of the whole batch, loss)."""
-    return eval_step_of(col_eval_body(config, plan, mesh), mesh)
+    c, plan = rk.config, rk.plan
+    gid = torch.stack([p[0].gid for p in pieces])  # [n, Tb, Bd, L]
+    g_pooled = torch.stack([p[1] for p in pieces])  # [n, Tb, Bd, d_local]
+    w_big = _take_tables(batches.weights, plan.big_ids, 1)
+    safe = gid.clamp(max=plan.total_rows - 1)
+    vw = params.get("vw")
+    wt = w_big
+    if vw is not None:
+        wt = wt * vw.index_select(0, safe.reshape(-1)).reshape(safe.shape)
+    learned = vw is not None and c.weighted_pooling == "learned"
+    gv = None
+    if learned:
+        rows = params["emb"].index_select(0, safe.reshape(-1)).float().reshape(
+            *safe.shape, plan.d_local)
+        gv = _col_vw_grads(rk, rows, g_pooled, w_big)
+    flat_g = (wt[..., None] * g_pooled[:, :, :, None, :]).reshape(-1, plan.d_local)
+    _slice_update(rk, opt, params, opt_state, gid.reshape(-1), flat_g, lr)
+    if rk.small_ids is not None:
+        _update_small(rk, opt, params, opt_state,
+                      *_small_accum_inputs(rk, batches, [p[3] for p in pieces]), lr)
+    if learned:
+        _vw_update(rk, opt, params, opt_state, _vw_ids(plan, gid), gv, lr,
+                   plan.total_rows)
 
 
 class ColShardedRunner(ShardedRunner):
@@ -526,7 +454,7 @@ class ColShardedRunner(ShardedRunner):
     init_params = staticmethod(init_col_sharded_params)
     layouts = staticmethod(col_layouts)
     extract_tables = staticmethod(extract_col_sharded_tables)
-    make_train_step = staticmethod(make_col_sharded_train_step)
-    make_multistep = staticmethod(make_col_sharded_multistep_train_step)
-    make_accum_step = staticmethod(make_col_sharded_accum_train_step)
-    make_eval_step = staticmethod(make_col_sharded_eval_step)
+    lookups = staticmethod(_col_lookups)
+    forward_backward = staticmethod(_col_forward_backward)
+    updates = staticmethod(_col_updates)
+    accum_updates = staticmethod(_col_accum_updates)

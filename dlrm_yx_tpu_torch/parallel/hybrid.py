@@ -41,51 +41,51 @@ pooling weights ``vw`` / ``vw_small`` scale the lookups, and learned ones
 train through ``sparse_update_1d``.
 
 The updates go through the port's ``optim.sparse_update`` and
-``sparse_update_stream`` with the JAX package's routing gates. The steps
-(``make_hybrid_{train,multistep_train,accum_train,eval}_step``) run, on the
-card over NCCL, as replays of CUDA graphs (``train/capture.GraphStep``),
-collectives included; gloo's collectives cannot be captured, so on the CPU
-(and over gloo on the card) the same bodies run eagerly. ``HybridRunner``
-bundles them behind the Trainer's runner interface; checkpoints keep the
-JAX package's hybrid npz layout (``HybridRunner.save_checkpoint`` /
-``load_checkpoint``).
+``sparse_update_stream`` with the JAX package's routing gates.
+``HybridRunner`` supplies the mode's bodies to the runner base
+(``parallel/runner.py``), whose steps run, on the card over NCCL, as
+replays of CUDA graphs, collectives included; gloo's collectives cannot be
+captured, so on the CPU (and over gloo on the card) the same bodies run
+eagerly. Checkpoints keep the JAX package's hybrid npz layout.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, List, Optional, Union
 
 import numpy as np
 import torch
 
-from dlrm_yx_tpu_torch.config import DLRMConfig, refuse_dcn_and_bags
+from dlrm_yx_tpu_torch.config import DLRMConfig
 from dlrm_yx_tpu_torch.data.batch import Batch
 from dlrm_yx_tpu_torch.models.dlrm import (
     _INIT_CHUNK_ROWS,
     DTYPES,
     _dense_params,
-    model_groups,
+    dense_leaves,
+    nest_dense,
     qr_specs,
 )
 from dlrm_yx_tpu_torch.ops.embedding import device_ints, dim_pack
 from dlrm_yx_tpu_torch.ops.interaction import interact_features
-from dlrm_yx_tpu_torch.ops.losses import loss_fn, predictions_from_logits
+from dlrm_yx_tpu_torch.ops.losses import loss_fn
 from dlrm_yx_tpu_torch.ops.md_embedding import init_md_projection
 from dlrm_yx_tpu_torch.ops.mlp import apply_mlp
 from dlrm_yx_tpu_torch.ops.qr_embedding import init_qr
 from dlrm_yx_tpu_torch.optim.optimizer import (
     DENSE_ACCUM_FACTOR,
     OptConfig,
-    acc_len,
     finish_dense,
+    init_dense_state,
     sparse_update,
     sparse_update_1d,
     sparse_update_stream,
+    store_state,
     stream_eligible,
-    update_dense_towers,
 )
-from dlrm_yx_tpu_torch.parallel.mesh import Mesh, make_mesh
+from dlrm_yx_tpu_torch.parallel.mesh import Mesh, batch_split
 from dlrm_yx_tpu_torch.parallel.plan import (
     ShardingPlan,
     arrange_sparse_inputs,
@@ -93,8 +93,14 @@ from dlrm_yx_tpu_torch.parallel.plan import (
     extract_tables,
     make_plan,
 )
-from dlrm_yx_tpu_torch.train.capture import GraphStep
-from dlrm_yx_tpu_torch.train.train_step import _lr_fn, scan_multistep
+from dlrm_yx_tpu_torch.parallel.runner import (
+    Runner,
+    dense_copy,
+    mesh_accum_body,
+    mesh_eval_body,
+    mesh_train_body,
+    single_device_tables,
+)
 from dlrm_yx_tpu_torch.utils.device import resolve_device
 from dlrm_yx_tpu_torch.utils.profiling import phase_scope
 
@@ -202,15 +208,9 @@ def params_from_single_device(config: DLRMConfig, plan: ShardingPlan, params: Di
     ``models.dlrm`` (plain tables: its group stores, on their device): the
     tables laid out by the plan (``build_sharded_emb`` on the stores' rows),
     the MLPs copied. The two runs then start from the same state."""
-    if config.qr_table_ids or config.md_table_ids or config.weighted_pooling:
-        raise NotImplementedError("params_from_single_device lays out plain tables only")
-    per_table = {}
-    for g, store in zip(model_groups(config), params["emb"]):
-        for t, n, off in zip(g.table_ids, g.rows, g.row_offsets):
-            per_table[t] = store[off: off + n]
-    big, small = build_sharded_emb(plan, config, per_table, model_index)
-    return {k: [(w.detach().clone(), b.detach().clone()) for w, b in params[k]]
-            for k in ("bot", "top")} | {"emb": big, "emb_small": small, "vw": None}
+    big, small = build_sharded_emb(plan, config, single_device_tables(config, params),
+                                   model_index)
+    return {**dense_copy(params), "emb": big, "emb_small": small, "vw": None}
 
 
 def init_hybrid_opt_state(opt: OptConfig, params: Dict, plan: ShardingPlan) -> Dict:
@@ -220,51 +220,14 @@ def init_hybrid_opt_state(opt: OptConfig, params: Dict, plan: ShardingPlan) -> D
     ``qr_r``); per-entry sums for ``vw`` / ``vw_small`` and ``md_proj``."""
     if opt.name == "sgd":
         return {}
-    dense = {k: [(torch.zeros_like(w), torch.zeros_like(b)) for w, b in params[k]]
-             for k in ("bot", "top")}
-
-    def emb_acc(e, rows):
-        if opt.name == "adagrad":
-            return torch.zeros_like(e)
-        return torch.zeros(acc_len(rows), dtype=torch.float32, device=e.device)
-
-    state = {"dense": dense, "emb": emb_acc(params["emb"], plan.r_big_pad),
-             "emb_small": emb_acc(params["emb_small"], plan.r_small_pad)}
+    state = {**init_dense_state(params), "emb": store_state(opt, params["emb"], plan.r_big_pad),
+             "emb_small": store_state(opt, params["emb_small"], plan.r_small_pad)}
     if params.get("vw") is not None:
         state["vw"] = torch.zeros_like(params["vw"])
         state["vw_small"] = torch.zeros_like(params["vw_small"])
-    if "md_proj" in params:
-        state["md_proj"] = [torch.zeros_like(w) for w in params["md_proj"]]
     if "qr_r" in params:
-        q = params["qr_r"]
-        state["qr_r"] = (torch.zeros_like(q) if opt.name == "adagrad"
-                         else q.new_zeros(q.shape[0]))
+        state["qr_r"] = store_state(opt, params["qr_r"])
     return state
-
-
-def shard_params(mesh: Mesh, plan: ShardingPlan, params: Dict, opt: OptConfig,
-                 opt_state: Dict):
-    """This rank's tensors, on its device, from the JAX package's whole
-    hybrid pytrees as numpy (``emb`` ``[M, ...]``, the RWSAdagrad momenta
-    flat over the shards): the counterpart of placing them on the mesh."""
-    from dlrm_yx_tpu_torch.convert import hybrid_opt_state_from_jax, hybrid_params_from_jax
-
-    return (hybrid_params_from_jax(params, plan, mesh.m, mesh.device),
-            hybrid_opt_state_from_jax(opt_state, opt, plan, mesh.m, mesh.device))
-
-
-def batch_split(mesh: Mesh, bsz: int):
-    """(rows a data shard looks up, rows a rank's towers take, the first of
-    this rank's tower rows) of a global batch of ``bsz``; raises as the JAX
-    package does when the mesh does not divide it."""
-    n_data, n_model = mesh.shape["data"], mesh.shape["model"]
-    if bsz % (n_data * n_model) or (bsz // n_data) % n_model:
-        raise ValueError(
-            f"batch size {bsz} incompatible with mesh {dict(mesh.shape)} (needs B % "
-            f"(data*model) == 0 and (B/data) % model == 0)")
-    bd = bsz // n_data
-    bl = bd // n_model
-    return bd, bl, (mesh.d * n_model + mesh.m) * bl
 
 
 def _local_batch(plan: ShardingPlan, mesh: Mesh, b: Batch) -> Batch:
@@ -511,26 +474,14 @@ def _top(rk: _Rank, dense: Dict, x: torch.Tensor, ly_ex: torch.Tensor) -> torch.
         return apply_mlp(z, dense["top"], c.sigmoid_top, rk.cdt, skip_last_activation=True)
 
 
-def _dense_leaves(params: Dict) -> Dict:
-    dense = {k: [(w.detach().requires_grad_(), c.detach().requires_grad_())
-                 for w, c in params[k]] for k in ("bot", "top")}
-    if "md_proj" in params:
-        dense["md_proj"] = [w.detach().requires_grad_() for w in params["md_proj"]]
-    return dense
-
-
-def _flat(dense: Dict) -> List[torch.Tensor]:
-    return ([t for k in ("bot", "top") for pair in dense[k] for t in pair]
-            + list(dense.get("md_proj", [])))
-
-
 def _forward_backward(rk: _Rank, params: Dict, b: Batch):
     """One micro-batch: lookups, exchange, dense forward and backward.
-    Returns (this rank's loss share, its dense grads flat in (bot, top,
-    md_proj) order, the pooled cotangent [t_pad, b, dim], the sections'
-    lookups)."""
+    Returns (this rank's loss share, its dense grads in ``dense_leaves``
+    order, (the pooled cotangent [t_pad, b, dim], the sections'
+    lookups))."""
     pooled, parts = _lookups(rk, params, b)
-    dense = _dense_leaves(params)
+    leaves = [p.detach().requires_grad_() for p in dense_leaves(params)]
+    dense = nest_dense(params, leaves)
     c = rk.config
     with torch.enable_grad():
         x, ly_ex = _bottom_and_exchange(rk, dense, b, pooled)
@@ -542,26 +493,9 @@ def _forward_backward(rk: _Rank, params: Dict, b: Batch):
             b_local = b.labels.shape[0]
             share = local * (b_local / (b_local * rk.mesh.shape["data"] * rk.mesh.shape["model"]))
     with phase_scope("backward"):
-        grads = torch.autograd.grad(share, _flat(dense) + [ly_ex])
+        grads = torch.autograd.grad(share, leaves + [ly_ex])
     g_pooled = _exchange_back(rk.mesh, grads[-1], rk.plan.t_pad)
-    return share.detach(), list(grads[:-1]), g_pooled, parts
-
-
-def _all_reduce_dense(rk: _Rank, loss: torch.Tensor, grads: List[torch.Tensor], params: Dict):
-    """One all-reduce (sum over the world) of the loss and the dense grads;
-    returns (loss, grads as {"bot", "top"} pairs [and "md_proj"])."""
-    flat = torch.cat([loss.reshape(1)] + [g.reshape(-1) for g in grads])
-    with phase_scope("allreduce"):
-        rk.mesh.all_reduce(flat)
-    out, pos = [], 1
-    for g in grads:
-        out.append(flat[pos: pos + g.numel()].view(g.shape))
-        pos += g.numel()
-    it = iter(out)
-    g_dense = {k: [(next(it), next(it)) for _ in params[k]] for k in ("bot", "top")}
-    if "md_proj" in params:
-        g_dense["md_proj"] = [next(it) for _ in params["md_proj"]]
-    return flat[0], g_dense
+    return share.detach(), list(grads[:-1]), (g_pooled, parts)
 
 
 def _gather_batch_axis(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
@@ -679,23 +613,6 @@ def _sparse_updates(rk: _Rank, opt: OptConfig, params: Dict, opt_state: Dict, b:
     finish_dense(dense, lr, opt.eps)
 
 
-def hybrid_train_body(config: DLRMConfig, plan: ShardingPlan, opt: OptConfig, mesh: Mesh):
-    """body(params, opt_state, b, lr, sr_seed) -> loss: one hybrid optimizer
-    step on this rank's device batch ``b`` (``prepare_batch``'s part);
-    ``loss`` is the global batch's mean loss, the same on every rank."""
-    rk = _Rank(config, plan, mesh, opt)
-
-    def body(params, opt_state, b, lr, _sr_seed):
-        share, grads, g_pooled, parts = _forward_backward(rk, params, b)
-        loss, g_dense = _all_reduce_dense(rk, share, grads, params)
-        with torch.no_grad(), phase_scope("optimizer"):
-            update_dense_towers(opt, params, opt_state, g_dense, lr)
-            _sparse_updates(rk, opt, params, opt_state, b, parts, g_pooled, lr)
-        return loss
-
-    return body
-
-
 def _accum_updates(rk: _Rank, opt: OptConfig, params: Dict, opt_state: Dict, batches: Batch,
                    gidx_stk, g_stk: torch.Tensor, lr) -> None:
     """The accumulation step's sparse updates: one coalesced update a store
@@ -755,270 +672,70 @@ def _accum_updates(rk: _Rank, opt: OptConfig, params: Dict, opt_state: Dict, bat
                      torch.where(keep[:, None], gr, 0.0), lr)
 
 
-def hybrid_accum_body(config: DLRMConfig, plan: ShardingPlan, opt: OptConfig, mesh: Mesh,
-                      n_accum: int):
-    """body(params, opt_state, batches, lrs, seeds) -> mean micro-batch loss:
-    gradient accumulation over ``n_accum`` stacked micro-batches with one
-    optimizer step (``hybrid.py:426-886``): dense grads summed, every
-    micro-batch's row grads (from the stores before the step) applied in
-    one coalesced update a store section."""
-    rk = _Rank(config, plan, mesh, opt)
+def _logits(rk: _Rank, params: Dict, b: Batch) -> torch.Tensor:
+    """The forward alone: the logits of the rank's tower rows."""
+    pooled, _ = _lookups(rk, params, b)
+    return _top(rk, params, *_bottom_and_exchange(rk, params, b, pooled))
 
-    def body(params, opt_state, batches, lrs, _seeds):
-        lr = lrs[0]
-        loss_sum = g_sum = None
-        ids = [[] for _ in range(2)]
-        gps = []
-        for i in range(n_accum):
-            b = Batch(*(f[i] for f in batches))
-            share, grads, g_pooled, parts = _forward_backward(rk, params, b)
-            with torch.no_grad():
-                loss_sum = share if loss_sum is None else loss_sum + share
-                g_sum = grads if g_sum is None else [a + g for a, g in zip(g_sum, grads)]
-            gps.append(g_pooled)
-            for p, (si, *_r) in zip(parts, rk.sections()):
-                ids[si].append(p.gidx)
-        loss, g_dense = _all_reduce_dense(rk, loss_sum, g_sum, params)
-        with torch.no_grad(), phase_scope("optimizer"):
-            update_dense_towers(opt, params, opt_state, g_dense, lr)
+
+class HybridRunner(Runner):
+    """The hybrid-parallel runner (--shard-mode table: the reference picks
+    its parallel path inside DLRM_Net.forward, dlrm_s_pytorch.py:675-684),
+    so the CLI's --mesh-data / --mesh-model flags drive the same epoch loop
+    as single-device training. ``sharder`` and ``allocation`` place the
+    tables (``parallel/plan.make_plan``); ``params`` (this rank's hybrid
+    params, e.g. from ``params_from_single_device``) replaces the host draw
+    of ``init_hybrid_params``."""
+
+    sharded_keys = ("emb", "emb_small", "vw", "vw_small")
+    init_params = staticmethod(init_hybrid_params)
+    init_opt_state = staticmethod(init_hybrid_opt_state)
+
+    @staticmethod
+    def make_plan(config: DLRMConfig, n_model: int, sharder: str = "greedy", allocation=None):
+        return make_plan(config, n_model, sharder, allocation)
+
+    def make_bodies(self):
+        rk = _Rank(self.config, self.plan, self.mesh, self.opt)
+        opt = self.opt
+        fb = functools.partial(_forward_backward, rk)
+
+        def updates(params, opt_state, b, piece, lr):
+            g_pooled, parts = piece
+            _sparse_updates(rk, opt, params, opt_state, b, parts, g_pooled, lr)
+
+        def accum_updates(params, opt_state, batches, pieces, lr):
+            ids = [[], []]
+            for _, parts in pieces:
+                for p, (si, *_r) in zip(parts, rk.sections()):
+                    ids[si].append(p.gidx)
             _accum_updates(rk, opt, params, opt_state, batches,
-                           [torch.stack(x) if x else None for x in ids], torch.stack(gps), lr)
-        return loss / n_accum
+                           [torch.stack(x) if x else None for x in ids],
+                           torch.stack([g for g, _ in pieces]), lr)
 
-    return body
-
-
-def hybrid_eval_body(config: DLRMConfig, plan: ShardingPlan, mesh: Mesh):
-    """body(params, _, b, _, _) -> (predictions [B, 1] of the whole global
-    batch, gathered over the world in batch order; the mean of the ranks'
-    mean losses)."""
-    rk = _Rank(config, plan, mesh)
-
-    def body(params, _opt_state, b, _lrs, _seeds):
-        pooled, _ = _lookups(rk, params, b)
-        x, ly_ex = _bottom_and_exchange(rk, params, b, pooled)
-        logits = _top(rk, params, x, ly_ex)
-        preds = predictions_from_logits(logits, config.loss_threshold)
-        local = loss_fn(logits, b.labels, config.loss, config.loss_threshold,
-                        config.wbce_weights)
-        loss = mesh.all_reduce(local.reshape(1).clone())[0] / mesh.size
-        return mesh.all_gather_world(preds), loss
-
-    return body
-
-
-def _single_step(inner, lr_fn, mesh: Mesh, capture: bool):
-    def body(params, opt_state, b, lrs, seeds):
-        return inner(params, opt_state, b, lrs[0], seeds[0])
-
-    graph_step = GraphStep(body, 1, lr_fn, mesh.device, capture)
-
-    def step(params, opt_state, batch, iteration):
-        return params, opt_state, graph_step(params, opt_state, batch, iteration)
-
-    step.graph_step = graph_step
-    return step
-
-
-def make_hybrid_train_step(config: DLRMConfig, plan: ShardingPlan, opt: OptConfig,
-                           mesh: Mesh, lr_fn=None, capture: Optional[bool] = None):
-    """step(params, opt_state, batch, iteration) -> (params, opt_state,
-    loss): ``batch`` is this rank's part (``prepare_batch``), updated in
-    place; a CUDA-graph replay where the mesh's collectives can be captured
-    (NCCL on the card) unless ``capture`` says otherwise, eager otherwise."""
-    return _single_step(hybrid_train_body(config, plan, opt, mesh),
-                        _lr_fn(opt, lr_fn), mesh,
-                        mesh.capturable if capture is None else capture)
-
-
-def make_hybrid_multistep_train_step(config: DLRMConfig, plan: ShardingPlan, opt: OptConfig,
-                                     mesh: Mesh, n_steps: int, lr_fn=None):
-    """``n_steps`` full hybrid steps a call (one replay where the mesh can
-    be captured): ``batches`` stacked ``[n_steps, ...]`` (``prepare_batch``
-    of a stack); returns (params, opt_state, losses [n_steps])."""
-    return scan_multistep(hybrid_train_body(config, plan, opt, mesh), n_steps,
-                          _lr_fn(opt, lr_fn), mesh.device, mesh.capturable)
-
-
-def make_hybrid_accum_train_step(config: DLRMConfig, plan: ShardingPlan, opt: OptConfig,
-                                 mesh: Mesh, n_accum: int, lr_fn=None):
-    """Gradient accumulation over ``n_accum`` stacked micro-batches, one
-    optimizer step; returns (params, opt_state, mean micro-batch loss)."""
-    return accum_step(hybrid_accum_body(config, plan, opt, mesh, n_accum), opt, lr_fn, mesh)
-
-
-def accum_step(body, opt: OptConfig, lr_fn, mesh: Mesh):
-    """step(params, opt_state, batches, iteration) -> (params, opt_state,
-    loss) of an accumulation ``body``: one dispatch, a CUDA-graph replay
-    where the mesh's collectives can be captured."""
-    graph_step = GraphStep(body, 1, _lr_fn(opt, lr_fn), mesh.device, mesh.capturable)
-
-    def step(params, opt_state, batches, iteration):
-        return params, opt_state, graph_step(params, opt_state, batches, iteration)
-
-    step.graph_step = graph_step
-    return step
-
-
-def make_hybrid_eval_step(config: DLRMConfig, plan: ShardingPlan, mesh: Mesh):
-    """eval(params, batch) -> (predictions [B, 1] of the whole batch, loss);
-    ``batch`` is this rank's part."""
-    return eval_step_of(hybrid_eval_body(config, plan, mesh), mesh)
-
-
-def eval_step_of(body, mesh: Mesh):
-    """eval(params, batch) of an eval ``body`` (a CUDA-graph replay where
-    the mesh's collectives can be captured)."""
-    graph_step = GraphStep(body, 0, None, mesh.device, mesh.capturable, inference=True)
-
-    def eval_step(params, batch):
-        return graph_step(params, None, batch)
-
-    eval_step.graph_step = graph_step
-    return eval_step
-
-
-def gather_single_device_params(config: DLRMConfig, plan: ShardingPlan, mesh: Mesh,
-                                params: Dict) -> Dict:
-    """The canonical single-device params (``models.dlrm``'s group stores,
-    f32) from every rank's shard, on every rank: the model group's stores
-    gathered, ``extract_tables``, laid into ``model_groups(config)``. For
-    export and quantized serving from a runner (the JAX CLI's
-    ``_gather_params``); a collective."""
-    if config.qr_table_ids or config.md_table_ids or config.weighted_pooling:
-        raise NotImplementedError(
-            "canonical export from a mesh runner supports plain tables only "
-            "(QR/MD/weighted-pooling variants: train single-device or "
-            "export from a checkpoint)")
-    big = mesh.all_gather_model(params["emb"].unsqueeze(0))
-    small = mesh.all_gather_model(params["emb_small"].unsqueeze(0))
-    tables = extract_tables(plan, config, big, small)
-    emb = []
-    for g in model_groups(config):
-        store = torch.zeros((g.total_rows, g.dim), dtype=torch.float32, device=mesh.device)
-        for tid, n, off in zip(g.table_ids, g.rows, g.row_offsets):
-            store[off: off + n] = tables[tid][:n]
-        emb.append(store)
-    return {"bot": [(w.detach().clone(), b.detach().clone()) for w, b in params["bot"]],
-            "top": [(w.detach().clone(), b.detach().clone()) for w, b in params["top"]],
-            "emb": emb, "vw": None}
-
-
-class MeshRunner:
-    """What the three mesh runners share: the checkpoint of their sharded
-    pytrees in the JAX package's npz layout, gathered to rank 0 to save and
-    resharded on load. A runner names ``sharded_keys`` (the leaves each
-    model rank holds a part of) and converts its shards with ``_to_jax``."""
-
-    sharded_keys = ()
-
-    def _model_shards(self, tree: Dict) -> List[Dict]:
-        """The M model shards of a rank's tree, gathered over its model group."""
-        if not tree:
-            return [{}] * self.mesh.shape["model"]
-        gathered = {k: self.mesh.all_gather_model(tree[k].unsqueeze(0))
-                    for k in self.sharded_keys if tree.get(k) is not None}
-        return [dict(tree, **{k: g[j] for k, g in gathered.items()})
-                for j in range(self.mesh.shape["model"])]
-
-    def save_checkpoint(self, path: str, params: Dict, opt_state: Dict, **meta) -> None:
-        """Write the JAX package's npz checkpoint of the runner's pytrees, as
-        its ``load_checkpoint`` reads them: every rank takes part in the
-        gather, rank 0 writes. ``meta``: ``write_checkpoint``'s counters."""
-        from dlrm_yx_tpu_torch.train.checkpoint import write_checkpoint
-        from dlrm_yx_tpu_torch.utils.logging import is_rank0
-
-        shards, states = self._model_shards(params), self._model_shards(opt_state)
-        if is_rank0():
-            write_checkpoint(path, *self._to_jax(shards, states), **meta)
-
-    def load_checkpoint(self, path: str, params: Dict, opt_state: Dict) -> Dict:
-        """Read a checkpoint of this runner's kind (this package's or the JAX
-        package's) and copy this rank's shards into ``params`` /
-        ``opt_state`` in place (``reshard``; a captured step stays bound to
-        them); returns its meta."""
-        from dlrm_yx_tpu_torch.train.checkpoint import (
-            _leaves,
-            read_leaves,
-            read_meta,
-            unflatten,
-        )
-
-        trees = []
-        for name, like in (("params", params), ("opt_state", opt_state)):
-            leaves = read_leaves(path, name)
-            if len(leaves) != len(_leaves(like)):
-                raise ValueError(f"{path}/{name}.npz holds {len(leaves)} leaves, the run has "
-                                 f"{len(_leaves(like))}")
-            trees.append(unflatten(like, iter(leaves)))
-        new = self.reshard(*trees)
-        with torch.no_grad():
-            for dst, src in zip(_leaves((params, opt_state)), _leaves(new)):
-                dst.copy_(src)
-        return read_meta(path)
-
-
-class HybridRunner(MeshRunner):
-    """The hybrid-parallel pieces behind the Trainer's runner interface
-    (``params``, ``opt_state``, ``train_step``, ``eval_step``,
-    ``prepare_batch``, ``make_multi_step``, ``reshard``, ``n_accum``), so the
-    CLI's --mesh-data / --mesh-model flags drive the same epoch loop as
-    single-device training (the reference picks its parallel path inside
-    DLRM_Net.forward, dlrm_s_pytorch.py:675-684). One per rank: the mesh is
-    the world's ranks (``parallel/mesh.py``). ``params`` (this rank's
-    hybrid params, e.g. from ``params_from_single_device``) replaces the
-    host draw of ``init_hybrid_params``. The steps are CUDA-graph replays
-    where the mesh's collectives can be captured (NCCL on the card)."""
-
-    def __init__(self, config: DLRMConfig, opt: OptConfig, data: int = 1,
-                 model: Optional[int] = None, sharder: str = "greedy", allocation=None,
-                 lr_fn=None, seed: int = 123, n_accum: int = 1,
-                 device: Optional[Union[str, torch.device]] = None,
-                 params: Optional[Dict] = None):
-        refuse_dcn_and_bags(config, "HybridRunner")
-        self.config = config
-        self.opt = opt
-        self._lr_fn = lr_fn
-        self.n_accum = max(1, n_accum)
-        self.mesh = make_mesh(data, model, device)
-        self.device = self.mesh.device
-        self.plan = make_plan(config, self.mesh.shape["model"], sharder, allocation)
-        self.params = (init_hybrid_params(config, self.plan, seed, self.mesh.m, self.device)
-                       if params is None else params)
-        self.opt_state = init_hybrid_opt_state(opt, self.params, self.plan)
-        if self.n_accum > 1:
-            self.train_step = make_hybrid_accum_train_step(
-                config, self.plan, opt, self.mesh, self.n_accum, lr_fn)
-        else:
-            self.train_step = make_hybrid_train_step(config, self.plan, opt, self.mesh, lr_fn)
-        self.eval_step = make_hybrid_eval_step(config, self.plan, self.mesh)
-
-    def make_multi_step(self, n_steps: int):
-        """``n_steps`` full optimizer steps a dispatch (Trainer
-        --steps-per-dispatch); batches stacked ``[n_steps, ...]``."""
-        if self.n_accum > 1:
-            raise ValueError("multi-step dispatch composes with accum at "
-                             "the trainer level, not both at once")
-        return make_hybrid_multistep_train_step(self.config, self.plan, self.opt, self.mesh,
-                                                n_steps, self._lr_fn)
+        return (mesh_train_body(self.mesh, opt, fb, updates),
+                mesh_accum_body(self.mesh, opt, self.n_accum, fb, accum_updates),
+                mesh_eval_body(self.mesh, self.config, functools.partial(_logits, rk)))
 
     def prepare_batch(self, b: Batch) -> Batch:
         return prepare_batch(self.plan, self.mesh, b)
 
-    def eager_step(self):
-        """One optimizer step a call, run eagerly (--collect-execution-graph)."""
-        return make_hybrid_train_step(self.config, self.plan, self.opt, self.mesh, self._lr_fn,
-                                      capture=False)
-
     def reshard(self, params, opt_state):
-        """This rank's tensors from host pytrees in the JAX package's
-        hybrid layout (e.g. a loaded checkpoint)."""
-        return shard_params(self.mesh, self.plan, params, self.opt, opt_state)
+        """This rank's tensors, on its device, from the JAX package's whole
+        hybrid pytrees as numpy (``emb`` ``[M, ...]``, the RWSAdagrad
+        momenta flat over the shards; e.g. a loaded checkpoint)."""
+        from dlrm_yx_tpu_torch.convert import hybrid_opt_state_from_jax, hybrid_params_from_jax
 
-    def single_device_params(self, params: Dict) -> Dict:
-        return gather_single_device_params(self.config, self.plan, self.mesh, params)
+        m, dev = self.mesh.m, self.device
+        return (hybrid_params_from_jax(params, self.plan, m, dev),
+                hybrid_opt_state_from_jax(opt_state, self.opt, self.plan, m, dev))
 
-    sharded_keys = ("emb", "emb_small", "vw", "vw_small")
+    def tables(self, params: Dict):
+        """Every table's weights by canonical id, on every rank, from the
+        model group's stores (``extract_tables``; a collective)."""
+        big = self.mesh.all_gather_model(params["emb"].unsqueeze(0))
+        small = self.mesh.all_gather_model(params["emb_small"].unsqueeze(0))
+        return extract_tables(self.plan, self.config, big, small)
 
     def _to_jax(self, shards: List[Dict], states: List[Dict]):
         """The JAX package's hybrid pytrees (``emb`` ``[M, r_big_pad / pack,

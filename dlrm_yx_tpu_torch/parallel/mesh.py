@@ -144,3 +144,17 @@ def make_mesh(data: int = 1, model: Optional[int] = None,
                          "mesh: one rank a device, every rank on the mesh")
     return Mesh(data, model, resolve_device(device))
 
+
+
+def batch_split(mesh: Mesh, bsz: int):
+    """(rows a data shard looks up, rows a rank's towers take, the first of
+    this rank's tower rows) of a global batch of ``bsz``; raises as the JAX
+    package does when the mesh does not divide it."""
+    n_data, n_model = mesh.shape["data"], mesh.shape["model"]
+    if bsz % (n_data * n_model) or (bsz // n_data) % n_model:
+        raise ValueError(
+            f"batch size {bsz} incompatible with mesh {dict(mesh.shape)} (needs B % "
+            f"(data*model) == 0 and (B/data) % model == 0)")
+    bd = bsz // n_data
+    bl = bd // n_model
+    return bd, bl, (mesh.d * n_model + mesh.m) * bl

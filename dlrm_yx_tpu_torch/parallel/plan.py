@@ -28,14 +28,8 @@ import numpy as np
 import torch
 
 from dlrm_yx_tpu_torch.config import DLRMConfig
-from dlrm_yx_tpu_torch.ops.embedding import SENTINEL_ROWS, dim_pack
+from dlrm_yx_tpu_torch.ops.embedding import ROW_ALIGN, SENTINEL_ROWS, _round_up, dim_pack
 from dlrm_yx_tpu_torch.parallel.sharders import shard
-
-ROW_ALIGN = 8
-
-
-def _round_up(x: int, m: int) -> int:
-    return ((x + m - 1) // m) * m
 
 
 @dataclasses.dataclass(frozen=True)

@@ -30,32 +30,41 @@ The port keeps logical ``[rows, dim]`` stores, as for every group store;
 JAX's ``pack`` stays as metadata: it sets the row alignment (so each
 logical row sits on the shard and at the offset it has in JAX) and the
 update gates read the packed layout from it (``optim.sparse_update``).
-The steps run as CUDA-graph replays over NCCL on the card and eagerly
-elsewhere (``parallel/hybrid.py``); ``RowShardedRunner`` bundles them
-behind the Trainer's runner interface, and its checkpoints keep the JAX
-package's npz layout of the runner's pytrees.
+``RowShardedRunner`` supplies the mode's bodies to the runner base
+(``parallel/runner.py``), whose steps run as CUDA-graph replays over NCCL
+on the card and eagerly elsewhere; its checkpoints keep the JAX package's
+npz layout of the runner's pytrees.
 
 The helpers shared with column sharding (``parallel/col_sharded.py``) live
 here, as in the JAX package: ``_reject_unsupported_variants``,
 ``_take_tables``, ``_small_lookup``, ``_update_small``, the towers and the
-runner's batch and checkpoint plumbing.
+runner's batch and checkpoint plumbing (``ShardedRunner``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, List, Optional, Union
 
 import numpy as np
 import torch
 
-from dlrm_yx_tpu_torch.config import DLRMConfig, refuse_dcn_and_bags
+from dlrm_yx_tpu_torch.config import DLRMConfig
 from dlrm_yx_tpu_torch.convert import _array, _tensor, _towers
 from dlrm_yx_tpu_torch.data.batch import Batch
-from dlrm_yx_tpu_torch.models.dlrm import _INIT_CHUNK_ROWS, DTYPES, _dense_params, model_groups
+from dlrm_yx_tpu_torch.models.dlrm import (
+    _INIT_CHUNK_ROWS,
+    DTYPES,
+    _dense_params,
+    dense_leaves,
+    nest_dense,
+)
 from dlrm_yx_tpu_torch.ops.embedding import (
+    ROW_ALIGN,
     SENTINEL_ROWS,
     TableGroup,
+    _round_up,
     build_table_groups,
     device_ints,
     dim_pack,
@@ -64,35 +73,26 @@ from dlrm_yx_tpu_torch.ops.embedding import (
     vw_row_grads,
 )
 from dlrm_yx_tpu_torch.ops.interaction import interact_features
-from dlrm_yx_tpu_torch.ops.losses import loss_fn, predictions_from_logits
+from dlrm_yx_tpu_torch.ops.losses import loss_fn
 from dlrm_yx_tpu_torch.ops.mlp import apply_mlp
 from dlrm_yx_tpu_torch.optim.optimizer import (
     OptConfig,
-    acc_len,
+    init_dense_state,
     sparse_update,
     sparse_update_1d,
-    update_dense_towers,
+    store_state,
 )
-from dlrm_yx_tpu_torch.parallel.hybrid import (
-    MeshRunner,
-    _all_reduce_dense,
-    _dense_leaves,
-    _flat,
-    _single_step,
-    accum_step,
-    batch_split,
-    eval_step_of,
+from dlrm_yx_tpu_torch.parallel.mesh import Mesh, batch_split
+from dlrm_yx_tpu_torch.parallel.runner import (
+    Runner,
+    dense_copy,
+    mesh_accum_body,
+    mesh_eval_body,
+    mesh_train_body,
+    single_device_tables,
 )
-from dlrm_yx_tpu_torch.parallel.mesh import Mesh, make_mesh
-from dlrm_yx_tpu_torch.train.train_step import _lr_fn, scan_multistep
 from dlrm_yx_tpu_torch.utils.device import resolve_device
 from dlrm_yx_tpu_torch.utils.profiling import phase_scope
-
-ROW_ALIGN = 8
-
-
-def _round_up(x: int, m: int) -> int:
-    return ((x + m - 1) // m) * m
 
 
 def _reject_unsupported_variants(config: DLRMConfig, mode: str) -> None:
@@ -322,15 +322,6 @@ def init_row_sharded_params(config: DLRMConfig, plan: RowShardPlan, seed: int = 
     return params
 
 
-def _tables_of(config: DLRMConfig, params: Dict) -> Dict[int, torch.Tensor]:
-    """Each table's rows in the single-device params' group stores."""
-    if config.qr_table_ids or config.md_table_ids or config.weighted_pooling:
-        raise NotImplementedError("params_from_single_device lays out plain tables only")
-    return {t: store[off: off + n]
-            for g, store in zip(model_groups(config), params["emb"])
-            for t, n, off in zip(g.table_ids, g.rows, g.row_offsets)}
-
-
 def _small_from_tables(plan, tables, like: torch.Tensor):
     sg = plan.small_group
     if sg is None:
@@ -341,32 +332,21 @@ def _small_from_tables(plan, tables, like: torch.Tensor):
     return small
 
 
-def _mlps(params: Dict) -> Dict:
-    return {k: [(w.detach().clone(), b.detach().clone()) for w, b in params[k]]
-            for k in ("bot", "top")}
-
-
 def params_from_single_device(config: DLRMConfig, plan: RowShardPlan, params: Dict,
                               model_index: int = 0) -> Dict:
     """Shard ``model_index``'s row-sharded params from the single-device
     params of ``models.dlrm`` (plain tables, on their device): its rows of
     the big space and the small store laid out by the plan, the MLPs
     copied. The two runs then start from the same state."""
-    tables = _tables_of(config, params)
+    tables = single_device_tables(config, params)
     like = params["emb"][0]
     store = torch.zeros((plan.store_rows, plan.dim), dtype=torch.float32, device=like.device)
     lo = model_index * plan.rows_local
     for t, off in zip(plan.big_ids, plan.row_offsets):
         _place_rows(store[: plan.rows_local], lo, off, tables[t].float())
-    return {**_mlps(params), "emb": store, "vw": None,
+    return {**dense_copy(params), "emb": store, "vw": None,
             **_small_params(config, plan.small_group, _small_from_tables(plan, tables, like),
                             like.device)}
-
-
-def _emb_acc(opt: OptConfig, store: torch.Tensor, rows: int) -> torch.Tensor:
-    if opt.name == "adagrad":
-        return torch.zeros_like(store)
-    return torch.zeros(acc_len(rows), dtype=torch.float32, device=store.device)
 
 
 def init_sharded_opt_state(opt: OptConfig, params: Dict, plan) -> Dict:
@@ -377,14 +357,10 @@ def init_sharded_opt_state(opt: OptConfig, params: Dict, plan) -> Dict:
     per-entry sums for ``vw`` / ``vw_small``. Keys as the JAX package's."""
     if opt.name == "sgd":
         return {}
-    rows = params["emb"].shape[0]
-    state = {"dense": {k: [(torch.zeros_like(w), torch.zeros_like(b)) for w, b in params[k]]
-                       for k in ("bot", "top")},
-             "emb": _emb_acc(opt, params["emb"], rows)}
+    emb = params["emb"]
+    state = {**init_dense_state(params), "emb": store_state(opt, emb, emb.shape[0])}
     if params.get("emb_small") is not None:
-        small = params["emb_small"]
-        state["emb_small"] = (torch.zeros_like(small) if opt.name == "adagrad"
-                              else small.new_zeros(small.shape[0]))
+        state["emb_small"] = store_state(opt, params["emb_small"])
     if params.get("vw") is not None:
         state["vw"] = torch.zeros_like(params["vw"])
         if params.get("vw_small") is not None:
@@ -565,17 +541,18 @@ def _assemble(rk: _Rank, pooled_big: torch.Tensor, small: Optional[torch.Tensor]
 def _dense_backward(rk: _Rank, params: Dict, b: Batch, pooled_big: torch.Tensor,
                     small: Optional[_Small]):
     """The towers' forward and backward with the pooled values as leaves:
-    (the loss share, the dense grads flat, the big pooled cotangent, the
-    small one or None)."""
-    dense = _dense_leaves(params)
+    (the loss share, the dense grads in ``dense_leaves`` order, the big
+    pooled cotangent, the small one or None)."""
+    dense = [p.detach().requires_grad_() for p in dense_leaves(params)]
     leaves = [pooled_big.detach().requires_grad_()]
     if small is not None:
         leaves.append(small.pooled.detach().requires_grad_())
     with torch.enable_grad():
         pooled = _assemble(rk, leaves[0], leaves[1] if small is not None else None)
-        share, _ = _tower_forward(rk, dense, b, pooled, b.labels.shape[0] * rk.n_total)
+        share, _ = _tower_forward(rk, nest_dense(params, dense), b, pooled,
+                                  b.labels.shape[0] * rk.n_total)
     with phase_scope("backward"):
-        grads = torch.autograd.grad(share, _flat(dense) + leaves)
+        grads = torch.autograd.grad(share, dense + leaves)
     n = len(grads) - len(leaves)
     return (share.detach(), list(grads[:n]), grads[n],
             grads[n + 1] if small is not None else None)
@@ -628,62 +605,6 @@ def _old_rows_taken(c: DLRMConfig, plan, store: torch.Tensor, l: int) -> bool:
     return (l == 1 and not plan.dups_in_big and store.dtype == torch.float32
             and not c.exact_row_momentum and not c.stochastic_rounding
             and c.sparse_update_impl in ("pallas", "stream"))
-
-
-def eval_body(rk: _Rank, lookup_pooled):
-    """body(params, _, b, _, _) -> (predictions [B, 1] of the whole global
-    batch in batch order, the mean of the ranks' mean losses);
-    ``lookup_pooled(params, b)`` gives the canonical pooled values of the
-    rank's batch slice."""
-    def body(params, _opt_state, b, _lrs, _seeds):
-        pooled = lookup_pooled(params, b)
-        _, logits = _tower_forward(rk, params, b, pooled, b.labels.shape[0])
-        c = rk.config
-        preds = predictions_from_logits(logits, c.loss_threshold)
-        local = loss_fn(logits, b.labels, c.loss, c.loss_threshold, c.wbce_weights)
-        loss = rk.mesh.all_reduce(local.reshape(1).clone())[0] / rk.mesh.size
-        return rk.mesh.all_gather_world(preds), loss
-
-    return body
-
-
-def accum_body(rk: _Rank, opt: OptConfig, n_accum: int, forward_backward, updates):
-    """body(params, opt_state, batches, lrs, seeds) -> mean micro-batch
-    loss: ``n_accum`` micro-batches, dense grads summed, one optimizer step
-    (``forward_backward(params, b)`` -> (share, dense grads, per-micro
-    pieces); ``updates(params, opt_state, batches, pieces, lr)`` applies
-    the sparse updates from every micro-batch's pieces)."""
-    def body(params, opt_state, batches, lrs, _seeds):
-        lr = lrs[0]
-        loss_sum = g_sum = None
-        pieces = []
-        for i in range(n_accum):
-            share, grads, piece = forward_backward(params, Batch(*(f[i] for f in batches)))
-            with torch.no_grad():
-                loss_sum = share if loss_sum is None else loss_sum + share
-                g_sum = grads if g_sum is None else [a + g for a, g in zip(g_sum, grads)]
-            pieces.append(piece)
-        loss, g_dense = _all_reduce_dense(rk, loss_sum, g_sum, params)
-        with torch.no_grad(), phase_scope("optimizer"):
-            update_dense_towers(opt, params, opt_state, g_dense, lr)
-            updates(params, opt_state, batches, pieces, lr)
-        return loss / n_accum
-
-    return body
-
-
-def train_body(rk: _Rank, opt: OptConfig, forward_backward, updates):
-    """body(params, opt_state, b, lr, sr_seed) -> the global batch's mean
-    loss: one optimizer step on the rank's batch ``b``."""
-    def body(params, opt_state, b, lr, _sr_seed):
-        share, grads, piece = forward_backward(params, b)
-        loss, g_dense = _all_reduce_dense(rk, share, grads, params)
-        with torch.no_grad(), phase_scope("optimizer"):
-            update_dense_towers(opt, params, opt_state, g_dense, lr)
-            updates(params, opt_state, b, piece, lr)
-        return loss
-
-    return body
 
 
 # ---------------------------------------------------------------------------
@@ -743,15 +664,12 @@ def _row_lookups(rk: _Rank, params: Dict, b: Batch):
     return pooled_big, small, look
 
 
-def _row_forward_backward(rk: _Rank):
-    def fb(params, b):
-        pooled_big, small, look = _row_lookups(rk, params, b)
-        share, grads, g_big, g_small = _dense_backward(rk, params, b, pooled_big, small)
-        g_full = gather_model_batch(rk.mesh, g_big)
-        g_s_full = gather_model_batch(rk.mesh, g_small) if small is not None else None
-        return share, grads, (look, g_full, small, g_s_full)
-
-    return fb
+def _row_forward_backward(rk: _Rank, params, b):
+    pooled_big, small, look = _row_lookups(rk, params, b)
+    share, grads, g_big, g_small = _dense_backward(rk, params, b, pooled_big, small)
+    g_full = gather_model_batch(rk.mesh, g_big)
+    g_s_full = gather_model_batch(rk.mesh, g_small) if small is not None else None
+    return share, grads, (look, g_full, small, g_s_full)
 
 
 def _row_vw_grads(plan: RowShardPlan, local_ids, w_b, rows, g_full):
@@ -779,165 +697,82 @@ def _vw_update(rk: _Rank, opt: OptConfig, params: Dict, opt_state: Dict, vidx, g
                      mesh.all_gather_data(vidx), mesh.all_gather_data(gv), lr, sentinel)
 
 
-def _row_updates(rk: _Rank, opt: OptConfig):
+def _row_updates(rk: _Rank, opt: OptConfig, params, opt_state, b, piece, lr):
     """The sparse updates of one step (``row_sharded.py:668-766``)."""
-    def updates(params, opt_state, b, piece, lr):
-        look, g_full, small, g_s_full = piece
-        c, plan, mesh = rk.config, rk.plan, rk.mesh
-        t, bd, l = look.local_ids.shape
-        learned = params.get("vw") is not None and c.weighted_pooling == "learned"
-        gv = _row_vw_grads(plan, look.local_ids, look.w_b, look.rows, g_full) if learned else None
-        flat_g = (look.w_eff[..., None] * g_full[:, :, None, :]).reshape(-1, plan.dim)
-        old = None
-        if _old_rows_taken(c, plan, params["emb"], l):
-            # the rows the lookup gathered, over "data": the write-only update
-            old = mesh.all_gather_data(look.rows[:, :, 0, :].reshape(t * bd, -1))
-        _row_big_update(rk, opt, params, opt_state, look.local_ids.reshape(-1), flat_g, lr, old)
-        if small is not None:
-            _update_small(rk, opt, params, opt_state, small.idx, small.w, g_s_full, lr)
-        if learned:
-            _vw_update(rk, opt, params, opt_state, look.local_ids.reshape(-1), gv, lr,
-                       plan.rows_local)
-
-    return updates
+    look, g_full, small, g_s_full = piece
+    c, plan, mesh = rk.config, rk.plan, rk.mesh
+    t, bd, l = look.local_ids.shape
+    learned = params.get("vw") is not None and c.weighted_pooling == "learned"
+    gv = _row_vw_grads(plan, look.local_ids, look.w_b, look.rows, g_full) if learned else None
+    flat_g = (look.w_eff[..., None] * g_full[:, :, None, :]).reshape(-1, plan.dim)
+    old = None
+    if _old_rows_taken(c, plan, params["emb"], l):
+        # the rows the lookup gathered, over "data": the write-only update
+        old = mesh.all_gather_data(look.rows[:, :, 0, :].reshape(t * bd, -1))
+    _row_big_update(rk, opt, params, opt_state, look.local_ids.reshape(-1), flat_g, lr, old)
+    if small is not None:
+        _update_small(rk, opt, params, opt_state, small.idx, small.w, g_s_full, lr)
+    if learned:
+        _vw_update(rk, opt, params, opt_state, look.local_ids.reshape(-1), gv, lr,
+                   plan.rows_local)
 
 
-def _row_accum_updates(rk: _Rank, opt: OptConfig):
+def _row_accum_updates(rk: _Rank, opt: OptConfig, params, opt_state, batches, pieces, lr):
     """The accumulation step's sparse updates: every micro-batch's row
     grads in one coalesced update a store, learned ``vw`` grads from the
     stores before their update (``row_sharded.py:887-1009``)."""
-    def updates(params, opt_state, batches, pieces, lr):
-        c, plan = rk.config, rk.plan
-        ids = torch.stack([p[0].local_ids for p in pieces])  # [n, Tb, Bd, L]
-        g_full = torch.stack([p[1] for p in pieces])  # [n, Tb, Bd, dim]
-        w_big = _take_tables(batches.weights, plan.big_ids, 1)
-        owned = ids < plan.rows_local
-        safe = ids.clamp(0, plan.rows_local - 1)
-        vw = params.get("vw")
-        wt = torch.where(owned, w_big, 0.0)
-        if vw is not None:
-            wt = wt * vw.index_select(0, safe.reshape(-1)).reshape(safe.shape)
-        learned = vw is not None and c.weighted_pooling == "learned"
-        gv = None
-        if learned:
-            rows = params["emb"].index_select(0, safe.reshape(-1)).float().reshape(
-                *safe.shape, plan.dim)
-            gv = _row_vw_grads(plan, ids, w_big, rows, g_full)
-        flat_g = (wt[..., None] * g_full[:, :, :, None, :]).reshape(-1, plan.dim)
-        _row_big_update(rk, opt, params, opt_state, ids.reshape(-1), flat_g, lr)
-        if rk.small_ids is not None:
-            _update_small(rk, opt, params, opt_state,
-                          *_small_accum_inputs(rk, batches, [p[3] for p in pieces]), lr)
-        if learned:
-            _vw_update(rk, opt, params, opt_state, ids.reshape(-1), gv, lr, plan.rows_local)
-
-    return updates
-
-
-def _row_pooled(rk: _Rank):
-    def pooled(params, b):
-        pooled_big, small, _ = _row_lookups(rk, params, b)
-        return _assemble(rk, pooled_big, small.pooled if small is not None else None)
-
-    return pooled
-
-
-def row_train_body(config: DLRMConfig, plan: RowShardPlan, opt: OptConfig, mesh: Mesh):
-    rk = _Rank(config, plan, mesh)
-    return train_body(rk, opt, _row_forward_backward(rk), _row_updates(rk, opt))
-
-
-def row_accum_body(config: DLRMConfig, plan: RowShardPlan, opt: OptConfig, mesh: Mesh,
-                   n_accum: int):
-    rk = _Rank(config, plan, mesh)
-    return accum_body(rk, opt, n_accum, _row_forward_backward(rk), _row_accum_updates(rk, opt))
-
-
-def row_eval_body(config: DLRMConfig, plan: RowShardPlan, mesh: Mesh):
-    rk = _Rank(config, plan, mesh)
-    return eval_body(rk, _row_pooled(rk))
-
-
-def make_row_sharded_train_step(config: DLRMConfig, plan: RowShardPlan, opt: OptConfig,
-                                mesh: Mesh, lr_fn=None, capture: Optional[bool] = None):
-    """step(params, opt_state, batch, iteration) -> (params, opt_state,
-    loss): ``batch`` is this rank's part (``local_batch``), the params
-    updated in place; a CUDA-graph replay where the mesh's collectives can
-    be captured (NCCL on the card) unless ``capture`` says otherwise."""
-    return _single_step(row_train_body(config, plan, opt, mesh), _lr_fn(opt, lr_fn), mesh,
-                        mesh.capturable if capture is None else capture)
-
-
-def make_row_sharded_multistep_train_step(config: DLRMConfig, plan: RowShardPlan,
-                                          opt: OptConfig, mesh: Mesh, n_steps: int,
-                                          lr_fn=None):
-    """``n_steps`` full steps a call on batches stacked ``[n_steps, ...]``."""
-    return scan_multistep(row_train_body(config, plan, opt, mesh), n_steps,
-                          _lr_fn(opt, lr_fn), mesh.device, mesh.capturable)
-
-
-def make_row_sharded_accum_train_step(config: DLRMConfig, plan: RowShardPlan,
-                                      opt: OptConfig, mesh: Mesh, n_accum: int, lr_fn=None):
-    """Gradient accumulation over ``n_accum`` stacked micro-batches, one
-    optimizer step; returns (params, opt_state, mean micro-batch loss)."""
-    return accum_step(row_accum_body(config, plan, opt, mesh, n_accum), opt, lr_fn, mesh)
-
-
-def make_row_sharded_eval_step(config: DLRMConfig, plan: RowShardPlan, mesh: Mesh):
-    """eval(params, batch) -> (predictions [B, 1] of the whole batch, loss)."""
-    return eval_step_of(row_eval_body(config, plan, mesh), mesh)
+    c, plan = rk.config, rk.plan
+    ids = torch.stack([p[0].local_ids for p in pieces])  # [n, Tb, Bd, L]
+    g_full = torch.stack([p[1] for p in pieces])  # [n, Tb, Bd, dim]
+    w_big = _take_tables(batches.weights, plan.big_ids, 1)
+    owned = ids < plan.rows_local
+    safe = ids.clamp(0, plan.rows_local - 1)
+    vw = params.get("vw")
+    wt = torch.where(owned, w_big, 0.0)
+    if vw is not None:
+        wt = wt * vw.index_select(0, safe.reshape(-1)).reshape(safe.shape)
+    learned = vw is not None and c.weighted_pooling == "learned"
+    gv = None
+    if learned:
+        rows = params["emb"].index_select(0, safe.reshape(-1)).float().reshape(
+            *safe.shape, plan.dim)
+        gv = _row_vw_grads(plan, ids, w_big, rows, g_full)
+    flat_g = (wt[..., None] * g_full[:, :, :, None, :]).reshape(-1, plan.dim)
+    _row_big_update(rk, opt, params, opt_state, ids.reshape(-1), flat_g, lr)
+    if rk.small_ids is not None:
+        _update_small(rk, opt, params, opt_state,
+                      *_small_accum_inputs(rk, batches, [p[3] for p in pieces]), lr)
+    if learned:
+        _vw_update(rk, opt, params, opt_state, ids.reshape(-1), gv, lr, plan.rows_local)
 
 
 # ---------------------------------------------------------------------------
 # the runner
 # ---------------------------------------------------------------------------
 
-class ShardedRunner(MeshRunner):
-    """The row and column runners' common part behind the Trainer's runner
-    interface (``params``, ``opt_state``, ``train_step``, ``eval_step``,
-    ``prepare_batch``, ``make_multi_step``, ``reshard``, ``n_accum``,
-    ``single_device_params`` and the checkpoints). One per rank: the mesh
-    is the world's ranks. ``params`` (this rank's, e.g. from its module's
-    ``params_from_single_device``) replaces the host draw. A subclass names
-    its mode's plan, init, layouts, extraction and step makers."""
+class ShardedRunner(Runner):
+    """What the row and column runners share beyond the runner base: the
+    batch split, the trees in the JAX package's layouts, the tables and
+    the bodies. A subclass names its mode's plan, init, layouts, extraction
+    and step pieces (``lookups``, ``forward_backward``, ``updates``,
+    ``accum_updates``; each takes the rank's ``_Rank`` first)."""
 
-    make_plan = init_params = layouts = extract_tables = None
-    make_train_step = make_multistep = make_accum_step = make_eval_step = None
+    init_opt_state = staticmethod(init_sharded_opt_state)
 
-    def __init__(self, config: DLRMConfig, opt: OptConfig, data: int = 1,
-                 model: Optional[int] = None, lr_fn=None, seed: int = 123, n_accum: int = 1,
-                 device: Optional[Union[str, torch.device]] = None,
-                 params: Optional[Dict] = None):
-        refuse_dcn_and_bags(config, type(self).__name__)
-        self.config, self.opt, self._lr_fn = config, opt, lr_fn
-        self.n_accum = max(1, n_accum)
-        self.mesh = make_mesh(data, model, device)
-        self.device = self.mesh.device
-        self.plan = self.make_plan(config, self.mesh.shape["model"])
-        self.params = (self.init_params(config, self.plan, seed, self.mesh.m, self.device)
-                       if params is None else params)
-        self.opt_state = init_sharded_opt_state(opt, self.params, self.plan)
-        if self.n_accum > 1:
-            self.train_step = self.make_accum_step(config, self.plan, opt, self.mesh,
-                                                   self.n_accum, lr_fn)
-        else:
-            self.train_step = self.make_train_step(config, self.plan, opt, self.mesh, lr_fn)
-        self.eval_step = self.make_eval_step(config, self.plan, self.mesh)
-        self._layout = self.layouts(self.plan, opt)
+    def make_bodies(self):
+        rk = _Rank(self.config, self.plan, self.mesh)
+        fb = functools.partial(self.forward_backward, rk)
 
-    def make_multi_step(self, n_steps: int):
-        """``n_steps`` full optimizer steps a dispatch (Trainer
-        --steps-per-dispatch); batches stacked ``[n_steps, ...]``."""
-        if self.n_accum > 1:
-            raise ValueError("multi-step dispatch composes with accum at "
-                             "the trainer level, not both at once")
-        return self.make_multistep(self.config, self.plan, self.opt, self.mesh, n_steps,
-                                   self._lr_fn)
+        def logits(params, b):
+            pooled, small, _ = self.lookups(rk, params, b)
+            pooled = _assemble(rk, pooled, small.pooled if small is not None else None)
+            return _tower_forward(rk, params, b, pooled, b.labels.shape[0])[1]
 
-    def eager_step(self):
-        """One optimizer step a call, run eagerly (--collect-execution-graph)."""
-        return self.make_train_step(self.config, self.plan, self.opt, self.mesh, self._lr_fn,
-                                    capture=False)
+        return (mesh_train_body(self.mesh, self.opt, fb,
+                                functools.partial(self.updates, rk, self.opt)),
+                mesh_accum_body(self.mesh, self.opt, self.n_accum, fb,
+                                functools.partial(self.accum_updates, rk, self.opt)),
+                mesh_eval_body(self.mesh, self.config, logits))
 
     def prepare_batch(self, b: Batch) -> Batch:
         return local_batch(self.mesh, b)
@@ -946,37 +781,19 @@ class ShardedRunner(MeshRunner):
         """This rank's tensors from the JAX package's whole pytrees as numpy
         (e.g. a loaded checkpoint)."""
         n, m, dev = self.mesh.shape["model"], self.mesh.m, self.device
-        return (tree_from_jax(params, self._layout["params"], n, m, dev),
-                tree_from_jax(opt_state, self._layout["opt_state"], n, m, dev))
+        layout = self.layouts(self.plan, self.opt)
+        return (tree_from_jax(params, layout["params"], n, m, dev),
+                tree_from_jax(opt_state, layout["opt_state"], n, m, dev))
 
     def _to_jax(self, shards: List[Dict], states: List[Dict]):
-        return (tree_to_jax(shards, self._layout["params"]),
-                tree_to_jax(states, self._layout["opt_state"]))
+        layout = self.layouts(self.plan, self.opt)
+        return tree_to_jax(shards, layout["params"]), tree_to_jax(states, layout["opt_state"])
 
     def tables(self, params: Dict) -> List[torch.Tensor]:
         """Every table's weights in canonical order, on every rank, from the
         model group's shards (``extract_*_sharded_tables``; a collective)."""
         return self.extract_tables(self.plan, self.mesh.all_gather_model(
             params["emb"].unsqueeze(0)), params.get("emb_small"))
-
-    def single_device_params(self, params: Dict) -> Dict:
-        """The canonical single-device params (``models.dlrm``'s group
-        stores, f32) from every rank's shard, on every rank (the JAX CLI's
-        ``_gather_params``; a collective)."""
-        c = self.config
-        if c.qr_table_ids or c.md_table_ids or c.weighted_pooling:
-            raise NotImplementedError(
-                "canonical export from a mesh runner supports plain tables only "
-                "(QR/MD/weighted-pooling variants: train single-device or "
-                "export from a checkpoint)")
-        tables = self.tables(params)
-        emb = []
-        for g in model_groups(c):
-            store = torch.zeros((g.total_rows, g.dim), dtype=torch.float32, device=self.device)
-            for tid, n, off in zip(g.table_ids, g.rows, g.row_offsets):
-                store[off: off + n] = tables[tid][:n]
-            emb.append(store)
-        return {**_mlps(params), "emb": emb, "vw": None}
 
 
 def row_layouts(plan: RowShardPlan, opt: OptConfig) -> Dict:
@@ -991,7 +808,7 @@ class RowShardedRunner(ShardedRunner):
     init_params = staticmethod(init_row_sharded_params)
     layouts = staticmethod(row_layouts)
     extract_tables = staticmethod(extract_row_sharded_tables)
-    make_train_step = staticmethod(make_row_sharded_train_step)
-    make_multistep = staticmethod(make_row_sharded_multistep_train_step)
-    make_accum_step = staticmethod(make_row_sharded_accum_train_step)
-    make_eval_step = staticmethod(make_row_sharded_eval_step)
+    lookups = staticmethod(_row_lookups)
+    forward_backward = staticmethod(_row_forward_backward)
+    updates = staticmethod(_row_updates)
+    accum_updates = staticmethod(_row_accum_updates)

@@ -42,6 +42,13 @@ replay of a CUDA graph instead:
 
 With ``capture`` off (always on the CPU) the same body runs eagerly on
 scalars made for the call, so the CPU runs the same code as the card.
+
+Every step of the port is built here, from a body, by one of three
+constructors: ``one_step`` (one call of a train or accumulation body a
+dispatch), ``multi_step`` (N full train steps a dispatch) and ``eval_step``.
+Each step carries its ``GraphStep`` as ``.graph_step``. ``capture=None``
+captures on the card and never on the CPU; a mesh whose collectives cannot
+be captured (gloo) passes ``False``.
 """
 
 from __future__ import annotations
@@ -222,3 +229,58 @@ class GraphStep:
         for name, n in slot.counted.items():
             counts[name] -= n
         slot.graph = graph
+
+
+def _capture(capture: Optional[bool], device: torch.device) -> bool:
+    """Capture on the card unless the caller says otherwise; never on the CPU."""
+    return device.type == "cuda" if capture is None else capture
+
+
+def _train_step(graph_step: GraphStep):
+    def step(params, opt_state, batch, iteration):
+        return params, opt_state, graph_step(params, opt_state, batch, iteration)
+
+    step.graph_step = graph_step
+    return step
+
+
+def one_step(body: Callable, lr_fn: Callable[[int], float], device: torch.device,
+             capture: Optional[bool] = None):
+    """step(params, opt_state, batch, iteration) -> (params, opt_state,
+    loss): one call of a train ``body(params, opt_state, b, lr, sr_seed) ->
+    loss`` a dispatch, lr ``lr_fn(iteration)`` and sr_seed ``iteration``
+    as 0-dim device tensors. ``batch`` is what the body takes: one batch, or an
+    accumulation body's micro-batches stacked ``[n_accum, ...]``."""
+    def graph_body(params, opt_state, b, lrs, seeds):
+        return body(params, opt_state, b, lrs[0], seeds[0])
+
+    return _train_step(GraphStep(graph_body, 1, lr_fn, device, _capture(capture, device)))
+
+
+def multi_step(body: Callable, n_steps: int, lr_fn: Callable[[int], float],
+               device: torch.device, capture: Optional[bool] = None):
+    """``n_steps`` sequential full steps of ``body`` a dispatch (JAX's
+    ``lax.scan`` under ``jit``): step(params, opt_state, batches, iteration)
+    -> (params, opt_state, losses [n_steps]), every ``batches`` field with a
+    leading [n_steps] axis, step i taking ``lr_fn(iteration + i)`` and seed
+    ``iteration + i``."""
+    def graph_body(params, opt_state, batches, lrs, seeds):
+        return torch.stack([body(params, opt_state, Batch(*(f[i] for f in batches)), lrs[i],
+                                 seeds[i]) for i in range(n_steps)])
+
+    return _train_step(GraphStep(graph_body, n_steps, lr_fn, device,
+                                 _capture(capture, device)))
+
+
+def eval_step(body: Callable, device: torch.device, capture: Optional[bool] = None):
+    """eval(params, batch) -> ``body(params, b)``'s outputs, run under
+    ``torch.inference_mode``: one graph a batch shape, and its outputs
+    copies."""
+    graph_step = GraphStep(lambda p, _s, b, _lrs, _seeds: body(p, b), 0, None, device,
+                           _capture(capture, device), inference=True)
+
+    def step(params, batch):
+        return graph_step(params, None, batch)
+
+    step.graph_step = graph_step
+    return step

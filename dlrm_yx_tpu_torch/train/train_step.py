@@ -46,27 +46,29 @@ back as device tensors.
 ``make_train_step`` is the eager step (an lr from ``lr_fn`` as a float).
 Where JAX jits and scans, the port captures: ``make_multistep_train_step``
 (N full optimizer steps a dispatch), ``make_accum_train_step`` and
-``make_eval_step`` run, on the card, as replays of CUDA graphs
-(``train/capture.GraphStep``), their lr and stochastic-rounding seed read
-from device buffers that the host fills before each replay; with
-``capture=False``, and always on the CPU, the same bodies run eagerly.
+``make_eval_step`` are their bodies built into steps by
+``train/capture.py``, which run, on the card, as replays of CUDA graphs,
+their lr and stochastic-rounding seed read from device buffers that the
+host fills before each replay; with ``capture=False``, and always on the
+CPU, the same bodies run eagerly.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Dict, Optional, Union
 
-import numpy as np
 import torch
 
 from dlrm_yx_tpu_torch.config import DLRMConfig
 from dlrm_yx_tpu_torch.data.batch import Batch, to_device
 from dlrm_yx_tpu_torch.models.dlrm import (
+    dense_leaves,
     forward_from_pooled,
     forward_logits,
     group_indices,
     lookup_all_groups,
     model_groups,
+    nest_dense,
     qr_lookup_all,
     qr_specs,
 )
@@ -79,6 +81,7 @@ from dlrm_yx_tpu_torch.ops.embedding import (
 )
 from dlrm_yx_tpu_torch.ops.losses import loss_fn, predictions_from_logits
 from dlrm_yx_tpu_torch.ops.qr_embedding import qr_row_grads
+from dlrm_yx_tpu_torch.optim.lr_policy import lr_or_constant
 from dlrm_yx_tpu_torch.optim.optimizer import (
     DENSE_ACCUM_FACTOR,
     OptConfig,
@@ -89,7 +92,7 @@ from dlrm_yx_tpu_torch.optim.optimizer import (
     stream_eligible,
     update_dense_towers,
 )
-from dlrm_yx_tpu_torch.train.capture import GraphStep
+from dlrm_yx_tpu_torch.train import capture as _capture
 from dlrm_yx_tpu_torch.utils.device import resolve_device
 from dlrm_yx_tpu_torch.utils.profiling import phase_scope
 
@@ -221,38 +224,24 @@ def apply_gradients(config: DLRMConfig, opt: OptConfig, groups, params: Dict,
 
 
 def _dense_grads(config: DLRMConfig, groups, params: Dict, b: Batch, pooled, qr_pooled=()):
-    """(loss, dense grads {"bot", "top"[, "md_proj"][, "dcn"]}, pooled
+    """(loss, dense grads nested as ``params``' dense leaves, pooled
     grads, QR pooled grads) of one batch: the dense graph differentiated
     with respect to the MLPs, the MD projections, the cross layers and the
     pooled vectors."""
     pooled = [p.requires_grad_() for p in pooled]
     qr_pooled = [p.requires_grad_() for p in qr_pooled]
-    dense = {k: [(w.detach().requires_grad_(), c.detach().requires_grad_())
-                 for w, c in params[k]] for k in ("bot", "top")}
-    if "md_proj" in params:
-        dense["md_proj"] = [w.detach().requires_grad_() for w in params["md_proj"]]
-    if "dcn" in params:
-        dense["dcn"] = [tuple(p.detach().requires_grad_() for p in layer)
-                        for layer in params["dcn"]]
+    leaves = [p.detach().requires_grad_() for p in dense_leaves(params)]
     with torch.enable_grad():
-        logits = forward_from_pooled({**params, **dense}, config, groups, b.dense, pooled,
-                                     qr_pooled)
+        logits = forward_from_pooled({**params, **nest_dense(params, leaves)}, config, groups,
+                                     b.dense, pooled, qr_pooled)
         with phase_scope("loss_compute"):
             loss = loss_fn(logits, b.labels, config.loss, config.loss_threshold,
                            config.wbce_weights)
-    leaves = [t for k in ("bot", "top") for pair in dense[k] for t in pair]
-    leaves += dense.get("md_proj", [])
-    leaves += [p for layer in dense.get("dcn", []) for p in layer]
     with phase_scope("backward"):
         grads = torch.autograd.grad(loss, leaves + pooled + qr_pooled)
-    it = iter(grads)
-    g_dense = {k: [(next(it), next(it)) for _ in params[k]] for k in ("bot", "top")}
-    if "md_proj" in params:
-        g_dense["md_proj"] = [next(it) for _ in params["md_proj"]]
-    if "dcn" in params:
-        g_dense["dcn"] = [tuple(next(it) for _ in layer) for layer in params["dcn"]]
-    g_pooled = [next(it) for _ in pooled]
-    return loss.detach(), g_dense, g_pooled, list(it)
+    n, n_pooled = len(leaves), len(pooled)
+    return (loss.detach(), nest_dense(params, grads[:n]), list(grads[n:n + n_pooled]),
+            list(grads[n + n_pooled:]))
 
 
 def _lookups(config: DLRMConfig, groups, params: Dict, b: Batch, want_rows: bool = False):
@@ -290,16 +279,6 @@ def train_body(config: DLRMConfig, opt: OptConfig):
     return body
 
 
-def _lr_fn(opt: OptConfig, lr_fn):
-    base_lr = float(np.float32(opt.lr))
-    return lr_fn if lr_fn is not None else (lambda _it: base_lr)
-
-
-def _capture_default(capture: Optional[bool], dev: torch.device) -> bool:
-    """Capture on the card unless the caller says otherwise; never on the CPU."""
-    return dev.type == "cuda" if capture is None else capture
-
-
 def make_train_step(config: DLRMConfig, opt: OptConfig,
                     lr_fn: Optional[Callable[[int], float]] = None,
                     device: Optional[Union[str, torch.device]] = None):
@@ -312,39 +291,12 @@ def make_train_step(config: DLRMConfig, opt: OptConfig,
     as float32."""
     body = train_body(config, opt)
     dev = resolve_device(device)
-    lr_of = _lr_fn(opt, lr_fn)
+    lr_of = lr_or_constant(lr_fn, opt.lr)
 
     def step(params, opt_state, batch, iteration):
         loss = body(params, opt_state, to_device(batch, dev), lr_of(iteration), iteration)
         return params, opt_state, loss
 
-    return step
-
-
-def scan_multistep(inner, n_steps: int, lr_fn: Callable[[int], float],
-                   device: Optional[Union[str, torch.device]] = None,
-                   capture: Optional[bool] = None):
-    """Wrap an inner step ``inner(params, opt_state, b, lr, sr_seed) ->
-    loss`` into ``n_steps`` sequential full steps a call:
-    step(params, opt_state, batches, iteration) -> (params, opt_state,
-    losses [n_steps]), every ``batches`` field with a leading [n_steps]
-    axis, step i taking ``lr_fn(iteration + i)`` and seed ``iteration + i``
-    from device buffers. ``capture`` (the default on the card; the
-    counterpart of JAX's ``jit``) records the n_steps steps into one CUDA
-    graph; the CPU runs them eagerly."""
-    dev = resolve_device(device)
-
-    def body(params, opt_state, batches, lrs, seeds):
-        return torch.stack([
-            inner(params, opt_state, Batch(*(f[i] for f in batches)), lrs[i], seeds[i])
-            for i in range(n_steps)])
-
-    graph_step = GraphStep(body, n_steps, lr_fn, dev, _capture_default(capture, dev))
-
-    def step(params, opt_state, batches, iteration):
-        return params, opt_state, graph_step(params, opt_state, batches, iteration)
-
-    step.graph_step = graph_step
     return step
 
 
@@ -359,8 +311,8 @@ def make_multistep_train_step(config: DLRMConfig, opt: OptConfig, n_steps: int,
     stacked_batch, iteration): every Batch field has a leading [n_steps]
     axis; iteration is the index of the first step. Returns (params,
     opt_state, losses [n_steps])."""
-    return scan_multistep(train_body(config, opt), n_steps, _lr_fn(opt, lr_fn), device,
-                          capture)
+    return _capture.multi_step(train_body(config, opt), n_steps, lr_or_constant(lr_fn, opt.lr),
+                               resolve_device(device), capture)
 
 
 def make_eval_step(config: DLRMConfig,
@@ -372,24 +324,16 @@ def make_eval_step(config: DLRMConfig,
     or tensors. On the card (``capture``, the default there) the step is a
     replay of a CUDA graph over static batch buffers, one graph for each
     batch shape, and the outputs are copies."""
-    dev = resolve_device(device)
     groups = model_groups(config)
 
-    def body(params, _opt_state, b, _lrs, _seeds):
+    def body(params, b):
         logits = forward_logits(params, config, groups, b.dense, b.indices, b.weights)
         preds = predictions_from_logits(logits, config.loss_threshold)
         loss = loss_fn(logits, b.labels, config.loss, config.loss_threshold,
                        config.wbce_weights)
         return preds, loss
 
-    graph_step = GraphStep(body, 0, None, dev, _capture_default(capture, dev),
-                           inference=True)
-
-    def eval_step(params, batch):
-        return graph_step(params, None, batch)
-
-    eval_step.graph_step = graph_step
-    return eval_step
+    return _capture.eval_step(body, resolve_device(device), capture)
 
 
 def make_accum_train_step(config: DLRMConfig, opt: OptConfig, n_accum: int,
@@ -416,13 +360,9 @@ def make_accum_train_step(config: DLRMConfig, opt: OptConfig, n_accum: int,
     groups = model_groups(config)
     learned = config.weighted_pooling == "learned"
 
-    def body(params, opt_state, batches, lrs, seeds):
-        lr, seed = lrs[0], seeds[0]
+    def body(params, opt_state, batches, lr, seed):
         vw = params.get("vw")
-        g_sum = {k: [tuple(torch.zeros_like(p) for p in layer) for layer in params[k]]
-                 for k in ("bot", "top", "dcn") if k in params}
-        if "md_proj" in params:
-            g_sum["md_proj"] = [torch.zeros_like(w) for w in params["md_proj"]]
+        g_sum = [torch.zeros_like(p) for p in dense_leaves(params)]
         loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
         fidx_all, fg_all = [[] for _ in groups], [[] for _ in groups]
         vidx_all, vg_all = [[] for _ in groups], [[] for _ in groups]
@@ -434,8 +374,7 @@ def make_accum_train_step(config: DLRMConfig, opt: OptConfig, n_accum: int,
                                                          qr_pooled)
             with torch.no_grad():
                 # every micro-batch's row grads come from the tables before the step
-                g_sum = {k: [tuple(a + c for a, c in zip(s, g)) if isinstance(s, tuple)
-                             else s + g for s, g in zip(g_sum[k], g_dense[k])] for k in g_sum}
+                g_sum = [s + g for s, g in zip(g_sum, dense_leaves(g_dense))]
                 loss_sum = loss_sum + loss
                 for acc, g in zip(g_qr_all, g_qr):
                     acc.append(g)
@@ -450,7 +389,7 @@ def make_accum_train_step(config: DLRMConfig, opt: OptConfig, n_accum: int,
                         vidx_all[gi].append(vidx)
                         vg_all[gi].append(vg)
         with torch.no_grad(), phase_scope("optimizer"):
-            update_dense_towers(opt, params, opt_state, g_sum, lr)
+            update_dense_towers(opt, params, opt_state, nest_dense(params, g_sum), lr)
             # one K3 launch after the last sparse update, as in apply_gradients
             dense = []
             if g_qr_all:
@@ -463,25 +402,14 @@ def make_accum_train_step(config: DLRMConfig, opt: OptConfig, n_accum: int,
                                   [torch.cat(g) for g in g_qr_all])
                 _update_qr(config, opt, params, opt_state, grads, lr, dense)
             for gi, g in enumerate(groups):
-                sparse_update(
-                    opt, params["emb"][gi], opt_state["emb"][gi] if opt.name != "sgd" else None,
-                    torch.cat(fidx_all[gi]), torch.cat(fg_all[gi]), lr, g.total_rows,
-                    impl=config.sparse_update_impl,
-                    stochastic_round=config.stochastic_rounding, sr_seed=seed,
-                    size_class=g.size_class, dim=g.dim,
-                    exact_momentum=config.exact_row_momentum,
-                    density_hint=config.dup_density_hint, finish=dense,
-                )
+                _sparse_update(config, opt, params["emb"][gi],
+                               opt_state["emb"][gi] if opt.name != "sgd" else None, g,
+                               torch.cat(fidx_all[gi]), torch.cat(fg_all[gi]), lr, seed, None,
+                               dense)
                 if learned:
                     _update_vw(opt, params, opt_state, gi, g, torch.cat(vidx_all[gi]),
                                torch.cat(vg_all[gi]), lr)
             finish_dense(dense, lr, opt.eps)
         return loss_sum / n_accum
 
-    graph_step = GraphStep(body, 1, _lr_fn(opt, lr_fn), dev, _capture_default(capture, dev))
-
-    def step(params, opt_state, batches, iteration):
-        return params, opt_state, graph_step(params, opt_state, batches, iteration)
-
-    step.graph_step = graph_step
-    return step
+    return _capture.one_step(body, lr_or_constant(lr_fn, opt.lr), dev, capture)

@@ -8,6 +8,11 @@ accuracy (and the full mlperf metric set when asked), and the MLPerf early
 stop on accuracy / AUC thresholds. Device losses are fetched only at print
 and eval boundaries, so the loop does not wait for the card at every step.
 
+The Trainer drives one runner (``parallel/runner.py``): ``LocalRunner``
+here on one device, or a mesh runner a rank (``parallel/hybrid.py``,
+``row_sharded.py``, ``col_sharded.py``). The runner holds the params and
+optimizer state and builds the steps; the Trainer feeds and times them.
+
 Multi-step dispatch (``steps_per_dispatch``: M full optimizer steps a call,
 auto-picked by ``_auto_steps_per_dispatch``), gradient accumulation
 (``grad_accum_iter``, which turns multi-step off, as in JAX) and the
@@ -53,14 +58,17 @@ import torch
 from dlrm_yx_tpu_torch.config import DLRMConfig
 from dlrm_yx_tpu_torch.data.batch import Batch, stack_batches, stage_batch
 from dlrm_yx_tpu_torch.models.dlrm import DLRM, init_dlrm, model_groups
-from dlrm_yx_tpu_torch.optim.lr_policy import LRPolicy
+from dlrm_yx_tpu_torch.optim.lr_policy import LRPolicy, lr_or_constant
 from dlrm_yx_tpu_torch.optim.optimizer import OptConfig, init_opt_state
+from dlrm_yx_tpu_torch.parallel.runner import Runner
 from dlrm_yx_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint, skip_position
 from dlrm_yx_tpu_torch.train.metrics import StreamingAUC, binary_metrics
 from dlrm_yx_tpu_torch.train.train_step import (
     make_accum_train_step,
     make_eval_step,
     make_multistep_train_step,
+    make_train_step,
+    train_body,
 )
 from dlrm_yx_tpu_torch.utils.device import resolve_device
 from dlrm_yx_tpu_torch.utils.logging import EventLogger, ScalarWriter, rank0_print
@@ -192,6 +200,51 @@ def _group_microbatches(it, n):
         yield stack_batches(group)
 
 
+class LocalRunner(Runner):
+    """The single-device runner: ``init_dlrm``'s params on ``device`` (the
+    card unless the caller asks for the CPU), ``init_opt_state``'s state,
+    and the steps of ``train/train_step.py``."""
+
+    graph_name = "train_step"
+
+    def __init__(self, config: DLRMConfig, opt: OptConfig, lr_fn=None, seed: int = 123,
+                 n_accum: int = 1, device: Optional[Union[str, torch.device]] = None):
+        # what the mesh runners' constructor sets, without a mesh or a plan
+        self.config, self.opt = config, opt
+        self.lr_fn = lr_or_constant(lr_fn, opt.lr)
+        self.n_accum = max(1, n_accum)
+        self.device = resolve_device(device)
+        self.capture = self.device.type == "cuda"
+        self.params = DLRM(config, init_dlrm(config, seed=seed, device=self.device)).as_params()
+        self.opt_state = init_opt_state(opt, self.params, model_groups(config))
+        self.train_body = train_body(config, opt)
+
+    def _multi_step(self, n_steps: int):
+        return make_multistep_train_step(self.config, self.opt, n_steps, self.lr_fn, self.device)
+
+    def _accum_step(self):
+        return make_accum_train_step(self.config, self.opt, self.n_accum, self.lr_fn,
+                                     self.device)
+
+    def _eval_step(self):
+        return make_eval_step(self.config, self.device)
+
+    def eager_step(self):
+        return make_train_step(self.config, self.opt, self.lr_fn, self.device)
+
+    def prepare_batch(self, b: Batch) -> Batch:
+        return b
+
+    def single_device_params(self, params: dict) -> dict:
+        return params
+
+    def save_checkpoint(self, path: str, params: dict, opt_state: dict, **meta) -> None:
+        save_checkpoint(path, params, opt_state, self.config, **meta)
+
+    def load_checkpoint(self, path: str, params: dict, opt_state: dict) -> dict:
+        return load_checkpoint(path, params, opt_state)[2]
+
+
 class Trainer:
     def __init__(
         self,
@@ -202,52 +255,35 @@ class Trainer:
         device: Optional[Union[str, torch.device]] = None,
         runner=None,
     ):
-        """Parameters come from ``init_dlrm(config, tcfg.seed)`` on
-        ``device`` (the card unless the caller asks for the CPU), the
-        optimizer state from ``init_opt_state``. ``runner``: a parallel
-        execution backend (``parallel.hybrid.HybridRunner``) that provides
-        the params and optimizer state (this rank's), the steps, the batch
-        preparation and its device in their place; None = one device."""
+        """``runner``: the execution mode that holds the params and
+        optimizer state (this rank's), builds the steps, prepares the
+        batches and names the device (a mesh runner, e.g.
+        ``parallel.hybrid.HybridRunner``); without one a ``LocalRunner`` on
+        ``device`` (the card unless the caller asks for the CPU) with
+        ``init_dlrm(config, tcfg.seed)``'s params."""
         self.config = config
         self.opt = opt
         self.tcfg = tcfg
-        self.runner = runner
-        self.device = runner.device if runner is not None else resolve_device(device)
-        self.groups = model_groups(config)
         self.accum = max(1, tcfg.grad_accum_iter)
-        if runner is not None and self.accum > 1 and runner.n_accum != self.accum:
+        self.runner = runner or LocalRunner(config, opt, lr_policy, tcfg.seed, self.accum, device)
+        self.device = self.runner.device
+        self.groups = model_groups(config)
+        if self.accum > 1 and self.runner.n_accum != self.accum:
             raise ValueError(
-                f"runner was built with n_accum={runner.n_accum} but "
+                f"runner was built with n_accum={self.runner.n_accum} but "
                 f"--mlperf-grad-accum-iter={self.accum}; pass n_accum to the runner")
         self.msteps = 1
         self.multi_step = None
-        if runner is not None:
-            # single steps (and the tail of a multi-step epoch) take batches
-            # stacked one deep, as below; the accumulation step is the runner's
-            self.train_step = runner.train_step if self.accum > 1 else runner.make_multi_step(1)
-            if self.accum == 1:
-                self.msteps = _auto_steps_per_dispatch(tcfg)
-                if self.msteps > 1:
-                    self.multi_step = runner.make_multi_step(self.msteps)
-            self.eval_step = runner.eval_step
-            self.params, self.opt_state = runner.params, runner.opt_state
-        else:
-            if self.accum > 1:
-                self.train_step = make_accum_train_step(config, opt, self.accum, lr_policy,
-                                                        self.device)
-            else:
-                # single steps (and the tail of a multi-step epoch) take
-                # batches stacked one deep
-                self.train_step = make_multistep_train_step(config, opt, 1, lr_policy,
-                                                            self.device)
-                self.msteps = _auto_steps_per_dispatch(tcfg)
-                if self.msteps > 1:
-                    self.multi_step = make_multistep_train_step(config, opt, self.msteps,
-                                                                lr_policy, self.device)
-            self.eval_step = make_eval_step(config, self.device)
-            self.model = DLRM(config, init_dlrm(config, seed=tcfg.seed, device=self.device))
-            self.params = self.model.as_params()
-            self.opt_state = init_opt_state(opt, self.params, self.groups)
+        # single steps (and the tail of a multi-step epoch) take batches
+        # stacked one deep; the accumulation step is the runner's
+        self.train_step = (self.runner.train_step if self.accum > 1
+                           else self.runner.make_multi_step(1))
+        if self.accum == 1:
+            self.msteps = _auto_steps_per_dispatch(tcfg)
+            if self.msteps > 1:
+                self.multi_step = self.runner.make_multi_step(self.msteps)
+        self.eval_step = self.runner.eval_step
+        self.params, self.opt_state = self.runner.params, self.runner.opt_state
         self.events = EventLogger() if tcfg.mlperf_logging else None
         self.writer = ScalarWriter(tcfg.tb_logdir) if tcfg.tb_logdir else None
         self.best_acc = 0.0
@@ -276,11 +312,8 @@ class Trainer:
                     f"configured with --optimizer {self.opt.name} — pass --optimizer "
                     f"{ck_opt} (resuming across optimizers would silently misread the "
                     "accumulators)")
-        if self.runner is not None:
-            # the hybrid pytrees, this rank's shards copied in place
-            meta = self.runner.load_checkpoint(path, self.params, self.opt_state)
-        else:
-            _, _, meta = load_checkpoint(path, self.params, self.opt_state)
+        # copied into the runner's own tensors (this rank's shards) in place
+        meta = self.runner.load_checkpoint(path, self.params, self.opt_state)
         self.best_acc = meta["metrics"].get("accuracy", 0.0)
         self.iteration = meta["iteration"]
         self._resume_meta = meta
@@ -302,8 +335,7 @@ class Trainer:
         n_correct = 0
         n_total = 0
         for b in test_batches:
-            preds, _ = self.eval_step(self.params,
-                                      b if self.runner is None else self.runner.prepare_batch(b))
+            preds, _ = self.eval_step(self.params, self.runner.prepare_batch(b))
             p = preds.float().cpu().numpy().ravel()
             t = torch.as_tensor(b.labels).cpu().numpy().ravel()
             n_correct += int(((p >= 0.5) == (t > 0.5)).sum())
@@ -329,10 +361,9 @@ class Trainer:
     def _prepare(self, batch: Batch, stream):
         """(batch, event) for a dispatch: on the card with a staging stream,
         a host batch pinned and copied there on it (``stage_batch``); else
-        the batch as it is (the step copies it into its inputs). With a
-        runner, this rank's part of the batch (``runner.prepare_batch``)."""
-        if self.runner is not None:
-            batch = self.runner.prepare_batch(batch)
+        the batch as it is (the step copies it into its inputs); on a mesh,
+        this rank's part of it (``runner.prepare_batch``)."""
+        batch = self.runner.prepare_batch(batch)
         if stream is None:
             return batch, None
         return stage_batch(batch, self.device, stream)
@@ -522,13 +553,8 @@ class Trainer:
                 torch.cuda.synchronize(self.device)
             meta = dict(epoch=epoch, iteration=self.iteration, metrics=metrics,
                         optimizer=self.opt.name)
-            if self.runner is not None:
-                # gathered from the model shards; rank 0 writes
-                self.runner.save_checkpoint(self.tcfg.save_path, self.params, self.opt_state,
-                                            **meta)
-            else:
-                save_checkpoint(self.tcfg.save_path, self.params, self.opt_state, self.config,
-                                **meta)
+            # on a mesh, gathered from the model shards; rank 0 writes
+            self.runner.save_checkpoint(self.tcfg.save_path, self.params, self.opt_state, **meta)
             rank0_print(f"Saved best checkpoint to {self.tcfg.save_path}")
         stop = False
         if 0 < self.tcfg.mlperf_acc_threshold < self.best_acc:

@@ -1,9 +1,12 @@
 """The port's small single-device helpers against the JAX package's on the
 same numpy inputs: ``data.batch.padded_to_csr``, the HDF5 batch files of
 ``data.synthetic``, ``EventLogger``'s file output and submission block,
-and ``StepTimer``'s start / stop / total."""
+and ``StepTimer``'s start / stop / total; and the shape of the port's step
+machinery, read from its source."""
 
+import ast
 import json
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -93,3 +96,66 @@ def test_step_timer_total_matches_jax():
     port.start()
     dt = port.stop()
     assert dt >= 0 and port.times[-1] == dt and port.total_s() == 0.875 + dt
+
+
+PORT = Path(__file__).resolve().parents[1] / "dlrm_yx_tpu_torch"
+
+
+def _tree(rel: str) -> ast.AST:
+    return ast.parse((PORT / rel).read_text())
+
+
+def _imports(rel: str) -> set:
+    """Every module a port file imports, at any depth of its code
+    (``from a import b`` counts as ``a`` and ``a.b``)."""
+    out = set()
+    for node in ast.walk(_tree(rel)):
+        if isinstance(node, ast.Import):
+            out.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            out.add(node.module)
+            out.update(f"{node.module}.{a.name}" for a in node.names)
+    return out
+
+
+def _named(node, name: str) -> bool:
+    return (isinstance(node, ast.Name) and node.id == name) or (
+        isinstance(node, ast.Attribute) and node.attr == name)
+
+
+def _graph_steps_built_outside_capture():
+    files = [str(p.relative_to(PORT)) for p in sorted(PORT.rglob("*.py"))]
+    return [f for f in files if f != "train/capture.py" and any(
+        isinstance(n, ast.Call) and _named(n.func, "GraphStep") for n in ast.walk(_tree(f)))]
+
+
+def _row_family_imports_from_hybrid():
+    return [f for f in ("parallel/row_sharded.py", "parallel/col_sharded.py")
+            if "dlrm_yx_tpu_torch.parallel.hybrid" in _imports(f)]
+
+
+def _lower_modules_import_upward():
+    return [(f, m) for f in ("train/capture.py", "models/dlrm.py") for m in sorted(_imports(f))
+            if m.startswith(("dlrm_yx_tpu_torch.parallel", "dlrm_yx_tpu_torch.train.trainer"))]
+
+
+def _branches_on_a_missing_runner():
+    return [f for f in ("train/trainer.py", "cli.py") for n in ast.walk(_tree(f))
+            if isinstance(n, ast.Compare) and isinstance(n.ops[0], (ast.Is, ast.IsNot))
+            and any(_named(x, "runner") for x in (n.left, *n.comparators))
+            and any(isinstance(x, ast.Constant) and x.value is None
+                    for x in (n.left, *n.comparators))]
+
+
+@pytest.mark.parametrize("offenders", [
+    _graph_steps_built_outside_capture,
+    _row_family_imports_from_hybrid,
+    _lower_modules_import_upward,
+    _branches_on_a_missing_runner,
+], ids=lambda f: f.__name__.strip("_"))
+def test_the_step_machinery_keeps_its_shape(offenders):
+    """Every step is built from a body in ``train/capture.py``; the row and
+    column modes reach the runner base, not the hybrid mode; the capture
+    and model modules sit below the runners; the Trainer and the CLI always
+    drive a runner."""
+    assert offenders() == []
