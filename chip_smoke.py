@@ -28,7 +28,14 @@ no result):
      then K7 (``ops/coalesce.py``) on one step's big-store bag items of the
      DLRM-DCNv2 cell (the benchmark's generator): RWSAdagrad's
      coalesce-first route (sort, K7a, K4, K7b, K2) against the torch route
-     it replaced, K7a twice bit for bit, its counts;
+     it replaced, K7a twice bit for bit, its counts; then K8
+     (``ops/dcn.py``) at the DLRM-DCNv2 cell's cross network (B 8,192, N
+     3,456, rank 512, 3 layers, bf16): each kernel bit for bit with its
+     plain version on the card, the kernel route against the plain torch
+     path (output bit for bit, gradients to f32's rtol), two calls bit for
+     bit, ``dcn.kernel`` once a call, each kernel's time against its bound
+     and the network's forward and backward on both routes
+     (``python3 chip_smoke.py --phase k8`` runs phases 1, 2 and this alone);
   f. kernel: K5 (sorted_stream_apply) and K6 (sorted_stream_add) against
      their plain versions on the reference benchmark's store (8 x 1M rows
      x 64 f32) with one device batch's sorted occurrences (K5 at batch 2048,
@@ -2089,6 +2096,213 @@ def check_coalesce_route():
     say("a", f"K7 route on one DLRM-DCNv2 step (K = {flat_idx.numel()}, {n_rows} distinct "
              f"rows, {split} summed across chunks): equals the torch route (store rtol 1e-5, "
              f"momentum rtol 1e-4); K7a bit for bit twice")
+
+
+CROSS_SHAPE = (8192, 3456, 512, 3)  # DLRM-DCNv2's cell: B, N, rank, layers
+
+
+def cross_inputs(seed):
+    """x0 [B, N], the cross layers (V, W, b) and an upstream gradient at
+    ``CROSS_SHAPE``, f32 on the card: x0 and the gradient N(0, 1), V and W
+    TorchRec's Xavier normal, b N(0, 0.1) (zero at init; nonzero here so
+    that its add is exercised)."""
+    import torch
+
+    b_, n, r, layers = CROSS_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    std = (2.0 / (n + r)) ** 0.5
+    x0 = torch.randn(b_, n, device="cuda", generator=gen)
+    flat = []
+    for _ in range(layers):
+        flat += [torch.randn(n, r, device="cuda", generator=gen) * std,
+                 torch.randn(r, n, device="cuda", generator=gen) * std,
+                 torch.randn(n, device="cuda", generator=gen) * 0.1]
+    return x0, flat, torch.randn(b_, n, device="cuda", generator=gen)
+
+
+def cross_route(fn, x0, flat, g):
+    """The output of ``fn(x0, layers) -> (y, extra)`` on fresh leaves of x0
+    and ``flat``'s layers, and the gradients of x0, every layer's (V, W, b)
+    and the tensors ``extra`` under the upstream gradient g."""
+    import torch
+
+    leaves = [p.detach().clone().requires_grad_() for p in [x0] + flat]
+    layers = [tuple(leaves[1 + 3 * i:4 + 3 * i]) for i in range(len(flat) // 3)]
+    y, extra = fn(leaves[0], layers)
+    grads = torch.autograd.grad(y, leaves + list(extra), g)
+    return [y.detach()] + list(grads)
+
+
+def check_cross_layer_kernel():
+    """Phase a, K8 (``ops/dcn.py``, ``csrc/cross_layer.cu``) at the
+    DLRM-DCNv2 cell's cross network, bf16 compute (``CROSS_SHAPE``):
+
+      * each kernel against its plain version run on the card, bit for bit:
+        a layer's forward; the backward at the top, a middle and the bottom
+        layer (its cotangent, the bf16 product cotangent, x0's gradient, b's
+        gradient summed by bands); x0's last term;
+      * the whole network, the kernel route against the plain torch path
+        (``cross_net_autograd``: autograd through the formula, the
+        ``_F32OutProduct`` GEMMs): the output bit for bit; V's and W's
+        gradients (the same GEMMs of the same operands) and x0's (five terms
+        summed in another order) to f32's rtol 1.3e-6 / atol 1e-5; b's, a
+        sum over 8,192 rows in another order, within 1.3e-6 of the column's
+        sum of |g * x0| (the forward error bound of a sum, at f32's rtol);
+        two calls bit for bit; ``dcn.kernel`` once a call and 10 launches;
+      * each kernel's time, warm and cold (its cold reading held to its
+        bound: 18 bytes an element for the forward, 30 for a middle layer's
+        backward with its bias sum, 12 for x0's last term), beside its plain
+        version's, and the whole network's forward and backward on both
+        routes in turns.
+
+    Returns the K8 row's numbers (ms)."""
+    import torch
+
+    from dlrm_yx_tpu_torch.ops import dcn
+    from dlrm_yx_tpu_torch.ops.mlp import product_f32_out
+    from dlrm_yx_tpu_torch.utils.profiling import counter_deltas, counters
+
+    bf16 = torch.bfloat16
+    rows, width, rank, layers = CROSS_SHAPE
+    x0, flat, g = cross_inputs(8)
+    elems = rows * width
+    band = dcn.band_rows(rows, width)
+
+    def equal(a, b):
+        return a.dtype == b.dtype and torch.equal(a.reshape(-1).view(torch.uint8),
+                                                  b.reshape(-1).view(torch.uint8))
+
+    # the kernels against their plain versions, one layer's tensors
+    v, w, b = flat[0], flat[1], flat[2]
+    x16 = x0.to(bf16)
+    xw = dcn._product(dcn._product(x16, v.to(bf16)).to(bf16), w.to(bf16))
+    x_l = x0 * 0.5 + 0.25
+    got = dcn._layer_forward(xw, b, x0, x_l, True)
+    want = dcn.cross_layer_forward_reference(xw, b, x0, x_l, True)
+    if not all(equal(a, c) for a, c in zip(got, want)):
+        fail("K8 forward: differs from its plain version")
+    gx = torch.randn(rows, width, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(9)) * 0.3
+    acc0 = torch.randn_like(x0)
+    for where, gx_, acc, with_g in (("top", None, None, False), ("middle", gx, acc0, False),
+                                    ("bottom", gx, acc0, True)):
+        g_out = torch.empty_like(x0) if where == "middle" else None
+        got = dcn._layer_backward(g, gx_, x0, xw, b, g_out, None if acc is None else acc.clone(),
+                                  with_g, band)
+        want = dcn.cross_layer_backward_reference(g, gx_, x0, xw, b,
+                                                  None if acc is None else acc.clone(), with_g,
+                                                  band)
+        if where == "middle" and not equal(got[0], want[0]):
+            fail("K8 backward: the cotangent differs from its plain version")
+        for name, a, c in (("the product's cotangent", got[1], want[1].to(bf16)),
+                           ("x0's gradient", got[2], want[2]), ("b's gradient", got[3], want[3])):
+            if not equal(a, c):
+                fail(f"K8 backward ({where} layer): {name} differs from its plain version")
+    if not equal(dcn._finish(acc0.clone(), gx), dcn.cross_layer_finish_reference(acc0.clone(), gx)):
+        fail("K8 finish: x0's gradient differs from its plain version")
+    torch.cuda.synchronize()
+    say("a", f"K8 kernels at B={rows}, N={width}: each bit for bit with its plain version on "
+             f"the card (forward; backward at the top, a middle and the bottom layer, bands of "
+             f"{band} rows; x0's last term)")
+
+    # the whole network on both routes
+    def kernel_route(x, ls):
+        return dcn.cross_net(x, ls, bf16), ()
+
+    def plain_route(x, ls):
+        # the formula as cross_net_autograd takes it, each layer's output kept
+        xs, y = [], x
+        for v_, w_, b_ in ls:
+            xv = product_f32_out(y.to(bf16), v_.to(bf16))
+            y = x * (product_f32_out(xv.to(bf16), w_.to(bf16)) + b_.float()) + y
+            xs.append(y)
+        return y, xs[:-1]
+
+    if not equal(plain_route(x0, [tuple(flat[i:i + 3]) for i in range(0, len(flat), 3)])[0],
+                 dcn.cross_net_autograd(x0, [tuple(flat[i:i + 3])
+                                             for i in range(0, len(flat), 3)], bf16)):
+        fail("K8: the phase's copy of the formula differs from cross_net_autograd")
+    launches = dcn.cross_net.launches
+    before = counters()
+    one = cross_route(kernel_route, x0, flat, g)
+    two = cross_route(kernel_route, x0, flat, g)
+    torch.cuda.synchronize()
+    moved = counter_deltas(before, counters())
+    if moved.get("dcn.kernel") != 2 or dcn.cross_net.launches - launches != 2 * (3 * layers + 1):
+        fail(f"K8: counted {moved}, {dcn.cross_net.launches - launches} launches for two calls")
+    if not all(equal(a, c) for a, c in zip(one, two)):
+        fail("K8: two calls on the same inputs differ")
+    del two
+    ref = cross_route(plain_route, x0, flat, g)
+    if not equal(one[0], ref[0]):
+        fail(f"K8: the output differs from the plain torch path by "
+             f"{(one[0] - ref[0]).abs().max().item()}")
+    # the cotangent of each layer's output: g * x0 is what b's gradient sums
+    cot = ref[2 + 3 * layers:] + [g]
+    worst, bitwise = 0.0, []
+    for i, (a, c) in enumerate(zip(one[1:], ref[1:2 + 3 * layers])):
+        name = "x0" if i == 0 else f"layer {(i - 1) // 3}'s {'VWb'[(i - 1) % 3]}"
+        if i > 0 and (i - 1) % 3 == 2:
+            tol = 1.3e-6 * (cot[(i - 1) // 3] * x0).abs().sum(0)
+            err = (a - c).abs()
+            if not bool((err <= tol).all()):
+                fail(f"K8: {name}'s gradient off the plain torch path by "
+                     f"{(err / tol).max().item():.3f} of its bound")
+            worst = max(worst, (err / tol).max().item())
+        else:
+            try:
+                torch.testing.assert_close(a, c, rtol=1.3e-6, atol=1e-5)
+            except AssertionError as exc:
+                fail(f"K8: {name}'s gradient off the plain torch path: {exc}")
+        bitwise.append(equal(a, c))
+    say("a", f"K8 route on the cell's cross network ({layers} layers, rank {rank}): output bit "
+             f"for bit with the plain torch path; gradients within f32's rtol (b's at "
+             f"{worst:.4f} of its bound; bit for bit: x0 {bitwise[0]}, V/W "
+             f"{all(bitwise[1 + 3 * i + j] for i in range(layers) for j in (0, 1))}, b "
+             f"{all(bitwise[3 + 3 * i] for i in range(layers))}); two calls bit for bit; "
+             f"dcn.kernel once a call, {3 * layers + 1} launches")
+    del one, ref, cot
+
+    # times: each kernel warm and cold against its bound, its plain version
+    g_out, t_acc = torch.empty_like(x0), torch.randn_like(x0)
+    out = {}
+    for name, nbytes, kernel, plain in (
+            ("forward", 18 * elems, lambda: dcn._layer_forward(xw, b, x0, x_l, True),
+             lambda: dcn.cross_layer_forward_reference(xw, b, x0, x_l, True)),
+            ("backward", 30 * elems,
+             lambda: dcn._layer_backward(g, gx, x0, xw, b, g_out, t_acc, False, band),
+             lambda: dcn.cross_layer_backward_reference(g, gx, x0, xw, b, t_acc, False, band)),
+            ("x0 finish", 12 * elems, lambda: dcn._finish(t_acc, gx),
+             lambda: dcn.cross_layer_finish_reference(t_acc, gx))):
+        bound = 1e3 * nbytes / HBM_BYTES_PER_S
+        warm = device_time_ms(kernel, reps=5, samples=20)
+        cold = cold_reading(f"K8 {name}", kernel, bound, reps=5, samples=20)
+        plain_ms = device_time_ms(plain, reps=5, samples=10)
+        out[name] = {"bound_ms": bound, "warm_ms": warm, "cold_ms": cold, "plain_ms": plain_ms}
+        say("a", f"K8 {name} (one layer, {nbytes / elems:.0f} B an element): {warm:.5f} ms warm, "
+                 f"{cold:.5f} cold, bound {bound:.5f} ({100 * bound / warm:.1f}%); plain version "
+                 f"{plain_ms:.5f} ms")
+    del g_out, t_acc
+
+    # the whole network forward and backward on both routes, in turns
+    leaves = [p.detach().clone().requires_grad_() for p in [x0] + flat]
+    ls = [tuple(leaves[1 + 3 * i:4 + 3 * i]) for i in range(layers)]
+
+    def both(route):
+        def run():
+            y = route(leaves[0], ls)
+            return torch.autograd.grad(y, leaves, g)[0]
+        return run
+
+    times = time_in_turns({"kernel": both(lambda x, l_: dcn.cross_net(x, l_, bf16)),
+                           "plain": both(lambda x, l_: dcn.cross_net_autograd(x, l_, bf16))},
+                          lambda name, o: None, n=10)
+    ms = {k: statistics.median(v) for k, v in times.items()}
+    out["network_ms"] = ms
+    say("a", f"K8: the cross network's forward and backward (6 GEMMs forward, 12 backward) "
+             f"{ms['kernel']:.4f} ms on the kernel route, {ms['plain']:.4f} on the plain torch "
+             f"path (in turns: {times})")
+    return out
 
 
 def kernel_name(mangled):
@@ -5758,9 +5972,10 @@ def terabyte_rows():
     return DLRMConfig.terabyte_mlperf(max_ind_range=1_000_000).emb_rows
 
 
-def main(mesh_only=False):
+def main(mesh_only=False, cross_only=False):
     """The smoke run; ``mesh_only`` (``--phase 12``): phases 1, 2 and 12 alone,
-    the kernels line of K1-K3 at phase 12's shapes."""
+    the kernels line of K1-K3 at phase 12's shapes; ``cross_only``
+    (``--phase k8``): phases 1, 2 and phase a's K8 check alone."""
     import gc
     import re
 
@@ -5793,6 +6008,12 @@ def main(mesh_only=False):
         say("build", f"  {name}: {len(regs)} kernel instances, at most {max(regs, default=0)} "
                      f"registers and {max(spills, default=0)} bytes of spill stores a thread "
                      f"(ptxas)")
+    if cross_only:
+        check_cross_layer_kernel()
+        say("done", f"chip_smoke.py --phase k8 wall time {time.perf_counter() - T_START:.1f} s")
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                 "count": count}}))
+        return
     if mesh_only:
         mesh = mesh_paths(count)
         if mesh is None:
@@ -5818,6 +6039,7 @@ def main(mesh_only=False):
     _, cap_big = model_groups(capacity_config())
     k4 = check_rows_add_kernel(cap_big, big)
     check_coalesce_route()
+    check_cross_layer_kernel()
     rows = DLRMConfig.terabyte_mlperf(max_ind_range=1_000_000).emb_rows
     # x. the kernels on the variants' shapes (and the processed dataset)
     grouped = {"processed": check_variant_kernels(rows)}
@@ -6010,5 +6232,7 @@ if __name__ == "__main__":
         mesh_rank_main(sys.argv[2])
     elif sys.argv[1:] == ["--phase", "12"]:
         main(mesh_only=True)
+    elif sys.argv[1:] == ["--phase", "k8"]:
+        main(cross_only=True)
     else:
         main()

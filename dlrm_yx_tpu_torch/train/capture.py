@@ -66,6 +66,7 @@ def launch_counters() -> Dict[str, Callable]:
     """The kernel wrappers, by name, whose ``.launches`` a capture corrects
     (K3's grouped wrapper has a count of its own beside K3's)."""
     from dlrm_yx_tpu_torch.ops.coalesce import coalesce_finish, coalesce_segments
+    from dlrm_yx_tpu_torch.ops.dcn import cross_net
     from dlrm_yx_tpu_torch.ops.dense_finish import (
         rwsadagrad_dense_finish,
         rwsadagrad_dense_finish_many,
@@ -78,7 +79,7 @@ def launch_counters() -> Dict[str, Callable]:
     return {f.__name__: f for f in (fused_interaction, sparse_rows_overwrite,
                                     rwsadagrad_dense_finish, rwsadagrad_dense_finish_many,
                                     sorted_stream_apply, sorted_stream_add, sparse_rows_add,
-                                    coalesce_segments, coalesce_finish)}
+                                    coalesce_segments, coalesce_finish, cross_net)}
 
 
 def _tensors(tree):

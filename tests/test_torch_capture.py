@@ -200,7 +200,7 @@ def test_launch_counters_name_every_kernel_wrapper():
     assert sorted(launch_counters()) == sorted([
         "fused_interaction", "sparse_rows_overwrite", "rwsadagrad_dense_finish",
         "rwsadagrad_dense_finish_many", "sorted_stream_apply", "sorted_stream_add",
-        "sparse_rows_add", "coalesce_segments", "coalesce_finish"])
+        "sparse_rows_add", "coalesce_segments", "coalesce_finish", "cross_net"])
     assert all(isinstance(f.launches, int) for f in launch_counters().values())
 
 

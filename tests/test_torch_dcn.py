@@ -10,6 +10,8 @@ coalesce first, then K2's write-only update and K4 on the row momentum,
 each in its plain CPU version), three small (the dense branch and K3).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -21,7 +23,8 @@ from dlrm_yx_tpu_torch.config import DLRMConfig
 from dlrm_yx_tpu_torch.data.batch import Batch
 from dlrm_yx_tpu_torch.export import export_inference
 from dlrm_yx_tpu_torch.models.dlrm import init_dlrm, lookup_all_groups, model_groups
-from dlrm_yx_tpu_torch.ops.dcn import cross_net
+from dlrm_yx_tpu_torch.ops import dcn
+from dlrm_yx_tpu_torch.ops.dcn import cross_net, cross_net_autograd
 from dlrm_yx_tpu_torch.ops.quantized import make_fully_quantized_eval_step, make_quantized_eval_step
 from dlrm_yx_tpu_torch.optim.optimizer import OptConfig, init_opt_state
 from dlrm_yx_tpu_torch.parallel.col_sharded import ColShardedRunner
@@ -87,6 +90,106 @@ def test_cross_network_forward_and_gradients_match_the_reference():
         outs.append([y.detach()] + list(torch.autograd.grad((y * y.detach().cos()).sum(), ps)))
     for got, want in zip(*outs):
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+def _cross_leaves(layers, width, rank=8, batch=64, seed=1):
+    g = torch.Generator().manual_seed(seed)
+    x0 = torch.randn(batch, width, generator=g)
+    return [x0] + [p for _ in range(layers) for p in (
+        torch.randn(width, rank, generator=g) * 0.2, torch.randn(rank, width, generator=g) * 0.2,
+        torch.randn(width, generator=g) * 0.1)]
+
+
+def _cross_outputs(fn, leaves, compute_dtype):
+    ps = [p.clone().requires_grad_() for p in leaves]
+    n = (len(ps) - 1) // 3
+    y = fn(ps[0], [tuple(ps[1 + 3 * i: 4 + 3 * i]) for i in range(n)], compute_dtype)
+    return [y.detach()] + list(torch.autograd.grad((y * y.detach().cos()).sum(), ps))
+
+
+@pytest.mark.parametrize("layers", [1, 3])
+@pytest.mark.parametrize("width", [48, 44])
+def test_the_bf16_function_matches_autograd_through_the_formula(layers, width):
+    """bf16 compute on the CPU: ``_CrossNet`` (K8's plain version between
+    the products) against autograd through the formula. The same products
+    of the same operands, the same roundings: the output bit for bit, and
+    V's and W's gradients too; x0's gradient (its terms summed in another
+    order) and b's (summed by bands) to f32's rtol, 1.3e-6, with f32's atol
+    1e-5 for entries that cancel. The plain version takes any width (44 is
+    no multiple of 8)."""
+    leaves = _cross_leaves(layers, width)
+    got = _cross_outputs(cross_net, leaves, torch.bfloat16)
+    want = _cross_outputs(cross_net_autograd, leaves, torch.bfloat16)
+    assert torch.equal(got[0], want[0])
+    for i, (a, b) in enumerate(zip(got[1:], want[1:])):
+        if i % 3 in (1, 2):  # a layer's V and W
+            assert torch.equal(a, b), i
+        torch.testing.assert_close(a, b, rtol=1.3e-6, atol=1e-5)
+
+
+def test_the_routes_count_and_f32_keeps_autograd():
+    """A bf16 call on the CPU counts ``dcn.plain`` once and launches
+    nothing; an f32 call takes the formula in autograd and counts neither
+    route."""
+    leaves = _cross_leaves(2, 48)
+    layers = [tuple(leaves[1 + 3 * i: 4 + 3 * i]) for i in range(2)]
+    launches = cross_net.launches
+    before = counters()
+    cross_net(leaves[0], layers, torch.bfloat16)
+    assert counter_deltas(before, counters()).get("dcn.plain") == 1
+    before = counters()
+    got = cross_net(leaves[0], layers, torch.float32)
+    moved = counter_deltas(before, counters())
+    assert "dcn.plain" not in moved and "dcn.kernel" not in moved
+    assert torch.equal(got, cross_net_autograd(leaves[0], layers, torch.float32))
+    assert cross_net.launches == launches
+
+
+def test_the_bias_gradient_is_summed_by_bands_in_order():
+    """``bias_grad_reference`` sums each band's rows from zero in row
+    order, then runs of bands in band order: equal to a plain loop in that
+    order bit for bit, and to ``sum(0)`` to f32's rounding; at the cell's
+    shape a band is 27 rows (304 bands of 432 threads)."""
+    t = torch.randn(203, 24, generator=torch.Generator().manual_seed(3))
+    rows = 10
+    bands = [torch.zeros(24) for _ in range(21)]
+    for r in range(203):
+        bands[r // rows] = bands[r // rows] + t[r]
+    per = -(-21 // dcn.BIAS_GROUPS)
+    runs = [torch.zeros(24) for _ in range(dcn.BIAS_GROUPS)]
+    for k, band in enumerate(bands):
+        runs[k // per] = runs[k // per] + band
+    want = runs[0]
+    for run in runs[1:]:
+        want = want + run
+    got = dcn.bias_grad_reference(t, rows)
+    assert torch.equal(got, want)
+    torch.testing.assert_close(got, t.sum(0), rtol=1e-5, atol=1e-5)
+    assert dcn.band_rows(8192, 3456) == 27 and dcn.band_rows(64, 96) == 1
+
+
+@pytest.mark.parametrize("bad", ["transposed", "width", "f64"])
+def test_the_kernel_route_refuses_what_it_cannot_take(bad):
+    leaves = _cross_leaves(1, 48 if bad != "width" else 44)
+    x0 = {"transposed": leaves[0].t().contiguous().t(), "width": leaves[0],
+          "f64": leaves[0].double()}[bad]
+    with pytest.raises(ValueError, match="K8 takes"):
+        dcn._check_kernel_input(x0, [tuple(leaves[1:4])])
+
+
+def test_a_bf16_step_takes_the_plain_route_once():
+    """The bf16 DLRM-DCNv2 train step on the CPU: one cross network a step,
+    through ``_CrossNet``'s plain version; finite loss."""
+    cfg = dataclasses.replace(SMALL, compute_dtype="bfloat16")
+    params = init_dlrm(cfg, seed=1, device="cpu")
+    state = init_opt_state(OPT, params, model_groups(cfg))
+    step = make_train_step(cfg, OPT, device="cpu")
+    before = counters()
+    for it, batch in enumerate(_batches(2)):
+        _, _, loss = step(params, state, batch, it)
+        assert np.isfinite(float(loss))
+    moved = counter_deltas(before, counters())
+    assert moved["dcn.plain"] == 2 and "dcn.kernel" not in moved
 
 
 def test_bag_lookup_sums_like_embedding_bag_with_repeats():
