@@ -36,6 +36,12 @@ no result):
      bit, ``dcn.kernel`` once a call, each kernel's time against its bound
      and the network's forward and backward on both routes
      (``python3 chip_smoke.py --phase k8`` runs phases 1, 2 and this alone);
+     then phase hstu (``check_hstu``): the HSTU cell's tiled attention at its
+     shapes against its plain version on the card, forward and backward,
+     timed, and the coalesce-first row update at width 512 on ~4.26M
+     mostly distinct items against exact row-wise Adagrad in torch ops,
+     timed (``python3 chip_smoke.py --phase hstu`` runs phases 1, 2 and this
+     alone);
   f. kernel: K5 (sorted_stream_apply) and K6 (sorted_stream_add) against
      their plain versions on the reference benchmark's store (8 x 1M rows
      x 64 f32) with one device batch's sorted occurrences (K5 at batch 2048,
@@ -5972,10 +5978,163 @@ def terabyte_rows():
     return DLRMConfig.terabyte_mlperf(max_ind_range=1_000_000).emb_rows
 
 
-def main(mesh_only=False, cross_only=False):
+def _events_ms(fn, reps=3):
+    """Mean device time of ``reps`` eager fn() calls (after one warm call),
+    between two CUDA events: calls of tens of milliseconds, where the
+    host's launches hide under the device's work."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+HSTU_SHAPE = dict(tokens=32768, heads=4, dqk=128, dv=128, max_len=8192, block=1024,
+                  buckets=128, dim=512, items=8_000_000, negatives=128)
+
+
+def check_hstu():
+    """Phase hstu: the HSTU cell's tiled attention (``ops/hstu_attention.py``)
+    at its shapes in bf16 (32,768 tokens of histories log-uniform on [256,
+    8192], 4 heads of 128, N 8,192, query blocks of 1,024) against its
+    plain version on the card (each history whole, f32, from the same bf16
+    q, k, v), forward and backward, with their times and the share of the
+    computed scores that is live; then the coalesce-first row update at
+    width 512 (``optimizer.coalesced_rows_update``: K7a, the momentum, K7b,
+    K2) on the cell's ~4.26M items a step (a step's tokens, positives and
+    128 uniform negatives each, mostly distinct rows) of an 8M-row store,
+    against exact row-wise Adagrad in torch ops, with its time."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from dlrm_yx_tpu_torch.data.synthetic import history_lengths
+    from dlrm_yx_tpu_torch.ops.hstu_attention import hstu_attention, jagged_context, scores
+    from dlrm_yx_tpu_torch.optim.optimizer import OptConfig, coalesced_rows_update
+    from dlrm_yx_tpu_torch.ops.sparse_rows_overwrite import CLIP_MARGIN
+
+    c = HSTU_SHAPE
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(23)
+    t, h, n = c["tokens"], c["heads"], c["max_len"]
+    lengths = history_lengths(rng, t, 256, n)
+    gaps = np.exp(rng.normal(np.log(60.0), 2.0, t)).astype(np.int64)
+    ends = np.cumsum(lengths)
+    starts = np.repeat(ends - lengths, lengths)
+    times = torch.as_tensor(np.cumsum(gaps) - np.cumsum(gaps)[starts], device=dev)
+    offsets = torch.as_tensor(np.concatenate([[0], ends]), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q, k = (torch.randn((t, h, c["dqk"]), generator=gen, device=dev).bfloat16()
+            .requires_grad_() for _ in range(2))
+    v = torch.randn((t, h, c["dv"]), generator=gen, device=dev).bfloat16().requires_grad_()
+    pos_w = (torch.randn(2 * n - 1, generator=gen, device=dev) * 0.3).requires_grad_()
+    time_w = (torch.randn(c["buckets"] + 1, generator=gen, device=dev) * 0.3).requires_grad_()
+    cot = torch.randn((t, h, c["dv"]), generator=gen, device=dev).bfloat16()
+    ctx_ms = _events_ms(lambda: jagged_context(offsets, times, n, c["buckets"], c["block"]))
+    ctx = jagged_context(offsets, times, n, c["buckets"], c["block"])
+    torch.cuda.synchronize()
+    out = hstu_attention(q, k, v, pos_w, time_w, ctx)
+    grads = torch.autograd.grad(out, (q, k, v, pos_w, time_w), cot)
+
+    def plain(qf, kf, vf, pw, tw):
+        outs = []
+        for s, e in zip((ends - lengths).tolist(), ends.tolist()):
+            qh, kh, vh = (x[s:e].transpose(0, 1) for x in (qf, kf, vf))
+            i = torch.arange(e - s, device=dev)
+            rel = (i[:, None] - i[None, :]).clamp(min=0)
+            tt = times[s:e]
+            b = (torch.log((tt[:, None] - tt[None, :]).abs().clamp(min=1).float()) / 0.301)
+            rab = pw[n - 1 - rel] + tw[b.long().clamp(0, c["buckets"])]
+            a = F.silu(qh @ kh.transpose(1, 2) + rab) * (i[None, :] <= i[:, None]) / n
+            outs.append((a @ vh).transpose(0, 1))
+        return torch.cat(outs)
+
+    leaves = [x.detach().float().requires_grad_() for x in (q, k, v, pos_w, time_w)]
+    want = plain(*leaves)
+    want_g = torch.autograd.grad(want, leaves, cot.float())
+
+    def rel_gap(a, b):
+        return float((a.float() - b).detach().norm() / b.detach().norm())
+
+    out_gap = rel_gap(out, want)
+    g_gaps = [rel_gap(a, b) for a, b in zip(grads, want_g)]
+    say("hstu", f"attention (bf16) vs its plain version (f32): output {out_gap:.3e}, "
+                f"gradients q {g_gaps[0]:.3e} k {g_gaps[1]:.3e} v {g_gaps[2]:.3e} "
+                f"pos_w {g_gaps[3]:.3e} time_w {g_gaps[4]:.3e} (norm of the difference "
+                "over the plain version's)")
+    # bf16 products and bias against f32: a few bf16 ulps of the output's
+    # norm; a dropped block, band or bucket reads far above it
+    if out_gap > 2e-2 or max(g_gaps) > 5e-2:
+        fail(f"the tiled attention departs from its plain version: {out_gap}, {g_gaps}")
+    del want, want_g, leaves
+    fwd_ms = _events_ms(lambda: hstu_attention(q.detach(), k.detach(), v.detach(),
+                                               pos_w.detach(), time_w.detach(), ctx))
+
+    def fwd_bwd():
+        o = hstu_attention(q, k, v, pos_w, time_w, ctx)
+        torch.autograd.grad(o, (q, k, v, pos_w, time_w), cot)
+
+    both_ms = _events_ms(fwd_bwd)
+    live, computed = scores(torch.as_tensor(lengths), t, h, n, c["block"])
+    flops = 2 * (c["dqk"] + c["dv"]) * int(computed)
+    say("hstu", f"attention at T {t}, H {h}, N {n}, block {c['block']}: context "
+                f"{ctx_ms:.3f} ms, forward {fwd_ms:.3f} ms, forward+backward {both_ms:.3f} ms; "
+                f"live scores {int(live)} of {int(computed)} computed "
+                f"({100 * int(live) / int(computed):.2f}%); the computed forward products "
+                f"{flops / fwd_ms / 1e9:.1f} TFLOP/s")
+    del q, k, v, grads, out, ctx
+    torch.cuda.empty_cache()
+
+    # the row update at width 512
+    d, rows, r = c["dim"], c["items"], c["negatives"]
+    opt = OptConfig(name="rwsadagrad", lr=0.005)
+    store = torch.randn((rows + CLIP_MARGIN + 1, d), generator=gen, device=dev).mul_(0.02)
+    store[rows:] = 0
+    acc = torch.zeros(rows + CLIP_MARGIN + 1, device=dev)
+    zipf = torch.as_tensor(np.minimum(rng.zipf(1.15, 2 * t) - 1, rows - 1), device=dev)
+    ids = torch.cat([zipf, torch.randint(0, rows, (t * r,), generator=gen, device=dev)])
+    g = torch.randn((ids.shape[0], d), generator=gen, device=dev)
+    uniq, inv = torch.unique(ids, return_inverse=True)
+    sums = torch.zeros((uniq.shape[0], d), device=dev).index_add_(0, inv, g)
+    want_acc = (sums * sums).mean(dim=1)
+    want_rows = store[uniq] - opt.lr * sums / (want_acc.sqrt() + opt.eps)[:, None]
+    say("hstu", f"row update: {ids.shape[0]} items on {int(uniq.shape[0])} distinct rows of "
+                f"{rows} x {d}")
+    del sums, inv
+    before = float(store[rows - 1].sum()) if int(uniq[-1]) < rows - 1 else None
+    coalesced_rows_update(opt, store, acc, ids, [g.clone()], opt.lr, rows)
+    torch.cuda.synchronize()
+    err = float((store[uniq] - want_rows).abs().max())
+    acc_err = float(((acc[uniq] - want_acc).abs() / want_acc.clamp(min=1e-30)).max())
+    if before is not None and float(store[rows - 1].sum()) != before:
+        fail("the coalesced row update moved a row no item names")
+    if float(store[rows:].abs().sum()) != 0.0:
+        fail("the coalesced row update wrote a spare row")
+    say("hstu", f"coalesced row update vs torch ops: store max abs err {err:.3e}, momentum "
+                f"max rel err {acc_err:.3e}")
+    # f32 sums of the same items in another order
+    if err > 1e-5 or acc_err > 1e-4:
+        fail(f"the coalesced row update departs from exact row-wise Adagrad: {err}, {acc_err}")
+    del want_rows, want_acc, uniq
+    ms = _events_ms(lambda: coalesced_rows_update(opt, store, acc, ids, [g.clone()], opt.lr, rows))
+    copy_ms = _events_ms(lambda: g.clone())
+    say("hstu", f"coalesced row update (K7a, momentum, K7b, K2): {ms - copy_ms:.3f} ms a call "
+                f"(a call's {copy_ms:.3f} ms copy of its gradients left out)")
+    del store, acc, g, ids
+    torch.cuda.empty_cache()
+
+
+def main(mesh_only=False, cross_only=False, hstu_only=False):
     """The smoke run; ``mesh_only`` (``--phase 12``): phases 1, 2 and 12 alone,
     the kernels line of K1-K3 at phase 12's shapes; ``cross_only``
-    (``--phase k8``): phases 1, 2 and phase a's K8 check alone."""
+    (``--phase k8``): phases 1, 2 and phase a's K8 check alone;
+    ``hstu_only`` (``--phase hstu``): phases 1, 2 and phase hstu alone."""
     import gc
     import re
 
@@ -6008,6 +6167,12 @@ def main(mesh_only=False, cross_only=False):
         say("build", f"  {name}: {len(regs)} kernel instances, at most {max(regs, default=0)} "
                      f"registers and {max(spills, default=0)} bytes of spill stores a thread "
                      f"(ptxas)")
+    if hstu_only:
+        check_hstu()
+        say("done", f"chip_smoke.py --phase hstu wall time {time.perf_counter() - T_START:.1f} s")
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                 "count": count}}))
+        return
     if cross_only:
         check_cross_layer_kernel()
         say("done", f"chip_smoke.py --phase k8 wall time {time.perf_counter() - T_START:.1f} s")
@@ -6040,6 +6205,7 @@ def main(mesh_only=False, cross_only=False):
     k4 = check_rows_add_kernel(cap_big, big)
     check_coalesce_route()
     check_cross_layer_kernel()
+    check_hstu()
     rows = DLRMConfig.terabyte_mlperf(max_ind_range=1_000_000).emb_rows
     # x. the kernels on the variants' shapes (and the processed dataset)
     grouped = {"processed": check_variant_kernels(rows)}
@@ -6234,5 +6400,7 @@ if __name__ == "__main__":
         main(mesh_only=True)
     elif sys.argv[1:] == ["--phase", "k8"]:
         main(cross_only=True)
+    elif sys.argv[1:] == ["--phase", "hstu"]:
+        main(hstu_only=True)
     else:
         main()

@@ -25,6 +25,8 @@ kernels (K1–K6), and whole-table (hybrid) sharding over a
 ``torch.distributed`` mesh of one process a device (``parallel/``: the
 CLI's --mesh-data / --mesh-model / --distributed / --force-cpu-devices);
 row and column sharding are left. Entry points run on ``cuda`` unless the
-caller passes ``device="cpu"``. The package imports nothing of JAX or
-``dlrm_yx_tpu``.
+caller passes ``device="cpu"``. Beside DLRM it trains HSTU, the
+generative recommender's sequential transducer (``models/hstu.py``,
+``ops/hstu_attention.py``), through the same path on one device. The
+package imports nothing of JAX or ``dlrm_yx_tpu``.
 """

@@ -45,7 +45,10 @@ DLRM-DCNv2 (MLPerf Training's recommendation model since v3.0):
 ``--dcn-low-rank-dim``, and fixed multi-hot bags with
 ``--multi-hot-sizes`` (random data draws bags of those sizes); they train
 and serve on one device (the mesh runners, export and quantized serving
-refuse them). ``--print-time``
+refuse them). HSTU (``--model=hstu`` with the ``--hstu-*`` flags: ``models/hstu.py``;
+row-wise Adagrad on its table, AdamW on its dense leaves) trains on one
+device from random jagged histories, with no eval (``refuse_for_hstu``
+lists what it refuses). ``--print-time``
 and the reference-compat flags of ``add_noop_flags`` are accepted and have
 no effect, as in the JAX CLI.
 The reference's L=100 throughput benchmark
@@ -78,7 +81,12 @@ import time
 import numpy as np
 import torch
 
-from dlrm_yx_tpu_torch.config import DLRMConfig, parse_int_list, refuse_dcn_and_bags
+from dlrm_yx_tpu_torch.config import (
+    DLRMConfig,
+    HSTUConfig,
+    parse_int_list,
+    refuse_dcn_and_bags,
+)
 from dlrm_yx_tpu_torch.data.criteo import (
     CriteoNpzLoader,
     preprocess_criteo,
@@ -90,6 +98,7 @@ from dlrm_yx_tpu_torch.data.synthetic import (
     RandomDataConfig,
     make_device_random_batches,
     make_random_batches,
+    make_sequence_batches,
 )
 from dlrm_yx_tpu_torch.data.trace import make_trace_batches
 from dlrm_yx_tpu_torch.export import collect_execution_graph, export_inference
@@ -157,6 +166,22 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--multi-hot-sizes", type=str, default="",
                    help="dash-separated fixed bag size of each table (DLRM-DCNv2's "
                         "multi-hot ids); random data then draws bags of these sizes")
+    p.add_argument("--model", type=str, default="dlrm", choices=["dlrm", "hstu"],
+                   help="hstu = the generative recommender's sequential transducer "
+                        "(the --hstu-* flags; random jagged histories)")
+    p.add_argument("--hstu-num-items", type=int, default=1000)
+    p.add_argument("--hstu-embedding-dim", type=int, default=512)
+    p.add_argument("--hstu-num-heads", type=int, default=4)
+    p.add_argument("--hstu-attention-dim", type=int, default=128, help="dqk a head")
+    p.add_argument("--hstu-linear-dim", type=int, default=128, help="dv a head")
+    p.add_argument("--hstu-num-blocks", type=int, default=8)
+    p.add_argument("--hstu-max-seq-len", type=int, default=8192)
+    p.add_argument("--hstu-num-negatives", type=int, default=128)
+    p.add_argument("--hstu-temperature", type=float, default=0.05)
+    p.add_argument("--hstu-tokens-per-batch", type=int, default=32768,
+                   help="the tokens of a batch: whole histories packed, the last cut")
+    p.add_argument("--hstu-max-sequences", type=int, default=160,
+                   help="the histories of a batch are padded to this bound")
     p.add_argument("--weighted-pooling", type=str, default=None,
                    help="fixed | learned: per-row pooling weights v_W")
     # embedding compression
@@ -342,7 +367,20 @@ def dataset_prefix(args) -> str:
     return args.processed_data_file or args.raw_data_file
 
 
+def hstu_config(args) -> HSTUConfig:
+    """The HSTU configuration of the --hstu-* flags and --compute-dtype."""
+    return HSTUConfig(
+        num_items=args.hstu_num_items, embedding_dim=args.hstu_embedding_dim,
+        num_heads=args.hstu_num_heads, attention_dim=args.hstu_attention_dim,
+        linear_dim=args.hstu_linear_dim, num_blocks=args.hstu_num_blocks,
+        max_seq_len=args.hstu_max_seq_len, num_negatives=args.hstu_num_negatives,
+        temperature=args.hstu_temperature, tokens_per_batch=args.hstu_tokens_per_batch,
+        max_sequences=args.hstu_max_sequences, compute_dtype=args.compute_dtype)
+
+
 def config_from_args(args, argv=None) -> DLRMConfig:
+    if args.model == "hstu":
+        return hstu_config(args)
     kw = dict(
         ln_bot=parse_int_list(args.arch_mlp_bot),
         ln_top=parse_int_list(args.arch_mlp_top),
@@ -697,6 +735,26 @@ def make_runner(args, cfg: DLRMConfig, opt: OptConfig, lr_policy):
     return runner
 
 
+# what an HSTU run refuses: (flag, its value when it is off)
+HSTU_REFUSED = (("inference_only", False), ("save_onnx", False), ("debug_mode", False),
+                ("collect_execution_graph", False), ("plot_compute_graph", False),
+                ("save_model", ""), ("load_model", ""), ("mlperf_grad_accum_iter", 1),
+                ("quantize_emb_with_bit", 32), ("quantize_mlp_with_bit", 32))
+
+
+def refuse_for_hstu(args) -> None:
+    """Raise on an option an HSTU run has not got: serving, export,
+    checkpoints, the debug printout and execution graph, accumulation, data
+    other than random histories."""
+    on = [name for name, off in HSTU_REFUSED if getattr(args, name) != off]
+    if args.data_generation != "random":
+        on.append(f"data_generation={args.data_generation}")
+    if on:
+        raise NotImplementedError(
+            f"HSTU trains on one device from random histories; not ported for it: "
+            f"{', '.join('--' + n.replace('_', '-') for n in on)}")
+
+
 def _run(args, argv):
     np.random.seed(args.numpy_rand_seed)
     cfg = config_from_args(args, argv)
@@ -727,6 +785,8 @@ def _run(args, argv):
     )
     if args.save_onnx:
         refuse_dcn_and_bags(cfg, "--save-onnx export")  # before training, not after
+    if isinstance(cfg, HSTUConfig):
+        return _run_hstu(args, cfg, opt, lr_policy, tcfg)
     train, test = make_data(args, cfg, train=not args.inference_only)
     if cfg.sparse_update_impl in ("pallas", "stream") and cfg.dup_density_hint <= 0:
         hint = _measure_dup_density(cfg, train)
@@ -782,6 +842,26 @@ def _run(args, argv):
             export_inference(params, cfg, _first_batch(train), out)
         rank0_print(f"saved the exported model to {out}")
     return summary
+
+
+def _run_hstu(args, cfg: HSTUConfig, opt: OptConfig, lr_policy, tcfg: TrainerConfig) -> dict:
+    """Train HSTU through ``Trainer.fit`` (one device, no eval) on random
+    histories; returns ``{"iterations": ...}``."""
+    refuse_for_hstu(args)
+    nb = args.num_batches or 1
+    train = make_sequence_batches(cfg, nb, seed=args.numpy_rand_seed)
+    trainer = Trainer(cfg, opt, tcfg, lr_policy, device=args.device,
+                      runner=make_runner(args, cfg, opt, lr_policy) if uses_mesh(args) else None)
+    t0 = time.time()
+    if args.enable_profiling:
+        with trace(args.profile_out_dir):
+            trainer.fit(train)
+        rank0_print(f"profiler trace written to {args.profile_out_dir}")
+    else:
+        trainer.fit(train)
+    if args.print_wall_time:
+        rank0_print(f"Total wall time: {time.time() - t0:.2f} s")
+    return {"iterations": trainer.iteration}
 
 
 if __name__ == "__main__":

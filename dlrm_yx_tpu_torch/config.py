@@ -11,11 +11,16 @@ fields (``sparse_update_impl``, ``exact_row_momentum``,
 ``write_only_update``, ``dup_density_hint``, ``stochastic_rounding``) as
 the JAX package does; ``lookup_impl`` is kept so a config compares field
 for field, and both of its values take the same gather.
+
+``HSTUConfig`` describes the port's other model family, HSTU, the
+generative recommender's sequential transducer (``models/hstu.py``); the
+paths that run DLRM only refuse it with ``refuse_dcn_and_bags``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Tuple
 
 
@@ -393,14 +398,85 @@ class DLRMConfig:
         )
 
 
-def refuse_dcn_and_bags(config: DLRMConfig, path: str) -> None:
-    """Raise on a configuration with the ``dcn`` interaction or fixed
-    multi-hot bags in a path that has neither (the mesh runners, export,
-    quantized serving): they run on one device through the train and eval
-    steps only."""
+def refuse_dcn_and_bags(config, path: str) -> None:
+    """Raise on a model that trains and serves on one device only, in a path
+    that has not got it (the mesh runners, export, quantized serving): an
+    HSTU configuration, or a DLRM with the ``dcn`` interaction or fixed
+    multi-hot bags (DLRM-DCNv2)."""
+    if isinstance(config, HSTUConfig):
+        raise NotImplementedError(
+            f"{path} does not support HSTU (the sequential transducer): train it on one "
+            "device")
     parts = [p for p, on in (("the 'dcn' interaction", config.interaction == "dcn"),
                              ("--multi-hot-sizes bags", bool(config.multi_hot_sizes))) if on]
     if parts:
         raise NotImplementedError(
             f"{path} does not support {' and '.join(parts)} (DLRM-DCNv2): train and serve "
             "it on one device")
+
+
+# the attention's widest query block: a block's [H, Q, Q + N - 1] scores
+MAX_ATTN_BLOCK = 1024
+
+
+@dataclasses.dataclass(frozen=True)
+class HSTUConfig:
+    """HSTU, the generative recommender's sequential transducer (Zhai et
+    al., arXiv:2402.17152; ``models/hstu.py``): a stack of pointwise-attention
+    blocks over jagged user histories, trained by next-item sampled softmax
+    against one item table that is both the input and the output embedding.
+
+    Attributes:
+      num_items: rows of the item table.
+      embedding_dim: d, the item embedding's and the residual stream's width.
+      num_heads, attention_dim, linear_dim: H, dqk and dv of a block.
+      num_blocks: the blocks, each with its own relative bias tables.
+      max_seq_len: N, the longest history; the attention divides by it and
+        the position tables hold it.
+      num_time_buckets: the time bias's buckets (bucket ids 0..this).
+      num_negatives: uniformly sampled negatives a position.
+      temperature: the sampled softmax's temperature.
+      tokens_per_batch: the tokens of a batch (histories packed to it).
+      max_sequences: the bound the sequences of a batch are padded to.
+      compute_dtype: 'float32' or 'bfloat16' for the products and the
+        attention (tables, norms and the loss stay f32).
+    """
+
+    num_items: int
+    embedding_dim: int = 512
+    num_heads: int = 4
+    attention_dim: int = 128
+    linear_dim: int = 128
+    num_blocks: int = 8
+    max_seq_len: int = 8192
+    num_time_buckets: int = 128
+    num_negatives: int = 128
+    temperature: float = 0.05
+    tokens_per_batch: int = 32768
+    max_sequences: int = 160
+    compute_dtype: str = "bfloat16"
+
+    def __post_init__(self):
+        for name in ("num_items", "embedding_dim", "num_heads", "attention_dim", "linear_dim",
+                     "num_blocks", "max_seq_len", "num_negatives", "tokens_per_batch",
+                     "max_sequences"):
+            if getattr(self, name) < 1:
+                raise ValueError(f"HSTU {name} must be >= 1, got {getattr(self, name)}")
+        if not 1 <= self.num_time_buckets <= 254:
+            raise ValueError(f"HSTU takes 1 to 254 time buckets, got {self.num_time_buckets}")
+        if self.temperature <= 0:
+            raise ValueError(f"HSTU temperature must be > 0, got {self.temperature}")
+        if self.compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"bad compute_dtype {self.compute_dtype!r}")
+
+    @property
+    def attn_block(self) -> int:
+        """The attention's query block (``ops/hstu_attention.py``): the
+        largest power of two up to ``MAX_ATTN_BLOCK`` that divides the
+        tokens of a batch."""
+        return math.gcd(self.tokens_per_batch, MAX_ATTN_BLOCK)
+
+    @property
+    def uvqk_width(self) -> int:
+        """The columns of W_uvqk: U and V of dv, Q and K of dqk, each head."""
+        return self.num_heads * (2 * self.linear_dim + 2 * self.attention_dim)

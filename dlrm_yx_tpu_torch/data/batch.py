@@ -18,6 +18,10 @@ its batch from static device buffers (``empty_like_batch``) that
 memory with a non-blocking copy, device tensors device to device.
 ``stage_batch`` starts a host batch's copy to the card on a side stream
 (the trainer's prefetch thread). ``to_device`` serves the eager path.
+
+HSTU trains on ``SeqBatch``, a jagged batch of user histories at a fixed
+token budget. Every helper here takes either kind of batch (any
+``NamedTuple`` of arrays) and keeps its kind.
 """
 
 from __future__ import annotations
@@ -35,6 +39,32 @@ class Batch(NamedTuple):
     indices: "np.ndarray | object"
     weights: "np.ndarray | object"
     labels: "np.ndarray | object"
+
+
+class SeqBatch(NamedTuple):
+    """A jagged batch of user histories for HSTU (``models/hstu.py``): T
+    tokens (the batch's fixed budget), whole histories packed back to back
+    and the last one cut to fit; S histories padded to the configuration's
+    bound, a padded one empty.
+
+    ids        [T]      int32    each event's item
+    times      [T]      int64    each event's timestamp (seconds; rising
+                                 within a history)
+    offsets    [S + 1]  int32    each history's first token, then T
+                                 (a padded history starts at T)
+    positives  [T]      int32    the next event's item (0 at a history's
+                                 last event)
+    negatives  [T, R]   int32    the position's sampled negative items
+    weights    [T]      float32  1 where the position is supervised (an
+                                 event with a next one), else 0
+    """
+
+    ids: "np.ndarray | object"
+    times: "np.ndarray | object"
+    offsets: "np.ndarray | object"
+    positives: "np.ndarray | object"
+    negatives: "np.ndarray | object"
+    weights: "np.ndarray | object"
 
 
 def csr_to_padded(
@@ -87,17 +117,17 @@ def padded_to_csr(indices: np.ndarray, weights: np.ndarray
 
 def to_device(batch: Batch, device: torch.device) -> Batch:
     """The batch as tensors on ``device`` (no copy for fields already there)."""
-    return Batch(*(torch.as_tensor(a, device=device) for a in batch))
+    return type(batch)(*(torch.as_tensor(a, device=device) for a in batch))
 
 
 def stack_batches(batches: Sequence[Batch]) -> Batch:
     """n batches stacked on a new leading axis: numpy for host batches,
     torch tensors (on their device) for device batches."""
-    if isinstance(batches[0].dense, torch.Tensor):
-        return Batch(*(torch.stack([getattr(b, f) for b in batches])
-                       for f in Batch._fields))
-    return Batch(*(np.stack([np.asarray(getattr(b, f)) for b in batches])
-                   for f in Batch._fields))
+    kind = type(batches[0])
+    if isinstance(batches[0][0], torch.Tensor):
+        return kind(*(torch.stack([b[i] for b in batches]) for i in range(len(kind._fields))))
+    return kind(*(np.stack([np.asarray(b[i]) for b in batches])
+                  for i in range(len(kind._fields))))
 
 
 def signature(batch: Batch) -> Tuple:
@@ -114,8 +144,8 @@ def _torch_dtype(a) -> torch.dtype:
 def empty_like_batch(batch: Batch, device: torch.device) -> Batch:
     """Uninitialised tensors on ``device`` with the shapes and types of
     ``batch``'s fields (host or device)."""
-    return Batch(*(torch.empty(tuple(a.shape), dtype=_torch_dtype(a), device=device)
-                   for a in batch))
+    return type(batch)(*(torch.empty(tuple(a.shape), dtype=_torch_dtype(a), device=device)
+                         for a in batch))
 
 
 def _pinned(a) -> torch.Tensor:
@@ -151,8 +181,9 @@ def stage_batch(batch: Batch, device: torch.device, stream):
     if all(isinstance(a, torch.Tensor) and a.device == device for a in batch):
         return batch, None
     with torch.cuda.stream(stream):
-        staged = Batch(*(a.to(device, non_blocking=True) if isinstance(a, torch.Tensor)
-                         else _pinned(a).to(device, non_blocking=True) for a in batch))
+        staged = type(batch)(*(a.to(device, non_blocking=True) if isinstance(a, torch.Tensor)
+                               else _pinned(a).to(device, non_blocking=True)
+                               for a in batch))
         event = torch.cuda.Event()
         event.record(stream)
     count("h2d.bytes", sum(np.asarray(a).nbytes for a in batch

@@ -19,6 +19,12 @@ is in the bag layout instead: ids [sum(h), B, 1], each of table t's
 synthetic multi-hot data has them), weights ones [sum(h), 1, 1] (a bag
 is unweighted and they are not read), the dense features and targets as
 above.
+
+``make_sequence_batches`` draws HSTU's jagged batches (``SeqBatch``):
+user histories of log-uniform lengths packed to the token budget, uniform
+items and negatives, timestamps rising by log-normal gaps;
+``seq_batch`` lays out such a batch from its histories, and
+``history_times`` their timestamps from the gaps between events.
 """
 
 from __future__ import annotations
@@ -29,7 +35,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from dlrm_yx_tpu_torch.data.batch import Batch
+from dlrm_yx_tpu_torch.data.batch import Batch, SeqBatch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -194,6 +200,72 @@ class _DeviceBatches:
         if self.round_targets:
             y = (y > 0.5).float()
         return Batch(dense, idx, w, y)
+
+
+def seq_batch(ids: np.ndarray, times: np.ndarray, lengths: np.ndarray, negatives: np.ndarray,
+              max_sequences: int) -> SeqBatch:
+    """The ``SeqBatch`` of histories of ``lengths`` (summing to T) laid
+    back to back with their items ``ids`` [T], timestamps ``times`` [T]
+    and negatives [T, R]: offsets padded to ``max_sequences`` + 1 with T,
+    each position's positive the next event's item and its weight 1 where
+    the next event is in its history. Timestamps may not fall within a
+    history."""
+    lengths = np.asarray(lengths, np.int64)
+    t = int(lengths.sum())
+    if ids.shape[0] != t or lengths.shape[0] > max_sequences:
+        raise ValueError(f"{lengths.shape[0]} histories of {t} events for {ids.shape[0]} "
+                         f"tokens and a bound of {max_sequences} histories")
+    offsets = np.full(max_sequences + 1, t, np.int32)
+    offsets[1:lengths.shape[0] + 1] = np.cumsum(lengths)
+    offsets[0] = 0
+    last = np.zeros(t, bool)
+    last[np.cumsum(lengths)[lengths > 0] - 1] = True
+    if (np.diff(times)[~last[:-1]] < 0).any():
+        raise ValueError("timestamps must not fall within a history (the attention's time "
+                         "buckets are read off rows that never rise)")
+    positives = np.where(last, 0, np.roll(ids, -1)).astype(np.int32)
+    return SeqBatch(ids.astype(np.int32), times.astype(np.int64), offsets, positives,
+                    negatives.astype(np.int32), (~last).astype(np.float32))
+
+
+def history_times(gaps: np.ndarray, lengths: np.ndarray) -> np.ndarray:
+    """Each event's timestamp [T] int64 of histories of ``lengths`` laid
+    back to back: each history's times rise from 0 by its events' ``gaps``
+    [T] (a history's first gap is not read)."""
+    lengths = np.asarray(lengths, np.int64)
+    starts = np.repeat(np.cumsum(lengths) - lengths, lengths)
+    csum = np.cumsum(np.asarray(gaps, np.int64))
+    return csum - csum[starts]
+
+
+def history_lengths(rng, tokens: int, lo: int, hi: int) -> np.ndarray:
+    """Lengths log-uniform on [lo, hi], drawn until they fill ``tokens``,
+    the last one cut to fit."""
+    out, total = [], 0
+    while total < tokens:
+        n = min(int(np.exp(rng.uniform(np.log(lo), np.log(hi + 1)))), hi, tokens - total)
+        out.append(n)
+        total += n
+    return np.asarray(out, np.int64)
+
+
+def make_sequence_batches(config, num_batches: int, seed: int = 123) -> List[SeqBatch]:
+    """``num_batches`` HSTU batches of ``config`` (an ``HSTUConfig``) from
+    one numpy RandomState: history lengths log-uniform on [1, max_seq_len],
+    items and negatives uniform over the table, timestamps rising from 0 by
+    log-normal gaps (median 60 s, sigma 2)."""
+    rng = np.random.RandomState(seed)
+    c = config
+    out = []
+    for _ in range(num_batches):
+        lengths = history_lengths(rng, c.tokens_per_batch, 1, c.max_seq_len)
+        t = c.tokens_per_batch
+        ids = rng.randint(0, c.num_items, t)
+        gaps = np.exp(rng.normal(np.log(60.0), 2.0, t)).astype(np.int64)
+        times = history_times(gaps, lengths)
+        negatives = rng.randint(0, c.num_items, (t, c.num_negatives))
+        out.append(seq_batch(ids, times, lengths, negatives, c.max_sequences))
+    return out
 
 
 def save_batches_hdf5(path: str, batches) -> None:

@@ -95,14 +95,16 @@ def qr_specs(config: DLRMConfig) -> List[QRSpec]:
 
 
 # the dense params, trained by autograd and the dense optimizer, in their
-# one order: the towers, the MD projections, the cross layers
-DENSE_KEYS = ("bot", "top", "md_proj", "dcn")
+# one order: the towers, the MD projections, the cross layers, and HSTU's
+# position embedding and blocks (models/hstu.py)
+DENSE_KEYS = ("bot", "top", "md_proj", "dcn", "hstu_pos", "hstu_blocks")
 
 
 def dense_leaves(tree: Dict) -> List[torch.Tensor]:
     """The dense leaves of a params (or grads) tree, in ``DENSE_KEYS``
     order, each entry's tensors in order: (W, b) a tower layer, W an MD
-    projection, (V, W, b) a cross layer; the keys the tree lacks are
+    projection, (V, W, b) a cross layer, HSTU's position table, (W_uvqk,
+    W_o, b_o, pos_w, time_w) an HSTU block; the keys the tree lacks are
     skipped."""
     return [t for k in DENSE_KEYS if k in tree
             for entry in tree[k] for t in (entry if isinstance(entry, (tuple, list)) else (entry,))]

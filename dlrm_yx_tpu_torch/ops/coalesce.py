@@ -226,7 +226,7 @@ def coalesce_finish_reference(acc: torch.Tensor, seg: Segments, old_rows: torch.
 
 
 def coalesce_finish(acc: torch.Tensor, seg: Segments, old_rows: torch.Tensor, lr,
-                    eps: float, sentinel: int):
+                    eps: float, sentinel: int, out: Optional[torch.Tensor] = None):
     """K7b: (new_vals [K, dim], delta [K, dim]) f32 of K7a's segments
     ``seg`` (its sums, which delta reuses on the card) after K4 has added
     their increments to ``acc`` (the 1-D f32 row momentum): ``delta =
@@ -234,7 +234,10 @@ def coalesce_finish(acc: torch.Tensor, seg: Segments, old_rows: torch.Tensor, lr
     delta`` for each segment of an id below the sentinel; other places are
     left as they are on the card (K2 skips their items). old_rows [K, dim]
     f32: the rows the forward lookup gathered, one an item; lr a float or a
-    0-dim f32 tensor on the device.
+    0-dim f32 tensor on the device. ``out``: a [K, dim] f32 tensor that
+    takes new_vals in place of a new one; it may be ``old_rows`` itself
+    where ``seg.rep`` is every place's own (each element is read, then
+    written, by one thread).
 
     A CUDA call launches the kernel on the current stream and adds one to
     ``coalesce_finish.launches``; a CPU call runs the plain version."""
@@ -245,7 +248,8 @@ def coalesce_finish(acc: torch.Tensor, seg: Segments, old_rows: torch.Tensor, lr
     if acc.dim() != 1 or acc.dtype != torch.float32:
         raise ValueError(f"want acc 1-D f32, got {acc.dtype} {tuple(acc.shape)}")
     if acc.device.type == "cpu":
-        return coalesce_finish_reference(acc, seg, old_rows, lr, eps, sentinel)
+        new_vals, delta = coalesce_finish_reference(acc, seg, old_rows, lr, eps, sentinel)
+        return (new_vals, delta) if out is None else (out.copy_(new_vals), delta)
     if d % 4 or d > MAX_DIM:
         raise ValueError(f"K7b takes widths of a multiple of 4 up to {MAX_DIM}, got {d}")
     dev = acc.device
@@ -253,7 +257,9 @@ def coalesce_finish(acc: torch.Tensor, seg: Segments, old_rows: torch.Tensor, lr
     if old_rows.data_ptr() % 16:
         raise ValueError("K7b's 16-byte loads need a 16-byte aligned old_rows")
     lr_t = device_lr(lr, dev)
-    new_vals = torch.empty((k, d), dtype=torch.float32, device=dev)
+    new_vals = torch.empty((k, d), dtype=torch.float32, device=dev) if out is None else out
+    if new_vals.shape != (k, d) or not new_vals.is_contiguous():
+        raise ValueError(f"want out [{k}, {d}] f32 contiguous, got {tuple(new_vals.shape)}")
     delta = seg.sums
     fn = _kernel("coalesce_rows_finish_rows")
     err = fn(

@@ -61,7 +61,7 @@ Differences of form from the JAX package, none of result:
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -78,7 +78,7 @@ from dlrm_yx_tpu_torch.ops.dense_finish import rwsadagrad_dense_finish_many
 from dlrm_yx_tpu_torch.models.dlrm import dense_leaves, nest_dense
 from dlrm_yx_tpu_torch.ops.embedding import BagRowGrads, TableGroup, device_ints, dim_pack
 from dlrm_yx_tpu_torch.ops.sparse_rows_add import sparse_rows_add
-from dlrm_yx_tpu_torch.ops.sparse_rows_overwrite import sparse_rows_overwrite
+from dlrm_yx_tpu_torch.ops.sparse_rows_overwrite import CLIP_MARGIN, sparse_rows_overwrite
 from dlrm_yx_tpu_torch.utils.profiling import count
 
 # the JAX package's routing constants (optimizer.py:129-211)
@@ -89,6 +89,17 @@ DENSE_ACCUM_FACTOR = 8
 MOMENTUM_EXACT_DENSITY = 0.95
 
 Scalar = Union[float, torch.Tensor]  # an lr: a float, or a 0-dim f32 device tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    """AdamW (torch.optim.AdamW's update, no weight decay): HSTU's dense
+    leaves' optimizer; its lr is their base lr, scaled by the same LR policy
+    as the table's (``OptConfig.lr``)."""
+
+    lr: float = 1e-3
+    betas: Tuple[float, float] = (0.9, 0.98)
+    eps: float = 1e-8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -502,11 +513,80 @@ def _coalesced_overwrite(opt, store, acc, flat_idx, flat_g, lr, sentinel, impl, 
     versions give bit for bit."""
     count("sparse_update.overwrite")
     seg = coalesce_segments(flat_idx, flat_g, sentinel, mdim=store.shape[1], zero_tail=False)
+    _overwrite_segments(opt, store, acc, seg, old_rows, lr, sentinel, impl)
+    return store, acc
+
+
+def _overwrite_segments(opt, store, acc, seg, old_rows, lr, sentinel, impl,
+                        in_place=False) -> None:
+    """The update after K7a: the momentum increments added (K4 or a
+    scatter), K7b's new rows from ``old_rows`` (read at ``seg.rep``;
+    written over them with ``in_place``, where each place reads its own),
+    K2."""
     active = (seg.ids < sentinel).to(torch.int32)
     _acc_update_1d(acc, seg.ids, seg.inc, active, sentinel, impl)
-    new_vals, delta = coalesce_finish(acc, seg, old_rows, lr, opt.eps, sentinel)
+    new_vals, delta = coalesce_finish(acc, seg, old_rows, lr, opt.eps, sentinel,
+                                      out=old_rows if in_place else None)
     sparse_rows_overwrite(store, seg.ids, new_vals, delta, active)
-    return store, acc
+
+
+def coalesced_rows_update(opt: OptConfig, store: torch.Tensor, acc: torch.Tensor,
+                          flat_idx: torch.Tensor, grads: List[torch.Tensor], lr: Scalar,
+                          sentinel: int) -> None:
+    """Exact row-wise Adagrad (RWSAdagrad with coalesce-first momentum) of
+    an f32 store of any size, in place, on the coalesce-first write-only
+    route without its gates: K7a, the momentum (K4 or a scatter), K7b, K2.
+    The ids lie below ``sentinel``; the store holds ``CLIP_MARGIN`` + 1
+    spare rows from there on (K2 clips its ids below them and sends its
+    inactive items to the last).
+    ``flat_idx`` [K] row ids, ``grads``: a list holding the one [K, dim]
+    f32 gradient tensor, which this takes out of the list and lets go once
+    K7a has summed it, so that the update's other [K, dim] tensors (K7a's
+    sums; the distinct rows' old values, gathered by distinct row, not an
+    item each, since a segment's representative is its own place, and
+    overwritten by K7b with the new ones) need not live beside it. It
+    serves HSTU's item table, whose step of a few million items would take
+    ``sparse_update``'s dense branch: a second buffer the table's size."""
+    if opt.name != "rwsadagrad" or store.dtype != torch.float32 or acc.dim() != 1:
+        raise ValueError("the coalesced row update is exact row-wise Adagrad of an f32 store")
+    if store.shape[0] < sentinel + CLIP_MARGIN + 1:
+        raise ValueError(f"a store of {store.shape[0]} rows holds fewer than "
+                         f"{CLIP_MARGIN + 1} spare rows past its sentinel {sentinel}")
+    count("sparse_update.overwrite")
+    seg = coalesce_segments(flat_idx, grads.pop(), sentinel, mdim=store.shape[1],
+                            zero_tail=False)
+    old = store.index_select(0, seg.ids.clamp(max=sentinel - 1))
+    own = seg._replace(rep=torch.arange(seg.ids.shape[0], device=store.device))
+    _overwrite_segments(opt, store, acc, own, old, lr, sentinel, "pallas", in_place=True)
+
+
+def init_adamw_state(params: Dict) -> Dict:
+    """AdamW's first and second moments of every dense leaf, zeros, nested
+    as the params' dense leaves."""
+    return {name: nest_dense(params, [torch.zeros_like(p) for p in dense_leaves(params)])
+            for name in ("adam_m", "adam_v")}
+
+
+@torch.no_grad()
+def adamw_update(cfg: AdamWConfig, ps: List[torch.Tensor], gs: List[torch.Tensor],
+                 ms: List[torch.Tensor], vs: List[torch.Tensor], lr: Scalar,
+                 step: torch.Tensor) -> None:
+    """``torch.optim.AdamW``'s update (no weight decay) of every tensor in
+    ``ps``, in place, as multi-tensor launches: m = lerp(m, g, 1 - b1);
+    v = b2 v + (1 - b2) g^2; p -= lr / (1 - b1^t) * m / (sqrt(v) /
+    sqrt(1 - b2^t) + eps). ``lr`` a float or a 0-dim f32 device tensor,
+    ``step`` t, a 0-dim f32 device tensor (the first step is 1), so a
+    captured step reads both from device memory."""
+    b1, b2 = cfg.betas
+    torch._foreach_lerp_(ms, gs, 1.0 - b1)
+    torch._foreach_mul_(vs, b2)
+    torch._foreach_addcmul_(vs, gs, gs, 1.0 - b2)
+    denom = torch._foreach_sqrt(vs)
+    torch._foreach_mul_(denom, torch.rsqrt(1.0 - torch.pow(b2, step)))
+    torch._foreach_add_(denom, cfg.eps)
+    upd = torch._foreach_div(ms, denom)
+    torch._foreach_mul_(upd, lr / (1.0 - torch.pow(b1, step)))
+    torch._foreach_sub_(ps, upd)
 
 
 def _kernel_route(opt, store, acc, flat_idx, flat_g, lr, sentinel, impl,

@@ -26,7 +26,8 @@ canonical single-device params (export and quantized serving), and
 ``save_checkpoint`` / ``load_checkpoint`` write and read the JAX package's
 npz checkpoint of the runner's trees.
 
-The single-device runner is ``train/trainer.LocalRunner``. ``Runner`` is
+The single-device runners are ``train/trainer.LocalRunner`` (DLRM) and
+``train/trainer.HstuRunner`` (HSTU). ``Runner`` is
 the base of the three mesh runners (``parallel/hybrid.py``,
 ``row_sharded.py``, ``col_sharded.py``; one process a rank, the mesh of the
 world's ranks, ``parallel/mesh.py``): their constructor, their train and
@@ -145,7 +146,7 @@ def single_device_tables(config: DLRMConfig, params: Dict) -> Dict[int, torch.Te
 
 class Runner:
     """A mesh mode's runner, one per rank (the module docstring); the
-    Trainer's interface, which ``train/trainer.LocalRunner`` also keeps."""
+    Trainer's interface, which the single-device runners also keep."""
 
     sharded_keys = ()
 
@@ -209,6 +210,11 @@ class Runner:
 
     def _eval_step(self):
         return capture.eval_step(self.eval_body, self.device, self.capture)
+
+    @functools.cached_property
+    def groups(self):
+        """The model's table groups (``models.dlrm.model_groups``)."""
+        return model_groups(self.config)
 
     @property
     def graph_name(self) -> str:

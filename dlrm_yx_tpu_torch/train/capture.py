@@ -266,8 +266,8 @@ def multi_step(body: Callable, n_steps: int, lr_fn: Callable[[int], float],
     leading [n_steps] axis, step i taking ``lr_fn(iteration + i)`` and seed
     ``iteration + i``."""
     def graph_body(params, opt_state, batches, lrs, seeds):
-        return torch.stack([body(params, opt_state, Batch(*(f[i] for f in batches)), lrs[i],
-                                 seeds[i]) for i in range(n_steps)])
+        return torch.stack([body(params, opt_state, type(batches)(*(f[i] for f in batches)),
+                                 lrs[i], seeds[i]) for i in range(n_steps)])
 
     return _train_step(GraphStep(graph_body, n_steps, lr_fn, device,
                                  _capture(capture, device)))

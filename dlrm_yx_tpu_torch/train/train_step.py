@@ -39,6 +39,13 @@ the bag items' gradients to the optimizer unexpanded
 (``embedding.BagRowGrads``): the coalesce-first update sums each row's
 items from the pooled cotangent itself (K7, ``ops/coalesce.py``).
 
+HSTU (``models/hstu.py``) has a body of its own, ``hstu_train_body``: the
+blocks differentiated by autograd with respect to the dense leaves and the
+input tokens' item rows, the sampled-softmax loss (``sampled_softmax``)
+taken forward and backward by hand a chunk of positions at a time, AdamW
+on the dense leaves and exact row-wise Adagrad on the item table through
+the coalesce-first route (``optimizer.coalesced_rows_update``).
+
 Every update is in place: a step returns the params and optimizer state it
 was given, updated. Nothing in a step waits for the device; losses come
 back as device tensors.
@@ -59,8 +66,9 @@ from typing import Callable, Dict, Optional, Union
 
 import torch
 
-from dlrm_yx_tpu_torch.config import DLRMConfig
-from dlrm_yx_tpu_torch.data.batch import Batch, to_device
+from dlrm_yx_tpu_torch.config import DLRMConfig, HSTUConfig
+from dlrm_yx_tpu_torch.data.batch import Batch, SeqBatch, to_device
+from dlrm_yx_tpu_torch.models.hstu import NORM_EPS, count_step, hstu_embeddings, step_context
 from dlrm_yx_tpu_torch.models.dlrm import (
     dense_leaves,
     forward_from_pooled,
@@ -82,9 +90,13 @@ from dlrm_yx_tpu_torch.ops.embedding import (
 from dlrm_yx_tpu_torch.ops.losses import loss_fn, predictions_from_logits
 from dlrm_yx_tpu_torch.ops.qr_embedding import qr_row_grads
 from dlrm_yx_tpu_torch.optim.lr_policy import lr_or_constant
+from dlrm_yx_tpu_torch.ops.hstu_attention import token_positions
 from dlrm_yx_tpu_torch.optim.optimizer import (
     DENSE_ACCUM_FACTOR,
+    AdamWConfig,
     OptConfig,
+    adamw_update,
+    coalesced_rows_update,
     finish_dense,
     sparse_update,
     sparse_update_1d,
@@ -94,7 +106,14 @@ from dlrm_yx_tpu_torch.optim.optimizer import (
 )
 from dlrm_yx_tpu_torch.train import capture as _capture
 from dlrm_yx_tpu_torch.utils.device import resolve_device
-from dlrm_yx_tpu_torch.utils.profiling import phase_scope
+from dlrm_yx_tpu_torch.utils.profiling import count_on_device, phase_scope
+
+# a sampled negative equal to the position's positive: the reference's masked logit
+MASKED_LOGIT = -5e4
+# positions the sampled softmax takes at a time: [2,048, 129, d] candidate rows
+SOFTMAX_CHUNK = 2048
+# HSTU's dense leaves: AdamW at lr 1e-3, betas (0.9, 0.98), eps 1e-8
+HSTU_ADAMW = AdamWConfig()
 
 
 def _qr_grads(config: DLRMConfig, params: Dict, indices, weights, g_qr_pooled):
@@ -413,3 +432,101 @@ def make_accum_train_step(config: DLRMConfig, opt: OptConfig, n_accum: int,
         return loss_sum / n_accum
 
     return _capture.one_step(body, lr_or_constant(lr_fn, opt.lr), dev, capture)
+
+
+def sampled_softmax(config: HSTUConfig, items: torch.Tensor, u: torch.Tensor, b: SeqBatch,
+                    row_grads: torch.Tensor):
+    """HSTU's sampled-softmax loss over a batch's supervised positions, its
+    forward and backward by hand: (loss, dL/du [T, d]), and each position's
+    candidate rows' gradient written into ``row_grads`` [T, R + 1, d] (the
+    positive, then the R negatives; zero at unsupervised positions).
+
+    At a position with output u (L2-normalised), the candidates' rows x_c
+    (the positive's, then the negatives') are L2-normalised (e_c = x_c /
+    max(|x_c|, 1e-6)); the logits are u . e_c / temperature, a negative
+    equal to the positive masked to -5e4; the loss is the positive's
+    -log_softmax, weighted by the position's weight over the weights' sum.
+    A chunk of ``SOFTMAX_CHUNK`` positions at a time, in f32, so the
+    [T, R + 1, d] candidate rows are never gathered at once."""
+    t, d = u.shape
+    tau = config.temperature
+    w = b.weights.float()
+    scale = w / w.sum()
+    count_on_device("sampled_softmax.negatives", (w > 0).sum() * config.num_negatives)
+    cand = torch.cat([b.positives.long()[:, None], b.negatives.long()], dim=1)
+    loss = torch.zeros((), dtype=torch.float32, device=u.device)
+    g_u = torch.empty_like(u)
+    for c0 in range(0, t, SOFTMAX_CHUNK):
+        c1 = min(c0 + SOFTMAX_CHUNK, t)
+        ids = cand[c0:c1]
+        rows = items.index_select(0, ids.reshape(-1)).view(c1 - c0, -1, d)
+        norm = torch.linalg.vector_norm(rows, dim=-1, keepdim=True)
+        e = rows / norm.clamp(min=NORM_EPS)
+        uc = u[c0:c1]
+        logits = torch.bmm(e, uc[:, :, None]).squeeze(-1) / tau
+        hit = ids[:, 1:] == ids[:, :1]
+        logits[:, 1:].masked_fill_(hit, MASKED_LOGIT)
+        logp = torch.log_softmax(logits, dim=1)
+        sc = scale[c0:c1]
+        loss -= (sc * logp[:, 0]).sum()
+        dl = logp.exp_()
+        dl[:, 0] -= 1.0
+        dl.mul_((sc / tau)[:, None])
+        dl[:, 1:].masked_fill_(hit, 0.0)
+        g_u[c0:c1] = torch.bmm(dl[:, None, :], e).squeeze(1)
+        ge = dl[..., None] * uc[:, None, :]
+        # through e = x / max(|x|, eps): the projection off e where the norm
+        # is not clamped
+        proj = (ge * e).sum(dim=-1, keepdim=True) * (norm > NORM_EPS)
+        torch.div(ge - e * proj, norm.clamp(min=NORM_EPS), out=row_grads[c0:c1])
+    return loss, g_u
+
+
+def hstu_train_body(config: HSTUConfig, opt: OptConfig):
+    """body(params, opt_state, b, lr, step) -> loss: one HSTU optimizer
+    step on a device ``SeqBatch`` ``b``; lr the table's (a float or 0-dim
+    f32 device tensor; the dense leaves' is it times ``HSTU_ADAMW.lr`` over
+    ``opt.lr``), step the 0-based iteration (int or 0-dim integer tensor:
+    AdamW's bias correction takes step + 1)."""
+    adam = HSTU_ADAMW
+    if opt.name != "rwsadagrad":
+        raise ValueError("HSTU trains its table by row-wise Adagrad (--optimizer "
+                         "rwsadagrad) and its dense leaves by AdamW")
+    d, r = config.embedding_dim, config.num_negatives
+
+    def body(params, opt_state, b, lr, step):
+        items = params["items"]
+        t = b.ids.shape[0]
+        count_step(config, b.offsets, b.weights)
+        ctx = step_context(config, b.offsets, b.times)
+        ids = b.ids.long()
+        with torch.no_grad():
+            rows_in = items.index_select(0, ids)
+        rows_in.requires_grad_()
+        leaves = [p.detach().requires_grad_() for p in dense_leaves(params)]
+        with torch.enable_grad():
+            u = hstu_embeddings({**params, **nest_dense(params, leaves)}, config, rows_in,
+                                token_positions(b.offsets, t), ctx)
+        # every item's row gradient: the input tokens', then each position's
+        # positive and negatives
+        grads = torch.empty((t * (r + 2), d), dtype=torch.float32, device=items.device)
+        with torch.no_grad(), phase_scope("loss.sampled_softmax"):
+            loss, g_u = sampled_softmax(config, items, u.detach(), b, grads[t:].view(t, r + 1, d))
+        with phase_scope("backward"):
+            g = torch.autograd.grad(u, leaves + [rows_in], g_u)
+        with torch.no_grad(), phase_scope("optimizer"):
+            grads[:t] = g[-1]
+            # the items in the order grads holds them
+            cand = torch.cat([b.positives.long()[:, None], b.negatives.long()], dim=1)
+            flat_idx = torch.cat([ids, cand.reshape(-1)])
+            step_t = torch.as_tensor(step, device=items.device).float() + 1.0
+            adamw_update(adam, dense_leaves(params), list(g[:-1]),
+                         dense_leaves(opt_state["adam_m"]), dense_leaves(opt_state["adam_v"]),
+                         lr * (adam.lr / opt.lr), step_t)
+            held = [grads]
+            del grads, g
+            coalesced_rows_update(opt, items, opt_state["items"], flat_idx, held, lr,
+                                  config.num_items)
+        return loss
+
+    return body

@@ -9,7 +9,7 @@ stop on accuracy / AUC thresholds. Device losses are fetched only at print
 and eval boundaries, so the loop does not wait for the card at every step.
 
 The Trainer drives one runner (``parallel/runner.py``): ``LocalRunner``
-here on one device, or a mesh runner a rank (``parallel/hybrid.py``,
+(DLRM) or ``HstuRunner`` (HSTU) here on one device, or a mesh runner a rank (``parallel/hybrid.py``,
 ``row_sharded.py``, ``col_sharded.py``). The runner holds the params and
 optimizer state and builds the steps; the Trainer feeds and times them.
 
@@ -55,11 +55,17 @@ from typing import Callable, Iterable, List, Optional, Union
 import numpy as np
 import torch
 
-from dlrm_yx_tpu_torch.config import DLRMConfig
-from dlrm_yx_tpu_torch.data.batch import Batch, stack_batches, stage_batch
+from dlrm_yx_tpu_torch.config import DLRMConfig, HSTUConfig
+from dlrm_yx_tpu_torch.data.batch import Batch, SeqBatch, stack_batches, stage_batch
 from dlrm_yx_tpu_torch.models.dlrm import DLRM, init_dlrm, model_groups
+from dlrm_yx_tpu_torch.models.hstu import init_hstu
 from dlrm_yx_tpu_torch.optim.lr_policy import LRPolicy, lr_or_constant
-from dlrm_yx_tpu_torch.optim.optimizer import OptConfig, init_opt_state
+from dlrm_yx_tpu_torch.optim.optimizer import (
+    OptConfig,
+    init_adamw_state,
+    init_opt_state,
+    store_state,
+)
 from dlrm_yx_tpu_torch.parallel.runner import Runner
 from dlrm_yx_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint, skip_position
 from dlrm_yx_tpu_torch.train.metrics import StreamingAUC, binary_metrics
@@ -68,6 +74,7 @@ from dlrm_yx_tpu_torch.train.train_step import (
     make_eval_step,
     make_multistep_train_step,
     make_train_step,
+    hstu_train_body,
     train_body,
 )
 from dlrm_yx_tpu_torch.utils.device import resolve_device
@@ -245,6 +252,48 @@ class LocalRunner(Runner):
         return load_checkpoint(path, params, opt_state)[2]
 
 
+class HstuRunner(Runner):
+    """The single-device HSTU runner (``models/hstu.py``): ``init_hstu``'s
+    params on ``device``, the item table's row momentum and AdamW's moments
+    of the dense leaves, and the steps of ``hstu_train_body``. It has no
+    table groups, accumulation, eval step or checkpoints."""
+
+    graph_name = "hstu_step"
+    groups = ()
+
+    def __init__(self, config: HSTUConfig, opt: OptConfig, lr_fn=None, seed: int = 123,
+                 n_accum: int = 1, device: Optional[Union[str, torch.device]] = None):
+        if n_accum > 1:
+            raise NotImplementedError("HSTU takes no gradient accumulation")
+        self.config, self.opt = config, opt
+        self.lr_fn = lr_or_constant(lr_fn, opt.lr)
+        self.n_accum = 1
+        self.device = resolve_device(device)
+        self.capture = self.device.type == "cuda"
+        self.params = init_hstu(config, seed=seed, device=self.device)
+        self.opt_state = {"items": store_state(opt, self.params["items"]),
+                          **init_adamw_state(self.params)}
+        self.train_body = hstu_train_body(config, opt)
+
+    def _eval_step(self):
+        def refused(*_):
+            raise NotImplementedError("HSTU has no eval step: serving it (M-FALCON's cached "
+                                      "inference) is not ported")
+        return refused
+
+    def prepare_batch(self, b: SeqBatch) -> SeqBatch:
+        return b
+
+    def single_device_params(self, params: dict) -> dict:
+        raise NotImplementedError("HSTU's params are not exported or served")
+
+    def save_checkpoint(self, *_, **__) -> None:
+        raise NotImplementedError("HSTU checkpoints are not ported")
+
+    def load_checkpoint(self, *_) -> dict:
+        raise NotImplementedError("HSTU checkpoints are not ported")
+
+
 class Trainer:
     def __init__(
         self,
@@ -260,14 +309,16 @@ class Trainer:
         batches and names the device (a mesh runner, e.g.
         ``parallel.hybrid.HybridRunner``); without one a ``LocalRunner`` on
         ``device`` (the card unless the caller asks for the CPU) with
-        ``init_dlrm(config, tcfg.seed)``'s params."""
+        ``init_dlrm(config, tcfg.seed)``'s params, or for an HSTU
+        configuration an ``HstuRunner``."""
         self.config = config
         self.opt = opt
         self.tcfg = tcfg
         self.accum = max(1, tcfg.grad_accum_iter)
-        self.runner = runner or LocalRunner(config, opt, lr_policy, tcfg.seed, self.accum, device)
+        local = HstuRunner if isinstance(config, HSTUConfig) else LocalRunner
+        self.runner = runner or local(config, opt, lr_policy, tcfg.seed, self.accum, device)
         self.device = self.runner.device
-        self.groups = model_groups(config)
+        self.groups = self.runner.groups
         if self.accum > 1 and self.runner.n_accum != self.accum:
             raise ValueError(
                 f"runner was built with n_accum={self.runner.n_accum} but "

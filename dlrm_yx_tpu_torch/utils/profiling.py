@@ -43,7 +43,13 @@ the items of duplicated rows, their runs, the runs of 64 items or more;
 segments summed across chunks; ``ops.coalesce.coalesce_counts``), read
 only when a snapshot is taken.
 ``train.capture.GraphStep`` takes back what a body counted on its thread
-while it was captured, and adds it again at each replay.
+while it was captured, and adds it again at each replay. A count that the
+batch decides, and that a captured step cannot know on the host, is a
+device count (``count_on_device``: a 0-dim integer tensor added on the
+device, so a replay adds its own batch's; HSTU's ``hstu.sequences``,
+``hstu.live_scores``, ``hstu.pad_scores`` and
+``sampled_softmax.negatives``, ``models/hstu.py``), read only when a
+snapshot is taken.
 
 ``trace`` is the port of ``profiling.py:45-52`` (``--enable-profiling``):
 a ``torch.profiler`` window over the enclosed work on every thread,
@@ -115,6 +121,35 @@ def count(name: str, n: int = 1) -> None:
     counts[name] = counts.get(name, 0) + n
 
 
+_device_counts: Dict[tuple, torch.Tensor] = {}  # (name, device) -> 0-dim int64
+
+
+def count_on_device(name: str, n: torch.Tensor) -> None:
+    """Add ``n``, a 0-dim integer tensor, to the device count ``name`` on
+    its device, without waiting for it. Inside a CUDA-graph capture the add
+    is a node of the graph, so every replay adds its own value; the count
+    must have been made by an eager call first (a captured step's warm-up
+    makes it)."""
+    key = (name, str(n.device))
+    acc = _device_counts.get(key)
+    if acc is None:
+        if n.device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"device count {name!r} first met inside a CUDA-graph capture")
+        acc = _device_counts[key] = torch.zeros((), dtype=torch.int64, device=n.device)
+    acc.add_(n)
+
+
+def device_counts() -> Dict[str, int]:
+    """Every device count, summed over devices (a copy from each), or {}
+    while a CUDA graph is being captured."""
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        return {}
+    out: Dict[str, int] = {}
+    for (name, _), acc in list(_device_counts.items()):
+        out[name] = out.get(name, 0) + int(acc)
+    return out
+
+
 def _alloc_counts() -> Dict[str, int]:
     if not (torch.cuda.is_available() and torch.cuda.is_initialized()):
         return {}
@@ -132,8 +167,8 @@ def _alloc_counts() -> Dict[str, int]:
 
 def counters() -> Dict[str, int]:
     """A snapshot of every counter: the threads' counts summed, the kernel
-    launches, the allocators' totals and the row plan's and K7a's device
-    counts."""
+    launches, the allocators' totals, the row plan's and K7a's device
+    counts and those of ``count_on_device``."""
     from dlrm_yx_tpu_torch.ops.coalesce import coalesce_counts
     from dlrm_yx_tpu_torch.ops.sparse_rows_add import row_plan_counts
     from dlrm_yx_tpu_torch.train.capture import launch_counters
@@ -148,6 +183,7 @@ def counters() -> Dict[str, int]:
     out.update(_alloc_counts())
     out.update(row_plan_counts())
     out.update(coalesce_counts())
+    out.update(device_counts())
     return out
 
 

@@ -72,11 +72,16 @@ def test_only_the_mesh_flags_are_left_unported():
 
     jax_args = vars(jax_parser().parse_args([]))
     port_args = vars(port_cli.build_parser().parse_args([]))
-    # every JAX flag is declared (the port adds --device and DLRM-DCNv2's
-    # flags, a model the JAX package does not have), and every shard mode
-    # runs with a mesh (row and column sharding were the last)
+    # every JAX flag is declared (the port adds --device, DLRM-DCNv2's flags
+    # and HSTU's, models the JAX package does not have), and every shard
+    # mode runs with a mesh (row and column sharding were the last)
+    hstu = {"model"} | {k for k in port_args if k.startswith("hstu_")}
+    assert hstu == {"model", "hstu_num_items", "hstu_embedding_dim", "hstu_num_heads",
+                    "hstu_attention_dim", "hstu_linear_dim", "hstu_num_blocks",
+                    "hstu_max_seq_len", "hstu_num_negatives", "hstu_temperature",
+                    "hstu_tokens_per_batch", "hstu_max_sequences"}
     assert set(port_args) - set(jax_args) == {"device", "dcn_num_layers", "dcn_low_rank_dim",
-                                              "multi_hot_sizes"}
+                                              "multi_hot_sizes"} | hstu
     assert set(jax_args) <= set(port_args)
     for mode in ("table", "row", "col"):
         port_cli.check_ported(port_cli.build_parser().parse_args(
